@@ -1,0 +1,44 @@
+"""The PyTorch port imports neither JAX/flax nor the JAX package or tools.
+
+Runs in a subprocess, because this test process has already imported jax
+(tests/conftest.py): a meta-path finder there refuses jax, flax, unicorn_tpu
+and tools, then every module of unicorn_torch is imported.
+"""
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import importlib, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "flax", "unicorn_tpu", "tools")
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Blocker())
+import unicorn_torch
+names = ["unicorn_torch"] + [
+    m.name for m in pkgutil.walk_packages(unicorn_torch.__path__,
+                                          "unicorn_torch.")]
+for n in names:
+    importlib.import_module(n)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_imports_no_jax_nor_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    # the package, its subpackages and the modules of slice 1
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 20

@@ -1,0 +1,19 @@
+"""unicorn_torch — the PyTorch/CUDA port of unicorn_tpu for NVIDIA Hopper.
+
+The JAX package `unicorn_tpu` is the reference; this package imports none of
+it (nor jax/flax) and keeps its own copies of the host-side code it needs.
+Plain tensor code is PyTorch; every Pallas kernel of the ported path is a
+hand-written CUDA kernel under `csrc/`, built with nvcc on first use.
+
+Ported so far (slice 1, MOT detect-and-track):
+  models/   ConvNeXt-Tiny trunk, YOLO PAFPN, unified head, `Unicorn`
+  ops/      dw7x7 kernel wrapper, fixed-shape NMS, device letterbox
+  tracker/  host ByteTrack (Kalman, Hungarian matching)
+  drivers/  `MOTDriver` (ByteTrack path)
+  exp/      `ExpTrack` model/test fields, `unicorn_track_tiny`
+  convert   flax param tree -> reference-named state_dict
+"""
+
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

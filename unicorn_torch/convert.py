@@ -1,0 +1,255 @@
+"""Weight bridge: a flax parameter tree of the JAX package -> a state_dict
+with the reference torch model's names, which the port's modules use.
+
+The name table is a copy of tools/convert_torch_weights.py `build_rules`
+(reference torch name regex -> flax path), which maps torch -> flax. Here
+each rule is inverted: its flax template becomes a regex over flax paths and
+its torch regex a template, and each transform is undone:
+
+  flax conv kernel (kh, kw, I, O) -> torch (O, I, kh, kw)
+  flax dw kernel   (kh, kw, 1, C) -> torch (C, 1, kh, kw)
+  flax Dense       (I, O)         -> torch (O, I)
+  head beta        (C,)           -> torch (1, C, 1, 1)
+
+Leaves of modules the port does not have yet (the interaction bottleneck,
+the embedding upsample, the position embedding, the deformable
+interaction, the mask branch) are returned in a list, never dropped.
+"""
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+# leaves under these top-level flax modules belong to modules not yet ported
+NOT_PORTED = ("bottleneck", "upsample", "pos_emb", "interaction",
+              "mask_branch")
+
+
+def t_conv(w):
+    return np.transpose(w, (2, 3, 1, 0))
+
+
+def t_linear(w):
+    return np.transpose(w, (1, 0))
+
+
+def t_beta(w):
+    return w.reshape(-1)
+
+
+# the inverse of each torch -> flax transform
+INVERSE = {
+    t_conv: lambda w: np.transpose(w, (3, 2, 0, 1)),
+    t_linear: lambda w: np.transpose(w, (1, 0)),
+    t_beta: lambda w: w.reshape(1, -1, 1, 1),
+    None: lambda w: w,
+}
+
+
+def map_base_conv(dst, prefix):
+    """Reference BaseConv '<p>.conv.weight' + '<p>.bn.{weight,bias}'."""
+    return {
+        "conv.weight": (f"{dst}/Conv_0/kernel", t_conv),
+        "bn.weight": (f"{dst}/GroupNorm32_0/GroupNorm_0/scale", None),
+        "bn.bias": (f"{dst}/GroupNorm32_0/GroupNorm_0/bias", None),
+    }
+
+
+def map_csp(dst, n_bottleneck=3):
+    out = {}
+    for src_c, dst_c in (("conv1", "BaseConv_0"), ("conv2", "BaseConv_1"),
+                         ("conv3", "BaseConv_2")):
+        for k, v in map_base_conv(f"{dst}/{dst_c}", "").items():
+            out[f"{src_c}.{k}"] = v
+    for b in range(n_bottleneck):
+        for src_c, dst_c in (("conv1", "BaseConv_0"), ("conv2", "BaseConv_1")):
+            for k, v in map_base_conv(f"{dst}/Bottleneck_{b}/{dst_c}", "").items():
+                out[f"m.{b}.{src_c}.{k}"] = v
+    return out
+
+
+def map_convnext_block(dst):
+    return {
+        "dwconv.weight": (f"{dst}/Conv_0/kernel", t_conv),
+        "dwconv.bias": (f"{dst}/Conv_0/bias", None),
+        "norm.weight": (f"{dst}/LayerNorm_0/scale", None),
+        "norm.bias": (f"{dst}/LayerNorm_0/bias", None),
+        "pwconv1.weight": (f"{dst}/Dense_0/kernel", t_linear),
+        "pwconv1.bias": (f"{dst}/Dense_0/bias", None),
+        "pwconv2.weight": (f"{dst}/Dense_1/kernel", t_linear),
+        "pwconv2.bias": (f"{dst}/Dense_1/bias", None),
+        "gamma": (f"{dst}/gamma", None),
+    }
+
+
+def build_rules(depth=1.0, n_layer_att=3, n_levels=3):
+    """Returns list of (regex, dst_template, transform) rules."""
+    rules = []
+
+    def add(pat, dst, tf=None):
+        rules.append((re.compile(pat + "$"), dst, tf))
+
+    # --- ConvNeXt backbone ---
+    bb = "backbone/ConvNeXt_0"
+    add(r"backbone\.backbone\.downsample_layers\.0\.0\.weight",
+        f"{bb}/stem_conv/kernel", t_conv)
+    add(r"backbone\.backbone\.downsample_layers\.0\.0\.bias",
+        f"{bb}/stem_conv/bias")
+    add(r"backbone\.backbone\.downsample_layers\.0\.1\.weight",
+        f"{bb}/stem_norm/scale")
+    add(r"backbone\.backbone\.downsample_layers\.0\.1\.bias",
+        f"{bb}/stem_norm/bias")
+    add(r"backbone\.backbone\.downsample_layers\.(\d+)\.0\.weight",
+        f"{bb}/down_norm\\1/scale")
+    add(r"backbone\.backbone\.downsample_layers\.(\d+)\.0\.bias",
+        f"{bb}/down_norm\\1/bias")
+    add(r"backbone\.backbone\.downsample_layers\.(\d+)\.1\.weight",
+        f"{bb}/down_conv\\1/kernel", t_conv)
+    add(r"backbone\.backbone\.downsample_layers\.(\d+)\.1\.bias",
+        f"{bb}/down_conv\\1/bias")
+    for src, (dst, tf) in [
+        (k, v) for k, v in map_convnext_block(
+            f"{bb}/stage\\1_block\\2").items()
+    ]:
+        add(r"backbone\.backbone\.stages\.(\d+)\.(\d+)\." +
+            src.replace(".", r"\."), dst, tf)
+    add(r"backbone\.backbone\.norm(\d+)\.weight", f"{bb}/out_norm\\1/scale")
+    add(r"backbone\.backbone\.norm(\d+)\.bias", f"{bb}/out_norm\\1/bias")
+
+    # --- PAFPN ---
+    for name in ("lateral_conv0", "reduce_conv1", "bu_conv1", "bu_conv2",
+                 "adjust0", "adjust1", "adjust2"):
+        for src, (dst, tf) in map_base_conv(f"backbone/{name}", "").items():
+            add(rf"backbone\.{name}\." + src.replace(".", r"\."), dst, tf)
+    for csp in ("C3_p4", "C3_p3", "C3_n3", "C3_n4"):
+        for src, (dst, tf) in map_csp(f"backbone/{csp}",
+                                      n_bottleneck=round(3 * depth)).items():
+            add(rf"backbone\.{csp}\." + src.replace(".", r"\."), dst, tf)
+
+    # --- head ---
+    for src, (dst, tf) in map_base_conv("head/stem\\1", "").items():
+        add(r"head\.stems\.(\d+)\." + src.replace(".", r"\."), dst, tf)
+    for tower, dst_t in (("cls_convs", "cls_conv"), ("reg_convs", "reg_conv")):
+        for src, (dst, tf) in map_base_conv(f"head/{dst_t}\\1_\\2", "").items():
+            add(rf"head\.{tower}\.(\d+)\.(\d+)\." + src.replace(".", r"\."),
+                dst, tf)
+    for pred, dst_p in (("cls_preds", "cls_pred"), ("reg_preds", "reg_pred"),
+                        ("obj_preds", "obj_pred"),
+                        ("cls_preds_sot", "cls_pred_sot"),
+                        ("reg_preds_sot", "reg_pred_sot"),
+                        ("obj_preds_sot", "obj_pred_sot"),
+                        ("controllers", "controller")):
+        add(rf"head\.{pred}\.(\d+)\.weight", f"head/{dst_p}\\1/Conv_0/kernel",
+            t_conv)
+        add(rf"head\.{pred}\.(\d+)\.bias", f"head/{dst_p}\\1/Conv_0/bias")
+    for src, (dst, tf) in map_convnext_block("head/att\\1_\\2").items():
+        add(r"head\.att_layers\.(\d+)\.(\d+)\." + src.replace(".", r"\."),
+            dst, tf)
+    add(r"head\.beta_(\d+)", "head/beta_\\1", t_beta)
+
+    # --- bottleneck / upsample / pos emb / deformable transformer ---
+    add(r"bottleneck\.0\.weight", "bottleneck/Conv_0/kernel", t_conv)
+    add(r"bottleneck\.0\.bias", "bottleneck/Conv_0/bias")
+    add(r"bottleneck\.1\.weight", "bottleneck/GroupNorm_0/scale")
+    add(r"bottleneck\.1\.bias", "bottleneck/GroupNorm_0/bias")
+    add(r"upsample_layer\.1\.weight", "upsample/Conv_0/kernel", t_conv)
+    add(r"upsample_layer\.1\.bias", "upsample/Conv_0/bias")
+    add(r"upsample_layer\.3\.weight", "upsample/Conv_1/kernel", t_conv)
+    add(r"upsample_layer\.3\.bias", "upsample/Conv_1/bias")
+    add(r"pos_emb\.row_embed\.weight", "pos_emb/row_embed")
+    add(r"pos_emb\.col_embed\.weight", "pos_emb/col_embed")
+    add(r"transformer\.level_embed", "interaction/level_embed")
+    for src, dst in (("sampling_offsets", "sampling_offsets"),
+                     ("attention_weights", "attention_weights"),
+                     ("value_proj", "value_proj"),
+                     ("output_proj", "output_proj")):
+        add(rf"transformer\.encoder\.layers\.(\d+)\.self_attn\.{src}\.weight",
+            f"interaction/layer\\1/{dst}/kernel", t_linear)
+        add(rf"transformer\.encoder\.layers\.(\d+)\.self_attn\.{src}\.bias",
+            f"interaction/layer\\1/{dst}/bias")
+    add(r"transformer\.encoder\.layers\.(\d+)\.norm1\.weight",
+        "interaction/layer\\1/LayerNorm_0/scale")
+    add(r"transformer\.encoder\.layers\.(\d+)\.norm1\.bias",
+        "interaction/layer\\1/LayerNorm_0/bias")
+    add(r"transformer\.encoder\.layers\.(\d+)\.linear1\.weight",
+        "interaction/layer\\1/Dense_0/kernel", t_linear)
+    add(r"transformer\.encoder\.layers\.(\d+)\.linear1\.bias",
+        "interaction/layer\\1/Dense_0/bias")
+    add(r"transformer\.encoder\.layers\.(\d+)\.linear2\.weight",
+        "interaction/layer\\1/Dense_1/kernel", t_linear)
+    add(r"transformer\.encoder\.layers\.(\d+)\.linear2\.bias",
+        "interaction/layer\\1/Dense_1/bias")
+    add(r"transformer\.encoder\.layers\.(\d+)\.norm2\.weight",
+        "interaction/layer\\1/LayerNorm_1/scale")
+    add(r"transformer\.encoder\.layers\.(\d+)\.norm2\.bias",
+        "interaction/layer\\1/LayerNorm_1/bias")
+
+    # --- CondInst mask branch ---
+    for name, dst_name, n in (("refine", "refine", 3), ("tower", "tower", 4)):
+        for i in range(n):
+            add(rf"head\.mask_branch\.{name}\.{i}\.0\.weight",
+                f"mask_branch/{dst_name}{i}/Conv_0/kernel", t_conv)
+            add(rf"head\.mask_branch\.{name}\.{i}\.1\.weight",
+                f"mask_branch/{dst_name}{i}/GroupNorm32_0/GroupNorm_0/scale")
+            add(rf"head\.mask_branch\.{name}\.{i}\.1\.bias",
+                f"mask_branch/{dst_name}{i}/GroupNorm32_0/GroupNorm_0/bias")
+    add(r"head\.mask_branch\.tower\.4\.weight", "mask_branch/tower_out/kernel",
+        t_conv)
+    add(r"head\.mask_branch\.tower\.4\.bias", "mask_branch/tower_out/bias")
+    add(r"head\.mask_branch\.up_mask_layer\.0\.weight",
+        "mask_branch/up_mask_conv1/kernel", t_conv)
+    add(r"head\.mask_branch\.up_mask_layer\.0\.bias",
+        "mask_branch/up_mask_conv1/bias")
+    add(r"head\.mask_branch\.up_mask_layer\.2\.weight",
+        "mask_branch/up_mask_conv2/kernel", t_conv)
+    add(r"head\.mask_branch\.up_mask_layer\.2\.bias",
+        "mask_branch/up_mask_conv2/bias")
+    return rules
+
+
+def _inverse_rules(depth):
+    """(flax path regex, torch name template, inverse transform) per rule."""
+    inv = []
+    for pat, dst, tf in build_rules(depth=depth):
+        flax_re = re.compile(re.escape(dst).replace(r"\\1", r"(\d+)")
+                             .replace(r"\\2", r"(\d+)") + "$")
+        groups = iter(range(1, 10))
+        torch_t = re.sub(r"\(\\d\+\)", lambda m: f"\\{next(groups)}",
+                         pat.pattern[:-1]).replace("\\.", ".")
+        inv.append((flax_re, torch_t, INVERSE[tf]))
+    return inv
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            yield from _flatten(v, prefix + (str(k),))
+        else:
+            yield "/".join(prefix + (str(k),)), v
+
+
+def from_flax(params, depth: float = 1.0):
+    """flax params tree (the variables dict or its "params") -> (state_dict
+    of fp32 torch tensors under the reference's names, sorted list of the
+    flax paths of modules not yet ported). A leaf that no rule names
+    raises."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    rules = _inverse_rules(depth)
+    state, not_ported = {}, []
+    for path, leaf in _flatten(params):
+        if path.split("/")[0] in NOT_PORTED:
+            not_ported.append(path)
+            continue
+        for flax_re, torch_t, inv in rules:
+            m = flax_re.match(path)
+            if m:
+                name = m.expand(torch_t)
+                w = inv(np.asarray(leaf, np.float32))
+                state[name] = torch.tensor(w)
+                break
+        else:
+            raise KeyError(f"from_flax: no rule names the flax leaf {path!r}")
+    return state, sorted(not_ported)

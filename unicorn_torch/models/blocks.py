@@ -1,0 +1,266 @@
+"""YOLOX-family conv blocks and the ConvNeXt block, PyTorch.
+
+Port of unicorn_tpu/models/blocks.py. Activations are NCHW tensors kept in
+torch.channels_last memory, so `x.permute(0, 2, 3, 1)` is a contiguous NHWC
+view at no cost. Parameters are fp32 and are cast to the module's compute
+`dtype` at use, as flax does. Parameter names are those of the reference
+torch model, so its state_dict keys line up (see unicorn_torch/convert.py).
+
+Norms use PyTorch's mean-centred variance; flax computes E[x^2] - E[x]^2.
+The two agree to fp32 rounding on these activations, which the parity
+tests cover at atol 1e-4.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.dwconv7x7 import dwconv7x7
+
+CL = torch.channels_last
+_TRUNC = 0.87962566103423978  # std of a standard normal truncated to [-2, 2]
+
+
+def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """flax lecun_normal: truncated normal on [-2s, 2s], s = sqrt(1/fan_in)
+    / 0.8796, fan_in = every axis but the output one."""
+    std = math.sqrt(1.0 / w[0].numel()) / _TRUNC
+    with torch.no_grad():
+        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                              generator=generator)
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Initialise every parameter as the JAX package's flax init does (its
+    distributions, not its random bits): lecun_normal kernels, zero biases,
+    unit norm scales, and each module's own constants (`_init_extra`)."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)) or getattr(m, "lecun", False):
+            lecun_normal_(m.weight, generator)
+            if m.bias is not None:
+                with torch.no_grad():
+                    m.bias.zero_()
+        elif isinstance(m, (GroupNorm32, LayerNorm32)):
+            with torch.no_grad():
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+    for m in module.modules():
+        extra = getattr(m, "_init_extra", None)
+        if extra is not None:
+            extra()
+
+
+def get_activation(name: str = "silu"):
+    if name == "silu":
+        return F.silu
+    if name == "relu":
+        return F.relu
+    if name == "lrelu":
+        return lambda x: F.leaky_relu(x, negative_slope=0.1)
+    if name == "gelu":
+        return F.gelu
+    raise ValueError(f"Unsupported act type: {name}")
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computed in `dtype` on fp32 params. same=True gives flax's
+    'SAME' padding for a strided conv (the ConvNeXt 2x2/2 downsample)."""
+
+    def __init__(self, in_ch, out_ch, ksize, stride=1, padding=0, groups=1,
+                 bias=True, dtype=torch.float32, same=False):
+        super().__init__(in_ch, out_ch, ksize, stride, padding, groups=groups,
+                         bias=bias)
+        self.dtype = dtype
+        self.same = same
+
+    def forward(self, x):
+        dt = self.dtype
+        if self.same:
+            pads = []
+            for n, k, s in zip(x.shape[:1:-1], self.kernel_size[::-1],
+                               self.stride[::-1]):
+                total = max((-(-n // s) - 1) * s + k - n, 0)
+                pads += [total // 2, total - total // 2]
+            if any(pads):
+                x = F.pad(x, pads)
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride,
+                        self.padding, groups=self.groups)
+
+
+class GroupNorm32(nn.Module):
+    """GroupNorm (16 groups, or C if fewer) normalising in fp32, eps 1e-3
+    (the reference's BN->GN conversion keeps bn.eps)."""
+
+    def __init__(self, channels: int, num_groups: int = 16,
+                 dtype=torch.float32):
+        super().__init__()
+        self.groups = min(num_groups, channels)
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.dtype = dtype
+
+    def forward(self, x):
+        y = F.group_norm(x.float(), self.groups, self.weight, self.bias, 1e-3)
+        return y.to(self.dtype, memory_format=CL)
+
+
+class LayerNorm32(nn.Module):
+    """LayerNorm over channels in fp32, output in `dtype`. channels_first:
+    the input is NCHW (normalised over C through its NHWC view); otherwise
+    the last axis is C."""
+
+    def __init__(self, channels: int, eps: float = 1e-6, dtype=torch.float32,
+                 channels_first: bool = False):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.eps = eps
+        self.dtype = dtype
+        self.channels_first = channels_first
+
+    def forward(self, x):
+        if self.channels_first:
+            return self._ln(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        return self._ln(x)
+
+    def _ln(self, x):
+        y = F.layer_norm(x.float(), (x.shape[-1],), self.weight, self.bias,
+                         self.eps)
+        return y.to(self.dtype)
+
+
+class BaseConv(nn.Module):
+    """Conv2d -> GroupNorm -> act (reference BaseConv)."""
+
+    def __init__(self, in_ch, out_ch, ksize=1, stride=1, groups=1, act="silu",
+                 use_norm=True, bias=False, dtype=torch.float32):
+        super().__init__()
+        pad = (ksize - 1) // 2
+        self.conv = Conv2d(in_ch, out_ch, ksize, stride, pad, groups=groups,
+                           bias=bias or not use_norm, dtype=dtype)
+        self.bn = GroupNorm32(out_ch, dtype=dtype) if use_norm else None
+        self.act = get_activation(act)
+
+    def forward(self, x):
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        return self.act(x)
+
+
+class DWConv(nn.Module):
+    """Depthwise conv + pointwise conv (reference DWConv)."""
+
+    def __init__(self, in_ch, out_ch, ksize, stride=1, act="silu",
+                 dtype=torch.float32):
+        super().__init__()
+        self.dconv = BaseConv(in_ch, in_ch, ksize, stride, groups=in_ch,
+                              act=act, dtype=dtype)
+        self.pconv = BaseConv(in_ch, out_ch, 1, 1, act=act, dtype=dtype)
+
+    def forward(self, x):
+        return self.pconv(self.dconv(x))
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, in_ch, out_ch, shortcut=True, expansion=0.5,
+                 depthwise=False, act="silu", dtype=torch.float32):
+        super().__init__()
+        hidden = int(out_ch * expansion)
+        self.conv1 = BaseConv(in_ch, hidden, 1, 1, act=act, dtype=dtype)
+        conv = DWConv if depthwise else BaseConv
+        self.conv2 = conv(hidden, out_ch, 3, 1, act=act, dtype=dtype)
+        self.use_add = shortcut and in_ch == out_ch
+
+    def forward(self, x):
+        y = self.conv2(self.conv1(x))
+        return y + x if self.use_add else y
+
+
+class CSPLayer(nn.Module):
+    """C3: CSP bottleneck with 3 convs."""
+
+    def __init__(self, in_ch, out_ch, n=1, shortcut=True, expansion=0.5,
+                 depthwise=False, act="silu", dtype=torch.float32):
+        super().__init__()
+        hidden = int(out_ch * expansion)
+        self.conv1 = BaseConv(in_ch, hidden, 1, 1, act=act, dtype=dtype)
+        self.conv2 = BaseConv(in_ch, hidden, 1, 1, act=act, dtype=dtype)
+        self.conv3 = BaseConv(2 * hidden, out_ch, 1, 1, act=act, dtype=dtype)
+        self.m = nn.Sequential(*[
+            Bottleneck(hidden, hidden, shortcut, 1.0, depthwise, act=act,
+                       dtype=dtype) for _ in range(n)])
+
+    def forward(self, x):
+        x1 = self.m(self.conv1(x))
+        x2 = self.conv2(x)
+        return self.conv3(torch.cat([x1, x2], dim=1))
+
+
+class DepthwiseConv7x7(nn.Module):
+    """Depthwise 7x7 SAME conv + bias through ops.dwconv7x7: the CUDA kernel
+    on the card, the plain version on the CPU. weight (C,1,7,7), bias (C,)
+    as nn.Conv2d(C, C, 7, groups=C) keeps them."""
+
+    lecun = True  # init_weights: lecun_normal weight, zero bias
+
+    def __init__(self, dim: int, dtype=torch.float32):
+        super().__init__()
+        self.dim = dim
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(dim, 1, 7, 7))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward_nhwc(self, x):
+        """x NCHW -> (B,H,W,C) contiguous output."""
+        xn = x.to(self.dtype).contiguous(memory_format=CL).permute(0, 2, 3, 1)
+        taps = self.weight.reshape(self.dim, 49).t().reshape(7, 7, self.dim)
+        return dwconv7x7(xn, taps, self.bias)
+
+    def forward(self, x):
+        return self.forward_nhwc(x).permute(0, 3, 1, 2)
+
+
+class ConvNeXtBlock(nn.Module):
+    """dw7x7 -> fp32 LayerNorm -> Linear C->4C -> GELU -> Linear 4C->C ->
+    x gamma -> + residual. Used by the trunk and by the head's attention."""
+
+    def __init__(self, dim: int, layer_scale_init_value: float = 1e-6,
+                 dtype=torch.float32, exact_gelu: bool = True):
+        super().__init__()
+        self.dtype = dtype
+        self.approximate = "none" if exact_gelu else "tanh"
+        self.lsiv = layer_scale_init_value
+        self.dwconv = DepthwiseConv7x7(dim, dtype=dtype)
+        self.norm = LayerNorm32(dim, 1e-6, dtype=dtype)
+        self.pwconv1 = nn.Linear(dim, 4 * dim)
+        self.pwconv2 = nn.Linear(4 * dim, dim)
+        self.gamma = (nn.Parameter(torch.full((dim,), float(self.lsiv)))
+                      if self.lsiv > 0 else None)
+
+    def _init_extra(self):
+        if self.gamma is not None:
+            with torch.no_grad():
+                self.gamma.fill_(self.lsiv)
+
+    def forward(self, x):
+        dt = self.dtype
+        y = self.norm(self.dwconv.forward_nhwc(x))
+        y = F.linear(y, self.pwconv1.weight.to(dt), self.pwconv1.bias.to(dt))
+        y = F.gelu(y, approximate=self.approximate)
+        y = F.linear(y, self.pwconv2.weight.to(dt), self.pwconv2.bias.to(dt))
+        if self.gamma is not None:
+            y = y * self.gamma.to(dt)
+        return x.to(dt) + y.permute(0, 3, 1, 2)
+
+
+def upsample_nearest_2x(x):
+    """Nearest-neighbour 2x upsampling of an NCHW (channels_last) tensor."""
+    b, c, h, w = x.shape
+    xn = x.permute(0, 2, 3, 1)
+    xn = xn[:, :, None, :, None, :].expand(b, h, 2, w, 2, c)
+    return xn.reshape(b, 2 * h, 2 * w, c).permute(0, 3, 1, 2)

@@ -1,0 +1,80 @@
+"""YOLO PAFPN neck over a ConvNeXt backbone, PyTorch (port of
+unicorn_tpu/models/pafpn.py). forward returns (pan_out2, pan_out1, pan_out0)
+at strides (8, 16, 32), and optionally the raw backbone features."""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+
+from .blocks import BaseConv, CSPLayer, DWConv, upsample_nearest_2x
+from .convnext import (CONVNEXT_OUT_CHANNELS, convnext_base, convnext_large,
+                       convnext_tiny)
+
+
+def build_backbone(name: str, dtype=torch.float32, exact_gelu: bool = True):
+    """(module, raw stride-8/16/32 channel counts). ConvNeXt only so far."""
+    if name.startswith("convnext"):
+        fn = {
+            "convnext": convnext_tiny,
+            "convnext_tiny": convnext_tiny,
+            "convnext_base": convnext_base,
+            "convnext_large": convnext_large,
+        }[name]
+        return fn(dtype=dtype, exact_gelu=exact_gelu), CONVNEXT_OUT_CHANNELS[name]
+    if name.startswith("swin") or name in ("resnet50", "csp_darknet"):
+        raise NotImplementedError(f"backbone {name!r} is not yet ported")
+    raise ValueError(f"unsupported backbone: {name}")
+
+
+class YOLOPAFPN(nn.Module):
+    def __init__(self, depth: float = 1.0, width: float = 1.0,
+                 in_channels: Sequence[int] = (256, 512, 1024),
+                 depthwise: bool = False, act: str = "silu",
+                 backbone_name: str = "convnext_tiny", dtype=torch.float32,
+                 exact_gelu: bool = True):
+        super().__init__()
+        conv = DWConv if depthwise else BaseConv
+        c0, c1, c2 = [int(c * width) for c in in_channels]
+        kw = dict(act=act, dtype=dtype)
+        self.backbone, raw = build_backbone(backbone_name, dtype, exact_gelu)
+        self.adjust = raw != (c0, c1, c2)
+        if self.adjust:
+            self.adjust2 = BaseConv(raw[0], c0, 1, 1, **kw)
+            self.adjust1 = BaseConv(raw[1], c1, 1, 1, **kw)
+            self.adjust0 = BaseConv(raw[2], c2, 1, 1, **kw)
+        n = round(3 * depth)
+        csp = dict(n=n, shortcut=False, depthwise=depthwise, **kw)
+        self.lateral_conv0 = BaseConv(c2, c1, 1, 1, **kw)
+        self.C3_p4 = CSPLayer(2 * c1, c1, **csp)
+        self.reduce_conv1 = BaseConv(c1, c0, 1, 1, **kw)
+        self.C3_p3 = CSPLayer(2 * c0, c0, **csp)
+        self.bu_conv2 = conv(c0, c0, 3, 2, **kw)
+        self.C3_n3 = CSPLayer(2 * c0, c1, **csp)
+        self.bu_conv1 = conv(c1, c1, 3, 2, **kw)
+        self.C3_n4 = CSPLayer(2 * c1, c2, **csp)
+
+    def forward(self, x, return_base_feat: bool = False, run_fpn: bool = True):
+        x2, x1, x0 = self.backbone(x)  # strides 8, 16, 32
+        if not run_fpn:
+            return (x2, x1, x0)
+        if self.adjust:
+            x2_adj, x1_adj, x0_adj = (self.adjust2(x2), self.adjust1(x1),
+                                      self.adjust0(x0))
+        else:
+            x2_adj, x1_adj, x0_adj = x2, x1, x0
+        # top-down
+        fpn_out0 = self.lateral_conv0(x0_adj)
+        f_out0 = self.C3_p4(torch.cat([upsample_nearest_2x(fpn_out0), x1_adj], 1))
+        fpn_out1 = self.reduce_conv1(f_out0)
+        pan_out2 = self.C3_p3(torch.cat([upsample_nearest_2x(fpn_out1), x2_adj], 1))
+        # bottom-up
+        p_out1 = torch.cat([self.bu_conv2(pan_out2), fpn_out1], 1)
+        pan_out1 = self.C3_n3(p_out1)
+        p_out0 = torch.cat([self.bu_conv1(pan_out1), fpn_out0], 1)
+        pan_out0 = self.C3_n4(p_out0)
+        outputs = (pan_out2, pan_out1, pan_out0)
+        if return_base_feat:
+            return outputs, (x2, x1, x0)
+        return outputs

@@ -1,0 +1,89 @@
+"""The unified Unicorn model, PyTorch (port of unicorn_tpu/models/unicorn.py).
+
+Ported: the backbone + PAFPN stage (`forward_backbone`, both run_fpn modes),
+the unified head (`forward_head`) and the MOT detection forward
+(`forward_whole`). The interaction, embedding upsample and mask branch are
+not ported yet: their constructor fields accept only their defaults, and
+their parameters are reported by convert.from_flax as not ported.
+"""
+from __future__ import annotations
+
+from typing import Any, Sequence
+
+import torch
+import torch.nn as nn
+
+from .blocks import init_weights
+from .heads import UnicornHead
+from .pafpn import YOLOPAFPN
+
+
+def _not_ported(field, value):
+    raise NotImplementedError(f"Unicorn({field}={value!r}) needs a module "
+                              "that is not yet ported")
+
+
+class Unicorn(nn.Module):
+    """Backbone + PAFPN + unified head. Parameters are fp32, computed in
+    `dtype`, and drawn from `generator` (flax's init distributions; a
+    generator seeded with 0 when none is given)."""
+
+    def __init__(self, num_classes: int = 8, depth: float = 1.0,
+                 width: float = 1.0,
+                 in_channels: Sequence[int] = (192, 384, 768),
+                 backbone_name: str = "convnext_tiny", act: str = "silu",
+                 interact_mode: str = "deform", embed_dim: int = 128,
+                 hidden_dim: int = 256, use_attention: bool = True,
+                 n_layer_att: int = 3, unshared_obj: bool = True,
+                 unshared_reg: bool = True, fuse_method: str = "sum",
+                 learnable_fuse: bool = True, use_mask: bool = False,
+                 exact_gelu: bool = True, use_raft: bool = False,
+                 up_rate: int = 8, remat: Any = False, dtype=torch.float32,
+                 interact_dtype=torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        for field, value, default in (
+                ("interact_mode", interact_mode, "deform"),
+                ("embed_dim", embed_dim, 128), ("hidden_dim", hidden_dim, 256),
+                ("use_mask", use_mask, False), ("use_raft", use_raft, False),
+                ("up_rate", up_rate, 8), ("remat", remat, False),
+                ("interact_dtype", interact_dtype, torch.float32)):
+            if value != default:
+                _not_ported(field, value)
+        self.dtype = dtype
+        self.backbone = YOLOPAFPN(
+            depth=depth, width=width, in_channels=in_channels, act=act,
+            backbone_name=backbone_name, dtype=dtype, exact_gelu=exact_gelu)
+        self.head = UnicornHead(
+            num_classes=num_classes, width=width, in_channels=in_channels,
+            act=act, sot_branch=True, use_attention=use_attention,
+            n_layer_att=n_layer_att, unshared_obj=unshared_obj,
+            unshared_reg=unshared_reg, fuse_method=fuse_method,
+            learnable_fuse=learnable_fuse, exact_gelu=exact_gelu,
+            dtype=dtype)
+        init_weights(self, generator if generator is not None
+                     else torch.Generator().manual_seed(0))
+
+    def forward_backbone(self, imgs, run_fpn: bool = True):
+        """imgs (B, 3, H, W) -> (fpn_outs, feat_s16), or feat_s16 alone
+        when run_fpn is False. feat_s16 is the raw stride-16 backbone
+        feature the interaction uses."""
+        if run_fpn:
+            fpn_outs, base_outs = self.backbone(imgs, return_base_feat=True)
+            return fpn_outs, base_outs[1]
+        return self.backbone(imgs, run_fpn=False)[1]
+
+    def forward_head(self, fpn_outs, priors):
+        """The unified head. priors: per-level (B, 1, H, W) label maps."""
+        return self.head(fpn_outs, priors)
+
+    def forward_whole(self, imgs):
+        """MOT detection forward: backbone + head with zero priors.
+        Returns (raw_head_outputs, feat_s16)."""
+        fpn_outs, feat_s16 = self.forward_backbone(imgs)
+        priors = tuple(f.new_zeros((f.shape[0], 1) + tuple(f.shape[2:]))
+                       for f in fpn_outs)
+        return self.head(fpn_outs, priors), feat_s16
+
+    def forward(self, imgs):
+        return self.forward_whole(imgs)

@@ -1,0 +1,135 @@
+"""Depthwise 7x7 'SAME' conv + bias, NHWC: the hand-written CUDA kernel
+(csrc/dwconv7x7.cu) and its plain PyTorch version.
+
+Port of `dwconv7x7_pallas` (unicorn_tpu/ops/pallas_convnext.py:196) and its
+reference `dwconv7x7_ref` (:151). Semantics of the kernel: taps and bias are
+rounded to the compute dtype first, the 49-tap sum is taken in fp32 and the
+output is rounded once to the compute dtype. (The JAX reference form adds the
+bias in the compute dtype, so in bf16 it rounds twice; fp32 is identical.)
+
+`dwconv7x7` launches the kernel for a CUDA tensor and takes the plain
+version only for a tensor on the CPU. There is no fall-back: a CUDA tensor
+the kernel does not take raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+# (H, W, C) of the dw7x7 calls of one 800x1280 frame of the MOT path (B=1),
+# with how many blocks run at each: trunk stages 0-3, then the head's
+# attention blocks at strides 8/16/32 (hidden 256)
+PATH_SHAPES = (
+    ((200, 320, 96), 3),
+    ((100, 160, 192), 3),
+    ((50, 80, 384), 9),
+    ((25, 40, 768), 3),
+    ((100, 160, 256), 3),
+    ((50, 80, 256), 3),
+    ((25, 40, 256), 3),
+)
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_VEC = {torch.float32: 4, torch.bfloat16: 8}  # channels per 16-byte vector
+
+# kernel launches since the count was last set to 0 (read by chip_smoke.py)
+launches = 0
+
+
+def _taps_bias(kdw: torch.Tensor, bias: torch.Tensor, C: int, dtype):
+    """kdw (7,7,C) or (7,7,1,C), bias (C,) -> both rounded to `dtype`."""
+    if kdw.dim() == 4:
+        kdw = kdw[:, :, 0, :]
+    if tuple(kdw.shape) != (7, 7, C) or tuple(bias.shape) != (C,):
+        raise ValueError(f"dwconv7x7: taps {tuple(kdw.shape)} / bias "
+                         f"{tuple(bias.shape)} do not match C={C}")
+    return kdw.to(dtype), bias.to(dtype)
+
+
+def dwconv7x7_plain(x: torch.Tensor, kdw: torch.Tensor,
+                    bias: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: x (B,H,W,C) -> (B,H,W,C) in x.dtype, with the
+    kernel's rounding (dtype-rounded taps and bias, fp32 sum, one rounding).
+    On the card, `torch.backends.cudnn.allow_tf32` must be False for this
+    to be an fp32 sum."""
+    dt = x.dtype
+    C = x.shape[-1]
+    kdw, bias = _taps_bias(kdw, bias, C, dt)
+    w = kdw.float().permute(2, 0, 1).unsqueeze(1)          # (C,1,7,7)
+    y = F.conv2d(x.float().permute(0, 3, 1, 2), w, bias.float(),
+                 padding=3, groups=C)
+    return y.to(dt).permute(0, 2, 3, 1)
+
+
+def dwconv7x7_cuda(x: torch.Tensor, kdw: torch.Tensor,
+                   bias: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel on PyTorch's current stream. x must be a contiguous
+    (B,H,W,C) CUDA tensor of float32 or bfloat16 with C a multiple of the
+    16-byte vector (4 fp32, 8 bf16 channels)."""
+    if not x.is_cuda:
+        raise ValueError("dwconv7x7_cuda: x is not a CUDA tensor")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"dwconv7x7_cuda: dtype {x.dtype} not supported")
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError("dwconv7x7_cuda: x must be a contiguous (B,H,W,C) "
+                         f"tensor, got shape {tuple(x.shape)} strides "
+                         f"{x.stride()}")
+    C = x.shape[-1]
+    if C % _VEC[x.dtype]:
+        raise ValueError(f"dwconv7x7_cuda: C={C} is not a multiple of "
+                         f"{_VEC[x.dtype]} for {x.dtype}")
+    kdw, bias = _taps_bias(kdw, bias, C, x.dtype)
+    y = torch.empty_like(x)
+    launch(x, kdw.to(x.device).contiguous(), bias.to(x.device).contiguous(), y)
+    return y
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared."""
+    from ..csrc import build
+
+    lib = build.load("dwconv7x7")
+    lib.dwconv7x7_nhwc.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                                   + [ctypes.c_void_p])
+    lib.dwconv7x7_nhwc.restype = ctypes.c_int
+    lib.dwconv7x7_error_string.argtypes = [ctypes.c_int]
+    lib.dwconv7x7_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor,
+           y: torch.Tensor) -> None:
+    """One launch of the kernel into y, on arguments that dwconv7x7_cuda
+    has checked and converted: x, y (B,H,W,C), taps (7,7,C), bias (C,), all
+    contiguous CUDA tensors of one dtype."""
+    global launches
+    for t in (x, taps, bias, y):
+        if t.data_ptr() % 16:
+            raise ValueError("dwconv7x7_cuda: tensors must be 16-byte aligned")
+    B, H, W, C = x.shape
+    lib = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.dwconv7x7_nhwc(x.data_ptr(), taps.data_ptr(), bias.data_ptr(),
+                             y.data_ptr(), B, H, W, C, _DTYPE_CODE[x.dtype],
+                             stream)
+    if err:
+        raise RuntimeError(f"dwconv7x7 launch failed: {err} "
+                           f"({lib.dwconv7x7_error_string(err).decode()}) at "
+                           f"{(B, H, W, C)} {x.dtype}")
+    launches += 1
+
+
+def dwconv7x7(x: torch.Tensor, kdw: torch.Tensor,
+              bias: torch.Tensor) -> torch.Tensor:
+    """Depthwise 7x7 SAME conv + bias. x (B,H,W,C); kdw (7,7,C) or
+    (7,7,1,C); bias (C,). The kernel on a CUDA tensor, the plain version on
+    a CPU tensor."""
+    if x.is_cuda:
+        return dwconv7x7_cuda(x, kdw, bias)
+    if x.device.type != "cpu":
+        raise ValueError(f"dwconv7x7: no kernel for device {x.device}")
+    return dwconv7x7_plain(x, kdw, bias)

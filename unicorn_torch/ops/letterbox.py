@@ -1,0 +1,31 @@
+"""Letterbox on the device, PyTorch (port of unicorn_tpu/ops/letterbox.py,
+and the stand-in for the host cv2 letterbox of unicorn_tpu/data/preproc.py).
+
+Frames go up as uint8 (3 bytes a pixel). The scale-preserving resize is
+half-pixel bilinear without antialiasing (cv2.INTER_LINEAR), rounded to
+uint8 as cv2's output is, then padded with 114 at the bottom and right.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def letterbox_device(frame_u8: torch.Tensor, dst_hw):
+    """frame_u8 (H, W, 3) uint8 -> ((dst_h, dst_w, 3) float32 with
+    top-left content and 114 padding, scale r)."""
+    if frame_u8.dtype != torch.uint8 or frame_u8.dim() != 3:
+        raise ValueError(f"letterbox_device: expected (H, W, 3) uint8, got "
+                         f"{tuple(frame_u8.shape)} {frame_u8.dtype}")
+    sh, sw = frame_u8.shape[:2]
+    dh, dw = dst_hw
+    r = min(dh / sh, dw / sw)
+    rh, rw = int(sh * r), int(sw * r)
+    x = frame_u8.permute(2, 0, 1)[None].float()
+    if (rh, rw) != (sh, sw):
+        x = F.interpolate(x, size=(rh, rw), mode="bilinear",
+                          align_corners=False, antialias=False)
+        x = x.round_().clamp_(0, 255)
+    out = torch.full((dh, dw, 3), 114.0, device=frame_u8.device)
+    out[:rh, :rw] = x[0].permute(1, 2, 0)
+    return out, r
