@@ -123,3 +123,20 @@ def test_kernel_matches_plain_on_card(dtype):
             ulp = torch.exp2(torch.floor(torch.log2(a.clamp_min(2.0 ** -126)))
                              - 7)
             assert bool((diff <= ulp + 50 * 2.0 ** -24 * mag).all())
+
+
+def test_build_key_covers_source_headers_and_flags(tmp_path, monkeypatch):
+    """The cached library's name changes with the kernel's source and with
+    any header of csrc/ that it may include."""
+    from unicorn_torch.csrc import build
+
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// a\n")
+    monkeypatch.setattr(build, "CSRC", str(tmp_path))
+    first = build._target("k", "nvcc")
+    assert build._target("k", "nvcc") == first
+    (tmp_path / "h.cuh").write_text("// b\n")
+    second = build._target("k", "nvcc")
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// c\n')
+    third = build._target("k", "nvcc")
+    assert len({first, second, third, build._target("k", "other")}) == 4

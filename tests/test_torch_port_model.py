@@ -86,8 +86,9 @@ def test_from_flax_round_trip_is_identity(setup):
     assert not set(mapped) & set(not_ported)
     for path, w in mapped.items():
         np.testing.assert_array_equal(w, leaves[path], err_msg=path)
-    # what is not ported is exactly the interaction/embedding stages
-    assert {p.split("/")[0] for p in not_ported} == {
+    # only the mask branch is not ported, and this model has none
+    assert not_ported == []
+    assert {p.split("/")[0] for p in mapped} >= {
         "bottleneck", "upsample", "pos_emb", "interaction"}
     # the port's names are the state_dict's names, one to one
     assert set(TUnicorn(**CFG).state_dict()) == set(state)
@@ -186,7 +187,9 @@ def _synthetic_prediction(seed, B=2, A=400, C=3):
     dict(cluster_iters=2),
     dict(cluster_iters=50, conf_thre=0.2),
     dict(n_cand=64, max_out=16, nms_thre=0.3),
-], ids=["greedy", "agnostic", "cluster2", "cluster50", "small"])
+    dict(num_classes=1, class_agnostic=True, conf_thre=0.001, nms_thre=0.65,
+         max_out=3),                      # as the SOT driver calls it
+], ids=["greedy", "agnostic", "cluster2", "cluster50", "small", "sot"])
 def test_postprocess_device_matches_jax(kw):
     pred = _synthetic_prediction(0)
     args = dict(num_classes=3, conf_thre=0.1, nms_thre=0.5, n_cand=256,
@@ -201,11 +204,37 @@ def test_postprocess_device_matches_jax(kw):
     assert vt.sum() > 0
 
 
+def test_from_flax_reports_only_the_mask_branch():
+    """A tree with the mask stack (shapes only, zeros for values): every
+    leaf converts except those under mask_branch, which are listed."""
+    jm = JUnicorn(**CFG, use_mask=True)
+    shapes = jax.eval_shape(
+        functools.partial(jm.init, method=JUnicorn.init_all),
+        jax.random.PRNGKey(0), jnp.zeros((1, H, W, 3), jnp.float32))
+    params = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
+                                    shapes)
+    state, not_ported = from_flax(params)
+    assert not_ported and all(p.startswith("mask_branch/")
+                              for p in not_ported)
+    assert len(state) + len(not_ported) == len(_flax_leaves(params))
+    assert "transformer.level_embed" in state
+    assert "upsample_layer.3.bias" in state
+
+
 def test_constructor_fields_not_ported_raise():
     for kw in (dict(use_mask=True), dict(interact_mode="conv"),
-               dict(use_raft=True), dict(backbone_name="csp_darknet")):
+               dict(interact_mode="full"), dict(use_raft=True),
+               dict(up_rate=4), dict(remat=True),
+               dict(backbone_name="csp_darknet")):
         with pytest.raises(NotImplementedError):
             TUnicorn(**{**CFG, **kw})
+    with pytest.raises(ValueError):
+        TUnicorn(**CFG, interact_dtype=torch.float16)
+    # the fields of this slice are taken
+    m = TUnicorn(**CFG, embed_dim=64, hidden_dim=128,
+                 interact_dtype=torch.bfloat16)
+    assert m.upsample_layer[3].out_channels == 64
+    assert m.bottleneck[0].out_channels == 128
 
 
 def test_space_to_depth_and_packed_stem_match_jax():

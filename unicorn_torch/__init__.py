@@ -5,11 +5,15 @@ it (nor jax/flax) and keeps its own copies of the host-side code it needs.
 Plain tensor code is PyTorch; every Pallas kernel of the ported path is a
 hand-written CUDA kernel under `csrc/`, built with nvcc on first use.
 
-Ported so far (slice 1, MOT detect-and-track):
-  models/   ConvNeXt-Tiny trunk, YOLO PAFPN, unified head, `Unicorn`
-  ops/      dw7x7 kernel wrapper, fixed-shape NMS, device letterbox
+Ported so far (slice 1, MOT detect-and-track; slice 2, SOT):
+  models/   ConvNeXt-Tiny trunk, YOLO PAFPN, unified head, the deformable
+            interaction with its bottleneck, position embedding and
+            embedding upsample, `Unicorn`
+  ops/      kernel wrappers (dw7x7, deformable-attention sampling,
+            correlation label propagation), correlation helpers,
+            fixed-shape NMS, device letterbox
   tracker/  host ByteTrack (Kalman, Hungarian matching)
-  drivers/  `MOTDriver` (ByteTrack path)
+  drivers/  `MOTDriver` (ByteTrack path), `SOTDriver`
   exp/      `ExpTrack` model/test fields, `unicorn_track_tiny`
   convert   flax param tree -> reference-named state_dict
 """

@@ -11,9 +11,8 @@ its torch regex a template, and each transform is undone:
   flax Dense       (I, O)         -> torch (O, I)
   head beta        (C,)           -> torch (1, C, 1, 1)
 
-Leaves of modules the port does not have yet (the interaction bottleneck,
-the embedding upsample, the position embedding, the deformable
-interaction, the mask branch) are returned in a list, never dropped.
+Leaves of modules the port does not have yet (the mask branch) are returned
+in a list, never dropped.
 """
 from __future__ import annotations
 
@@ -23,8 +22,7 @@ import numpy as np
 import torch
 
 # leaves under these top-level flax modules belong to modules not yet ported
-NOT_PORTED = ("bottleneck", "upsample", "pos_emb", "interaction",
-              "mask_branch")
+NOT_PORTED = ("mask_branch",)
 
 
 def t_conv(w):

@@ -2,9 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on first
 use into `unicorn_torch/csrc/_build/` (listed in .gitignore), as
-`<name>-<hash>.so`, where the hash covers the source, the flags and the
-compiler. A build that fails raises: nothing falls back to the plain
-PyTorch version.
+`<name>-<hash>.so`, where the hash covers the source, the headers
+(`csrc/*.cuh`), the flags and the compiler. A build that fails raises:
+nothing falls back to the plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -38,8 +38,13 @@ def nvcc_path() -> str:
 
 
 def _target(name: str, nvcc: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        src = f.read()
+    # the source and every header of csrc/ (a .cu may include any of them)
+    files = [f"{name}.cu"] + sorted(f for f in os.listdir(CSRC)
+                                    if f.endswith(".cuh"))
+    src = b""
+    for fname in files:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            src += f.read()
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode() + nvcc.encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 

@@ -28,14 +28,21 @@ class ExpTrack:
         self.fuse_method = "sum"
         self.learnable_fuse = True
         self.bf16 = True
+        # serving runs the interaction and embedding stages in bf16 too
+        self.serve_interact_bf16 = True
         # -----------------  testing config ------------------ #
         self.test_size = (800, 1280)
         self.test_conf = 0.01
         self.nmsthre = 0.65
 
-    def get_model(self, generator: torch.Generator | None = None) -> Unicorn:
+    def get_model(self, generator: torch.Generator | None = None,
+                  serve: bool = False, msda_method: str = "auto") -> Unicorn:
         """The Unicorn of this experiment, on the CPU, parameters drawn
-        from `generator` (seed 0 when None)."""
+        from `generator` (seed 0 when None). serve=True gives the model the
+        test tools serve: with `serve_interact_bf16`, its interaction and
+        embedding stages compute in bf16 (training keeps them fp32)."""
+        idt = (torch.bfloat16 if serve and self.serve_interact_bf16
+               else torch.float32)
         return Unicorn(
             num_classes=self.num_classes, depth=self.depth, width=self.width,
             in_channels=tuple(self.in_channels),
@@ -45,4 +52,4 @@ class ExpTrack:
             unshared_obj=self.unshared_obj, unshared_reg=self.unshared_reg,
             fuse_method=self.fuse_method, learnable_fuse=self.learnable_fuse,
             dtype=torch.bfloat16 if self.bf16 else torch.float32,
-            generator=generator)
+            interact_dtype=idt, msda_method=msda_method, generator=generator)

@@ -36,7 +36,8 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Initialise every parameter as the JAX package's flax init does (its
     distributions, not its random bits): lecun_normal kernels, zero biases,
-    unit norm scales, and each module's own constants (`_init_extra`)."""
+    unit norm scales, and then each module's own rule
+    (`_init_extra(generator)`: constants, or another distribution)."""
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)) or getattr(m, "lecun", False):
             lecun_normal_(m.weight, generator)
@@ -50,7 +51,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     for m in module.modules():
         extra = getattr(m, "_init_extra", None)
         if extra is not None:
-            extra()
+            extra(generator)
 
 
 def get_activation(name: str = "silu"):
@@ -242,7 +243,7 @@ class ConvNeXtBlock(nn.Module):
         self.gamma = (nn.Parameter(torch.full((dim,), float(self.lsiv)))
                       if self.lsiv > 0 else None)
 
-    def _init_extra(self):
+    def _init_extra(self, generator):
         if self.gamma is not None:
             with torch.no_grad():
                 self.gamma.fill_(self.lsiv)
@@ -264,3 +265,16 @@ def upsample_nearest_2x(x):
     xn = x.permute(0, 2, 3, 1)
     xn = xn[:, :, None, :, None, :].expand(b, h, 2, w, 2, c)
     return xn.reshape(b, 2 * h, 2 * w, c).permute(0, 3, 1, 2)
+
+
+def pixel_shuffle_2x(x):
+    """PixelShuffle(2) of an NCHW tensor: (B, 4C, H, W) -> (B, C, 2H, 2W),
+    input channel c*4 + dy*2 + dx going to output pixel (2y+dy, 2x+dx)."""
+    return F.pixel_shuffle(x, 2)
+
+
+def interpolate_bilinear(x, out_h: int, out_w: int):
+    """Bilinear resize of an NCHW tensor, half-pixel centres, no
+    antialiasing (F.interpolate with align_corners=False)."""
+    return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
+                         align_corners=False, antialias=False)

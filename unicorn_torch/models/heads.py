@@ -83,7 +83,7 @@ class UnicornHead(nn.Module):
                 self.register_parameter(
                     f"beta_{k}", nn.Parameter(torch.ones(1, hidden, 1, 1)))
 
-    def _init_extra(self):
+    def _init_extra(self, generator):
         with torch.no_grad():
             for _, name, _ in self.cls_specs + self.reg_specs:
                 if name.startswith(("cls", "obj")):

@@ -39,6 +39,7 @@ class YOLOPAFPN(nn.Module):
         c0, c1, c2 = [int(c * width) for c in in_channels]
         kw = dict(act=act, dtype=dtype)
         self.backbone, raw = build_backbone(backbone_name, dtype, exact_gelu)
+        self.raw_channels = raw   # of the backbone's stride-8/16/32 features
         self.adjust = raw != (c0, c1, c2)
         if self.adjust:
             self.adjust2 = BaseConv(raw[0], c0, 1, 1, **kw)

@@ -1,10 +1,13 @@
 """The unified Unicorn model, PyTorch (port of unicorn_tpu/models/unicorn.py).
 
 Ported: the backbone + PAFPN stage (`forward_backbone`, both run_fpn modes),
-the unified head (`forward_head`) and the MOT detection forward
-(`forward_whole`). The interaction, embedding upsample and mask branch are
-not ported yet: their constructor fields accept only their defaults, and
-their parameters are reported by convert.from_flax as not ported.
+the deformable interaction of two frames' stride-16 features
+(`forward_interaction`), the embedding upsample (`forward_upsample`), the
+unified head (`forward_head`) and the MOT detection forward
+(`forward_whole`). The "conv" and "full" interaction modes and the mask
+branch are not ported yet: those constructor fields accept only their
+defaults, and convert.from_flax reports the mask branch's parameters as not
+ported.
 """
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ import torch.nn as nn
 
 from .blocks import init_weights
 from .heads import UnicornHead
+from .interaction import (Bottleneck1x1, DeformableInteraction,
+                          PositionEmbeddingLearned, UpsampleEmbed)
 from .pafpn import YOLOPAFPN
 
 
@@ -24,9 +29,12 @@ def _not_ported(field, value):
 
 
 class Unicorn(nn.Module):
-    """Backbone + PAFPN + unified head. Parameters are fp32, computed in
-    `dtype`, and drawn from `generator` (flax's init distributions; a
-    generator seeded with 0 when none is given)."""
+    """Backbone + PAFPN + interaction + embedding + unified head. Parameters
+    are fp32, computed in `dtype` (the interaction and embedding stages in
+    `interact_dtype`), and drawn from `generator` (flax's init
+    distributions; a generator seeded with 0 when none is given).
+    `msda_method` is the `method` the deformable interaction hands to
+    ops.deform_attn.ms_deform_attn."""
 
     def __init__(self, num_classes: int = 8, depth: float = 1.0,
                  width: float = 1.0,
@@ -39,18 +47,20 @@ class Unicorn(nn.Module):
                  learnable_fuse: bool = True, use_mask: bool = False,
                  exact_gelu: bool = True, use_raft: bool = False,
                  up_rate: int = 8, remat: Any = False, dtype=torch.float32,
-                 interact_dtype=torch.float32,
+                 interact_dtype=torch.float32, msda_method: str = "auto",
                  generator: torch.Generator | None = None):
         super().__init__()
         for field, value, default in (
                 ("interact_mode", interact_mode, "deform"),
-                ("embed_dim", embed_dim, 128), ("hidden_dim", hidden_dim, 256),
                 ("use_mask", use_mask, False), ("use_raft", use_raft, False),
-                ("up_rate", up_rate, 8), ("remat", remat, False),
-                ("interact_dtype", interact_dtype, torch.float32)):
+                ("up_rate", up_rate, 8), ("remat", remat, False)):
             if value != default:
                 _not_ported(field, value)
+        if interact_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"interact_dtype {interact_dtype} is neither "
+                             "float32 nor bfloat16")
         self.dtype = dtype
+        self.interact_dtype = interact_dtype
         self.backbone = YOLOPAFPN(
             depth=depth, width=width, in_channels=in_channels, act=act,
             backbone_name=backbone_name, dtype=dtype, exact_gelu=exact_gelu)
@@ -61,6 +71,14 @@ class Unicorn(nn.Module):
             unshared_reg=unshared_reg, fuse_method=fuse_method,
             learnable_fuse=learnable_fuse, exact_gelu=exact_gelu,
             dtype=dtype)
+        idt = interact_dtype
+        self.bottleneck = Bottleneck1x1(self.backbone.raw_channels[1],
+                                        hidden_dim, dtype=idt)
+        self.upsample_layer = UpsampleEmbed(embed_dim, hidden_dim, dtype=idt)
+        self.pos_emb = PositionEmbeddingLearned(hidden_dim // 2, sz=40,
+                                                dtype=idt)
+        self.transformer = DeformableInteraction(hidden_dim, dtype=idt,
+                                                 msda_method=msda_method)
         init_weights(self, generator if generator is not None
                      else torch.Generator().manual_seed(0))
 
@@ -72,6 +90,19 @@ class Unicorn(nn.Module):
             fpn_outs, base_outs = self.backbone(imgs, return_base_feat=True)
             return fpn_outs, base_outs[1]
         return self.backbone(imgs, run_fpn=False)[1]
+
+    def forward_interaction(self, feat0, feat1):
+        """Interact two frames' raw stride-16 features (B, C_backbone, H16,
+        W16) -> the refined (B, hidden_dim, H16, W16) pair."""
+        b, _, h, w = feat0.shape
+        srcs = (self.bottleneck(feat0), self.bottleneck(feat1))
+        pos = self.pos_emb(b, h, w)
+        return self.transformer(srcs, (pos, pos))
+
+    def forward_upsample(self, feat):
+        """Stride-16 feature -> stride-8 embedding map (B, embed_dim, H8,
+        W8)."""
+        return self.upsample_layer(feat)
 
     def forward_head(self, fpn_outs, priors):
         """The unified head. priors: per-level (B, 1, H, W) label maps."""
