@@ -4,12 +4,15 @@
     python3 chip_smoke.py            # every phase, as the port's quickest proof
 
 Phases (each must pass, else the exit code is 1):
-  build      the card's name and power limit; every CUDA kernel of csrc/
-             built with nvcc (dwconv7x7, msda, correlation), in parallel
+  build      the card's name and power limit; every CUDA source of csrc/
+             built with nvcc (dwconv7x7, msda, correlation,
+             correlation_train), in parallel
   kernels    each kernel against its plain PyTorch version at the main
              paths' shapes and at ragged ones, in bf16 and fp32, with times
              of kernel, plain version and the PyTorch library call that
-             computes the same function, and the bound
+             computes the same function, and the bound; the gradients of
+             the dw7x7 and MSDA autograd Functions against autograd of
+             their plain versions
   model      the ConvNeXt-Tiny Unicorn at 800x1280 in bf16 (seeded random
              weights): forward_whole through the dw7x7 kernel vs the same
              model through the plain version, on the card
@@ -22,6 +25,18 @@ Phases (each must pass, else the exit code is 1):
              track_window of 8 frames (window 4), then 4 track calls with
              the MSDA kernel's direct mode; frames/s, per-stage ms, launch
              counts (27 dw7x7, 1 msda, 1 correlation per frame or chunk)
+  train_model  the model as trained (bf16 trunk, fp32 interaction): one
+             uni_loss_fn forward + backward on a mixed SOT/MOT batch through
+             the kernels vs through their plain versions; loss and every
+             parameter's gradient
+  train      the training path: ExpTrack.get_train_step / get_optimizer
+             with TrainState (AdamW, gradient accumulation, EMA) at B = 2
+             pairs of 800x1280 on synthetic batches: 2 warm-up and 8 timed
+             steps alternating an SOT and a MOT batch, 6 steps on one SOT
+             batch (the loss must fall), 2 steps with their stages timed
+             apart; ms/step, peak memory, launch counts per step (36 dw7x7,
+             1 msda, 2 each of the three correlation training kernels)
+`--only profile` adds a torch.profiler breakdown of the three paths.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the rest of the
 repo beside this file, it exits non-zero and prints no result.
@@ -29,6 +44,7 @@ repo beside this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -92,6 +108,24 @@ def graph_time_ms(fn, iters: int = 20, reps: int = 5) -> float:
     return start.elapsed_time(end) / (reps * iters)
 
 
+@contextlib.contextmanager
+def tf32_off():
+    """fp32 plain versions are references only with TF32 off (cuDNN has it
+    on by default); the phases that time a path run with PyTorch's own
+    settings, as a caller's program would."""
+    import torch
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
 def bf16_ulp(t):
     """One bf16 ulp of each element's magnitude (8 significant bits)."""
     import torch
@@ -118,7 +152,8 @@ def phase_card_and_build(report):
           f"{bf16 / 1e12:.0f} TFLOP/s bf16 | "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    logs = build.build(["dwconv7x7", "msda", "correlation"])
+    logs = build.build(["dwconv7x7", "msda", "correlation",
+                        "correlation_train"])
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for n, log in logs.items():
         for line in log.strip().splitlines():
@@ -138,14 +173,12 @@ def roofline(nbytes, flops, bw, peak):
 def phase_kernels(report):
     """Every kernel against its plain version; all three are checked even
     when one disagrees."""
-    import torch
-
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     bad = []
-    for check in (kernels_dw7x7, kernels_msda, kernels_correlation):
-        if not check(report):
-            bad.append(check.__name__)
+    with tf32_off():
+        for check in (kernels_dw7x7, kernels_msda, kernels_correlation,
+                      kernels_correlation_train, kernels_backward):
+            if not check(report):
+                bad.append(check.__name__)
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
 
@@ -453,6 +486,237 @@ def kernels_correlation(report) -> bool:
                     replaces="unicorn_tpu/ops/pallas_correlation.py:24",
                     launches=None, max_abs_err=err, ms=t_k, plain_ms=t_p,
                     bound_ms=bound, bound_by=bound_by, library_ms=t_l)
+    return ok
+
+
+def event_time_ms(fn, iters: int = 3) -> float:
+    """Device time of one call of fn between CUDA events, eager: for calls
+    of several ms (autograd backward passes), where the host's overhead is
+    small beside the device's work."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+TRAIN_SHAPE = (2, 16000, 128, 1)   # B, N, C, K of one 800x1280 training step
+
+
+def kernels_correlation_train(report) -> bool:
+    """The three training kernels (forward with logsumexp, bwd_i, bwd_j)
+    against their plain versions in fp32, and correlation_propagate_train
+    under autograd against the plain streaming version under autograd.
+    Tolerances, set before the first run. out: the serving kernel's (rtol
+    1e-4, atol 1e-5; rtol 1e-3 with embeddings x10, where an fp32 ulp of a
+    score of several hundred is 3e-5 and enters the exponential). lse: 1e-5
+    + 2e-6 |lse| (16 fp32 ulps: two orders of the same N-term sum). dE0, dE1,
+    dV: every entry within 1e-4 (x10: 1e-3) of the tensor's largest
+    magnitude (plus 1e-6: with a nearly one-hot softmax dE0 and dE1 are all
+    cancellation); each is a sum of N products of P, which carries the
+    exponential's relative error, taken in another order. Both backward
+    kernels and their plain versions get the kernel forward's lse and c."""
+    import torch
+    import torch.nn.functional as F
+
+    from unicorn_torch.ops import correlation_kernel as ck
+    from unicorn_torch.ops.correlation import correlation_propagate
+
+    bw, fp32_peak, _ = report["peaks"]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    dev = torch.device("cuda")
+    # (B, N, C, K, scale, rtol): the training step's shape, a ragged one, a
+    # sharp one, and a width that fills only part of the channel tile
+    cases = (TRAIN_SHAPE + (0.3, 1e-4), (2, 77, 16, 16, 1.0, 1e-4),
+             (2, 1000, 16, 3, 10.0, 1e-3), (1, 300, 96, 2, 1.0, 1e-4))
+    ok = True
+    print("corr_train B N     C   K  scale  d_out    d_lse    d_dE0/max "
+          "d_dE1/max d_dV/max  vjp_vs_autograd")
+    for B, N, C, K, scale, rtol in cases:
+        e0 = scale * torch.randn(B, N, C, device=dev, generator=g)
+        e1 = scale * torch.randn(B, N, C, device=dev, generator=g)
+        v = torch.rand(B, K, N, device=dev, generator=g)
+        dout = torch.randn(B, K, N, device=dev, generator=g)
+        n0 = dict(ck.train_launches)
+        out, lse = ck.correlation_fwd_lse_cuda(e0, e1, v)
+        c = (out * dout).sum(1, keepdim=True)
+        de0, dv = ck.correlation_bwd_i_cuda(e0, e1, v, lse, dout, c)
+        de1 = ck.correlation_bwd_j_cuda(e0, e1, v, lse, dout, c)
+        assert ck.train_launches == {k: n + 1 for k, n in n0.items()}
+        out_p, lse_p = ck.correlation_fwd_lse_plain(e0, e1, v)
+        de0_p, dv_p = ck.correlation_bwd_i_plain(e0, e1, v, lse, dout, c)
+        de1_p = ck.correlation_bwd_j_plain(e0, e1, v, lse, dout, c)
+        torch.cuda.synchronize()
+        good = all(bool(torch.isfinite(t).all())
+                   for t in (out, lse, de0, de1, dv))
+        d_out = (out - out_p).abs()
+        good &= not bool((d_out > 1e-5 + rtol * out_p.abs()).any())
+        d_lse = (lse - lse_p).abs()
+        good &= not bool((d_lse > 1e-5 + 2e-6 * lse_p.abs()).any())
+        rels = []
+        for a, b in ((de0, de0_p), (de1, de1_p), (dv, dv_p)):
+            rels.append(((a - b).abs().max() / b.abs().max()).item())
+            good &= bool((a - b).abs().max() <= rtol * b.abs().max() + 1e-6)
+        vjp = "-"
+        if N <= 1000:
+            # the Function's gradients against autograd of the plain
+            # streaming version (its own softmax, its own order): 10 x rtol
+            leaves = [t.clone().requires_grad_() for t in (e0, e1, v)]
+            y = ck.correlation_propagate_train(*leaves)
+            gk = torch.autograd.grad(y, leaves, dout)
+            leaves_p = [t.clone().requires_grad_() for t in (e0, e1, v)]
+            gp = torch.autograd.grad(correlation_propagate(*leaves_p),
+                                     leaves_p, dout)
+            worst = max(((a - b).abs().max()
+                         / (b.abs().max() + 1e-3)).item()
+                        for a, b in zip(gk, gp))
+            good &= worst <= 10 * rtol
+            vjp = f"{worst:.1e}"
+        ok &= good
+        print(f"           {B} {N:<5d} {C:<3d} {K:<2d} {scale:<5.1f}  "
+              f"{d_out.max().item():.2e} {d_lse.max().item():.2e} "
+              f"{rels[0]:.2e}  {rels[1]:.2e}  {rels[2]:.2e}  {vjp}"
+              f"{'' if good else '  FAIL'}")
+        if (B, N, C, K) != TRAIN_SHAPE:
+            continue
+
+        # times, bounds and the library yardstick at the training shape
+        nb_in = (e0.numel() + e1.numel() + v.numel()) * 4
+        nb_bwd = nb_in + (lse.numel() + dout.numel() + c.numel()) * 4
+        work = {   # name: (bytes, operations, launch, plain)
+            "fwd_lse": (nb_in + (out.numel() + lse.numel()) * 4,
+                        2 * B * N * N * (C + K),
+                        lambda: ck.launch_train("fwd_lse", e0, e1, v,
+                                                out, lse),
+                        lambda: ck.correlation_fwd_lse_plain(e0, e1, v)),
+            "bwd_i": (nb_bwd + (de0.numel() + dv.numel()) * 4,
+                      2 * B * N * N * (2 * C + 2 * K),
+                      lambda: ck.launch_train("bwd_i", e0, e1, v, lse,
+                                              dout, c, de0, dv),
+                      lambda: ck.correlation_bwd_i_plain(e0, e1, v, lse, dout,
+                                                         c)),
+            "bwd_j": (nb_bwd + de1.numel() * 4,
+                      2 * B * N * N * (2 * C + K),
+                      lambda: ck.launch_train("bwd_j", e0, e1, v, lse,
+                                              dout, c, de1),
+                      lambda: ck.correlation_bwd_j_plain(e0, e1, v, lse, dout,
+                                                         c)),
+        }
+        # library yardstick: fp32 attention with q = e1, k = e0, scale 1, the
+        # value v^T zero-padded from K to C columns; its backward through
+        # autograd gives dq, dk, dv: the two backward kernels together
+        q = e1[:, None].clone().requires_grad_()
+        kk = e0[:, None].clone().requires_grad_()
+        vv = torch.zeros(B, 1, N, C, device=dev)
+        vv[:, 0, :, :K] = v.transpose(1, 2)
+        vv.requires_grad_()
+        gg = torch.zeros(B, 1, N, C, device=dev)
+        gg[:, 0, :, :K] = dout.transpose(1, 2)
+        lib = F.scaled_dot_product_attention(q, kk, vv, scale=1.0)
+        lib_err = (lib[:, 0, :, :K].transpose(1, 2) - out_p).abs().max().item()
+        dq, dk, _ = torch.autograd.grad(lib, (q, kk, vv), gg,
+                                        retain_graph=True)
+        lib_gerr = max(((dq[:, 0] - de1_p).abs().max()
+                        / de1_p.abs().max()).item(),
+                       ((dk[:, 0] - de0_p).abs().max()
+                        / de0_p.abs().max()).item())
+        with torch.no_grad():
+            t_lib_f = graph_time_ms(lambda: F.scaled_dot_product_attention(
+                q, kk, vv, scale=1.0), iters=3)
+        t_lib_b = event_time_ms(lambda: torch.autograd.grad(
+            lib, (q, kk, vv), gg, retain_graph=True))
+        print(f"           sdpa fp32 at {TRAIN_SHAPE}: forward {t_lib_f:.3f} "
+              f"ms (vs plain {lib_err:.1e}), backward {t_lib_b:.3f} ms (dq, "
+              f"dk vs plain, share of max {lib_gerr:.1e})")
+        errs = {"fwd_lse": d_out.max().item(),
+                "bwd_i": (de0 - de0_p).abs().max().item(),
+                "bwd_j": (de1 - de1_p).abs().max().item()}
+        lines = {"fwd_lse": 156, "bwd_i": 191, "bwd_j": 231}
+        for name, (nbytes, flops, launch, plain) in work.items():
+            bound, bound_by = roofline(nbytes, flops, bw, fp32_peak)
+            t_k = graph_time_ms(launch, iters=3)
+            t_p = graph_time_ms(plain, iters=2, reps=3)
+            print(f"           {name:8s} B={B}: kernel {t_k:.3f} ms, plain "
+                  f"{t_p:.3f} ms, bound {bound:.3f} ms ({bound_by}), "
+                  f"{flops / t_k / 1e9:.1f} TFLOP/s fp32")
+            entry = dict(
+                name=f"correlation_{name}", route="cuda",
+                source="unicorn_torch/csrc/correlation_train.cu",
+                replaces=f"unicorn_tpu/ops/pallas_correlation.py:{lines[name]}",
+                launches=None, max_abs_err=errs[name], ms=t_k, plain_ms=t_p,
+                bound_ms=bound, bound_by=bound_by,
+                library_ms=t_lib_f if name == "fwd_lse" else t_lib_b)
+            if name != "fwd_lse":
+                entry["library_covers"] = "sdpa backward: bwd_i and bwd_j"
+            report.setdefault("kernels", {})[f"correlation_{name}"] = entry
+    return ok
+
+
+def kernels_backward(report) -> bool:
+    """The dw7x7 and MSDA autograd Functions (forward = kernel, backward =
+    autograd of the plain version) against autograd of their plain versions,
+    at one served shape each, with the time of the plain backward.
+    Tolerance: the forwards differ as the forward checks allow, the
+    backwards are the same plain code on the same saved inputs: every
+    gradient within 1e-5 of its largest magnitude in fp32 (scatter-adds in
+    another order), within 2^-7 (one bf16 ulp of the largest) in bf16."""
+    import torch
+
+    from unicorn_torch.ops import deform_attn as da
+    from unicorn_torch.ops import dwconv7x7 as dw
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    ok = True
+
+    def grads_of(fn, inputs, needs, gy=None):
+        leaves = [t.clone().requires_grad_(n) for t, n in zip(inputs, needs)]
+        y = fn(*leaves)
+        if gy is None:
+            gy = torch.randn(y.shape, device=dev, generator=g).to(y.dtype)
+        wanted = [t for t, n in zip(leaves, needs) if n]
+        return y, wanted, gy
+
+    def compare(label, fn_k, fn_p, inputs, needs, tol):
+        nonlocal ok
+        y_k, in_k, gy = grads_of(fn_k, inputs, needs)
+        y_p, in_p, _ = grads_of(fn_p, inputs, needs, gy)
+        g_k = torch.autograd.grad(y_k, in_k, gy, retain_graph=True)
+        g_p = torch.autograd.grad(y_p, in_p, gy)
+        worst = max(((a.float() - b.float()).abs().max()
+                     / b.float().abs().max()).item()
+                    for a, b in zip(g_k, g_p))
+        t_b = event_time_ms(lambda: torch.autograd.grad(
+            y_k, in_k, gy, retain_graph=True), iters=5)
+        good = worst <= tol
+        ok &= good
+        print(f"backward {label}: worst gradient difference, share of max "
+              f"{worst:.2e} (tol {tol:.1e}); plain backward {t_b:.3f} ms"
+              f"{'' if good else '  FAIL'}")
+
+    for dtype, tol in ((torch.bfloat16, 2.0 ** -7), (torch.float32, 1e-5)):
+        x = torch.randn(2, 50, 80, 384, device=dev, generator=g).to(dtype)
+        k = 0.1 * torch.randn(7, 7, 384, device=dev, generator=g)
+        b = 0.1 * torch.randn(384, device=dev, generator=g)
+        n0 = dw.launches
+        compare(f"dw7x7 2x50x80x384 {str(dtype)[6:]}", dw.dwconv7x7,
+                dw.dwconv7x7_plain, (x, k, b), (True, True, True), tol)
+        assert dw.launches == n0 + 1, "dwconv7x7 did not launch its kernel"
+    value, locs, attw = _msda_inputs((2, 2, 50, 80, 8, 32, 8000, 4),
+                                     torch.float32, g, True)
+    for method, mode in (("auto", "factored"), ("pallas", "direct")):
+        n0 = da.launches_by_mode[mode]
+        compare(f"msda {mode} fp32 B=2 50x80", lambda v, l, a: da.ms_deform_attn(
+            v, l, a, method), lambda v, l, a: da.ms_deform_attn_plain(
+                v, l, a, mode), (value, locs, attw), (True, True, True), 1e-5)
+        assert da.launches_by_mode[mode] == n0 + 1
     return ok
 
 
@@ -775,7 +1039,8 @@ def phase_sot(report):
     report["sot_fps"] = N_TRACK / wall
     ker = report.setdefault("kernels", {})
     for name in ("msda_factored", "correlation"):
-        ker.setdefault(name, {})["launches"] = counts[name]
+        ker.setdefault(name, {}).update(
+            launches=counts[name], launches_by_path={"sot": counts[name]})
     dwk = ker.setdefault("dwconv7x7", {})
     dwk["launches_by_path"] = {"mot": dwk.get("launches"),
                                "sot": counts["dwconv7x7"]}
@@ -845,6 +1110,276 @@ def phase_sot(report):
             and y + h <= H / r + 1e-3, (x, y, w, h)
 
 
+# -------------------------------------------------------- training phases
+TRAIN_B = 2               # image pairs per training batch
+TRAIN_LABELS = 100        # padded gt slots per frame (the JAX exp's max_labels)
+TRAIN_WARMUP = 2          # training steps before the timed ones
+TRAIN_STEPS = 8           # timed steps, alternating an SOT and a MOT batch
+TRAIN_REPEAT = 6          # further steps on one repeated SOT batch
+TRAIN_ITERS_PER_EPOCH = 8  # so that the schedule's warm-up ends within the run
+# kernel launches of one training step with mhs: the correlation runs for the
+# main and for the mhs priors; dw7x7 18 trunk blocks (the 2B frames as one
+# batch) + 9 head blocks for each of the two head calls; one interaction
+TRAIN_LAUNCHES = dict(dwconv7x7=36, msda_factored=1, msda_direct=0,
+                      correlation=0, correlation_fwd_lse=2,
+                      correlation_bwd_i=2, correlation_bwd_j=2)
+
+
+def _train_model(report):
+    """The unicorn_track_tiny Unicorn as trained (bf16 trunk and head, fp32
+    interaction and embeddings) on the card, seeded random weights."""
+    import torch
+
+    from unicorn_torch.exp.unicorn_track_tiny import Exp
+
+    if "train_model" not in report:
+        exp = Exp()
+        model = exp.get_model(torch.Generator().manual_seed(0))
+        report["train_model"] = (exp, model.to(DEVICE).train())
+    return report["train_model"]
+
+
+def _train_batch(exp, task: int, seed: int, n_obj: int):
+    """One synthetic batch on the card from a numpy seed: images
+    (B, 2, 3, H, W) float32 in [0, 255] (a random texture, the second frame
+    shifted by 4 px), targets (B, 2, M, 6) [cls, cx, cy, w, h, track id] with
+    n_obj boxes that drift by a few px between the frames, task_ids (B,)."""
+    import numpy as np
+    import torch
+
+    H, W = exp.input_size
+    rng = np.random.RandomState(seed)
+    base = (rng.rand(TRAIN_B, 3, H, W + 4) * 255).round().astype(np.float32)
+    images = np.stack([base[..., :W], base[..., 4:]], 1)
+    targets = np.zeros((TRAIN_B, 2, TRAIN_LABELS, 6), np.float32)
+    for b in range(TRAIN_B):
+        wh = rng.uniform(40, 240, (n_obj, 2))
+        cxy = rng.uniform(0.15, 0.85, (n_obj, 2)) * [W, H]
+        cls = rng.randint(0, exp.num_classes, n_obj) if task == 2 else 0
+        for f in range(2):
+            targets[b, f, :n_obj, 0] = cls
+            targets[b, f, :n_obj, 1:3] = cxy + f * rng.uniform(-6, 6, (n_obj, 2))
+            targets[b, f, :n_obj, 3:5] = wh * (1 + f * rng.uniform(
+                -0.05, 0.05, (n_obj, 2)))
+            targets[b, f, :n_obj, 5] = np.arange(1, n_obj + 1)
+    return (torch.from_numpy(images).to(DEVICE),
+            torch.from_numpy(targets).to(DEVICE),
+            torch.full((TRAIN_B,), task, dtype=torch.int64, device=DEVICE))
+
+
+def _all_counts():
+    from unicorn_torch.ops import correlation_kernel as ck
+
+    return dict(_kernel_counts(), **{f"correlation_{k}": n for k, n
+                                     in ck.train_launches.items()})
+
+
+def _reset_all_counts():
+    from unicorn_torch.ops import correlation_kernel as ck
+
+    _reset_kernel_counts()
+    for k in ck.train_launches:
+        ck.train_launches[k] = 0
+
+
+def _uni_loss_kwargs(exp):
+    """The arguments ExpTrack.get_train_step gives uni_loss_fn."""
+    return dict(img_size=exp.input_size, mot_weight=float(exp.mot_weight)
+                if exp.scale_all_mot else 1.0, bidirect=exp.bidirect,
+                use_l1=exp.always_l1, num_classes=exp.num_classes,
+                mhs=exp.mhs)
+
+
+def phase_train_model(report):
+    """One uni_loss_fn forward + backward of the full-width model on one
+    mixed batch (an SOT and a MOT sample) through the kernels, and again with
+    every wrapper pointed at its plain version. Compared: the total loss and
+    the gradient of every parameter, each leaf's largest difference as a
+    share of that leaf's largest magnitude. Bounds, set before the first
+    run: the bf16 trunk turns the kernels' one-ulp differences into about
+    1e-2 of a gradient leaf, and SimOTA may hand an anchor to another gt, so
+    the worst leaf may reach 0.1 and the loss 0.02 of its value; the median
+    leaf stays under 0.02. TF32 is off for both runs: with it the fp32
+    plain dw7x7 is no reference (worst leaf 0.15, median 0.04)."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from unicorn_torch.core.train_step import uni_loss_fn
+    from unicorn_torch.losses import uni as uni_mod
+    from unicorn_torch.models import blocks, interaction
+    from unicorn_torch.ops import deform_attn as da
+    from unicorn_torch.ops import dwconv7x7 as dw
+    from unicorn_torch.ops.correlation import correlation_propagate
+
+    exp, model = _train_model(report)
+    images, targets, task_ids = _train_batch(exp, 2, seed=10, n_obj=8)
+    task_ids[0] = 1
+    kw = _uni_loss_kwargs(exp)
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        total, loss_dict = uni_loss_fn(model, images, targets, task_ids, **kw)
+        total.backward()
+        torch.cuda.synchronize()
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        return total.item(), {k: v.item() for k, v in loss_dict.items()}, grads
+
+    _reset_all_counts()
+    with tf32_off():
+        loss_k, dict_k, grads_k = run()
+    counts = _all_counts()
+    with tf32_off(), \
+            mock.patch.object(blocks, "dwconv7x7", dw.dwconv7x7_plain), \
+            mock.patch.object(
+                interaction, "ms_deform_attn",
+                lambda v, l, a, method: da.ms_deform_attn_plain(
+                    v, l, a, "factored")), \
+            mock.patch.object(uni_mod, "correlation_propagate_train",
+                              correlation_propagate):
+        loss_p, dict_p, grads_p = run()
+    assert _all_counts() == counts, "a plain version launched a kernel"
+    model.zero_grad(set_to_none=True)
+
+    shares = {}
+    for name, gp in grads_p.items():
+        gk = grads_k[name]
+        assert bool(torch.isfinite(gk).all()), name
+        shares[name] = ((gk - gp).abs().max()
+                        / gp.abs().max().clamp_min(1e-30)).item()
+    worst = max(shares, key=shares.get)
+    median = float(np.median(list(shares.values())))
+    d_loss = abs(loss_k - loss_p) / abs(loss_p)
+    H, W = exp.input_size
+    print(f"train model {H}x{W}, B={TRAIN_B} pairs, bf16 trunk + fp32 "
+          f"interaction, kernels vs plain: total_loss {loss_k:.5f} vs "
+          f"{loss_p:.5f} (rel {d_loss:.2e}, bound 0.02); {len(shares)} "
+          f"gradient leaves, worst {shares[worst]:.3e} of its max at "
+          f"{worst} (bound 0.1), median {median:.3e} (bound 0.02); "
+          f"launches {counts}")
+    print("  loss dict (kernels): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in dict_k.items()))
+    assert counts == TRAIN_LAUNCHES, counts
+    assert np.isfinite(loss_k) and d_loss <= 0.02
+    assert shares[worst] <= 0.1 and median <= 0.02
+
+
+def phase_train(report):
+    """The training path: ExpTrack.get_train_step / get_optimizer on the
+    card, AdamW with gradient accumulation over 2 micro-steps and EMA;
+    TRAIN_WARMUP steps, then TRAIN_STEPS timed steps alternating an all-SOT
+    and an all-MOT batch, then TRAIN_REPEAT steps on the SOT batch alone,
+    then two steps with their stages synchronised apart."""
+    import numpy as np
+    import torch
+
+    from unicorn_torch.core.train_state import TrainState
+    from unicorn_torch.core.train_step import uni_loss_fn
+
+    exp, model = _train_model(report)
+    state = TrainState.create(
+        model, exp.get_optimizer(TRAIN_B, TRAIN_ITERS_PER_EPOCH),
+        use_ema=exp.ema, device=DEVICE)
+    step = exp.get_train_step(TRAIN_B)
+    batches = [_train_batch(exp, 1, seed=11, n_obj=1),
+               _train_batch(exp, 2, seed=12, n_obj=12)]
+    for t in range(TRAIN_WARMUP):
+        step(state, *batches[t % 2])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    dicts = [step(state, *batches[t % 2])[1] for t in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _all_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    H, W = exp.input_size
+    print(f"train path: {TRAIN_STEPS} steps, B={TRAIN_B} pairs of {H}x{W}, "
+          f"mhs, AdamW, grad_accum {state.tx.grad_accum}, EMA: "
+          f"{wall / TRAIN_STEPS * 1e3:.1f} ms/step "
+          f"({TRAIN_STEPS * TRAIN_B / wall:.2f} pairs/s); peak memory "
+          f"{peak:.2f} GiB; launches {counts} = {TRAIN_STEPS} x "
+          f"{TRAIN_LAUNCHES}; lr of the next update {state.lr():.3e}; TF32 "
+          f"for fp32 convs {torch.backends.cudnn.allow_tf32}, for fp32 "
+          f"matmuls {torch.backends.cuda.matmul.allow_tf32}")
+    for t, d in enumerate(dicts):
+        print(f"  step {t} ({'SOT' if t % 2 == 0 else 'MOT'}): " + ", ".join(
+            f"{k} {v.item():.4f}" for k, v in d.items()))
+    ker = report.setdefault("kernels", {})
+    for name in ("correlation_fwd_lse", "correlation_bwd_i",
+                 "correlation_bwd_j"):
+        ker.setdefault(name, {})["launches"] = counts[name]
+    for name in ("dwconv7x7", "msda_factored"):
+        k = ker.setdefault(name, {})
+        by_path = k.setdefault("launches_by_path", {})
+        by_path["train"] = counts[name]
+        k["launches"] = (k.get("launches") or 0) + counts[name]
+
+    finite = all(bool(torch.isfinite(v).all()) for d in dicts
+                 for v in d.values())
+
+    rep = [step(state, *batches[0])[1]["total_loss"].item()
+           for _ in range(TRAIN_REPEAT)]
+    print(f"  {TRAIN_REPEAT} further steps on the SOT batch: total_loss "
+          + " ".join(f"{v:.4f}" for v in rep))
+
+    # the stages of a step, synchronised apart, over the two micro-steps of
+    # one optimizer update; every parameter that got a gradient must move
+    kw = _uni_loss_kwargs(exp)
+    stages = {"forward+loss": [], "backward": [], "optimizer+ema": []}
+    assert state.mini_step == 0
+    names = [n for n, _ in state.model.named_parameters()]
+    before = [p.detach().clone() for p in state.model.parameters()]
+    ema_before = [p.detach().clone() for p in state.ema_model.parameters()]
+    grad_norms = torch.zeros(len(names), device=DEVICE)
+    for t in range(2):
+        state.model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        ts = [time.perf_counter()]
+        total, _ = uni_loss_fn(state.model, *batches[t % 2], **kw)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter())
+        total.backward()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter())
+        grad_norms += torch.stack([
+            p.grad.float().abs().sum() if p.grad is not None
+            else grad_norms.new_zeros(()) for p in state.model.parameters()])
+        torch.cuda.synchronize()
+        ts[-1] = time.perf_counter()
+        state.apply_gradients()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter())
+        for k, name in enumerate(stages):
+            stages[name].append((ts[k + 1] - ts[k]) * 1e3)
+    has_grad = (grad_norms > 0).tolist()
+    stuck = [n for n, g, p, b in zip(names, has_grad,
+                                     state.model.parameters(), before)
+             if g and torch.equal(p, b)]
+    ema_stuck = [n for n, g, p, b in zip(
+        names, has_grad, state.ema_model.parameters(), ema_before)
+        if g and torch.equal(p, b)]
+    no_grad = [n for n, g in zip(names, has_grad) if not g]
+    print(f"  one optimizer update: {sum(has_grad)} of {len(names)} "
+          f"parameters got a gradient, {len(stuck)} of them did not move "
+          f"(EMA: {len(ema_stuck)}); zero gradient (no fg anchor at that "
+          f"level): {no_grad}")
+    print("  per-stage ms (SOT step, MOT step; the MOT step runs the "
+          "optimizer): " + ", ".join(
+              f"{k} {v[0]:.1f} / {v[1]:.1f}" for k, v in stages.items()))
+    report["train_ms_per_step"] = wall / TRAIN_STEPS * 1e3
+
+    assert finite, "a loss is not finite"
+    assert counts == {k: n * TRAIN_STEPS for k, n in TRAIN_LAUNCHES.items()}, \
+        counts
+    assert not stuck, f"parameters that did not move: {stuck[:8]}"
+    assert not ema_stuck, f"EMA tensors that did not move: {ema_stuck[:8]}"
+    assert np.isfinite(rep).all() and rep[-1] < rep[0], rep
+
+
 # ------------------------------------------------------ opt-in: profile
 def _profile(label, step, frames):
     """torch.profiler over step(frame) for each frame: CUDA time by kernel
@@ -901,6 +1436,20 @@ def phase_profile(report):
         sot.track(f)
     _profile("sot", sot.track, frames[2:])
 
+    from unicorn_torch.core.train_state import TrainState
+
+    exp, model = _train_model(report)
+    state = TrainState.create(
+        model, exp.get_optimizer(TRAIN_B, TRAIN_ITERS_PER_EPOCH),
+        use_ema=exp.ema, device=DEVICE)
+    step = exp.get_train_step(TRAIN_B)
+    batches = [_train_batch(exp, 1, seed=11, n_obj=1),
+               _train_batch(exp, 2, seed=12, n_obj=12)]
+    for b in batches:
+        step(state, *b)
+    _profile("train (per step: SOT, MOT, SOT, MOT)",
+             lambda b: step(state, *b), batches * 2)
+
 
 PHASES = {
     "build": phase_card_and_build,
@@ -909,9 +1458,12 @@ PHASES = {
     "main": phase_main,
     "sot_model": phase_sot_model,
     "sot": phase_sot,
+    "train_model": phase_train_model,
+    "train": phase_train,
     "profile": phase_profile,
 }
-DEFAULT_PHASES = ("build", "kernels", "model", "main", "sot_model", "sot")
+DEFAULT_PHASES = ("build", "kernels", "model", "main", "sot_model", "sot",
+                  "train_model", "train")
 
 
 def main(argv=None) -> int:

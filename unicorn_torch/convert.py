@@ -1,5 +1,6 @@
 """Weight bridge: a flax parameter tree of the JAX package -> a state_dict
-with the reference torch model's names, which the port's modules use.
+with the reference torch model's names, which the port's modules use
+(`from_flax`), and back (`to_flax`, for comparing gradients).
 
 The name table is a copy of tools/convert_torch_weights.py `build_rules`
 (reference torch name regex -> flax path), which maps torch -> flax. Here
@@ -251,3 +252,27 @@ def from_flax(params, depth: float = 1.0):
         else:
             raise KeyError(f"from_flax: no rule names the flax leaf {path!r}")
     return state, sorted(not_ported)
+
+
+def to_flax(named_tensors, depth: float = 1.0):
+    """The inverse of from_flax: a dict of tensors under the state_dict's
+    names (parameters, or their gradients) -> a nested dict of fp32 numpy
+    arrays under the flax paths and in the flax layouts, so that a gradient
+    can be compared with the JAX package's leaf by leaf. A name that no rule
+    matches raises."""
+    rules = build_rules(depth=depth)
+    tree = {}
+    for name, t in named_tensors.items():
+        for pat, dst, tf in rules:
+            m = pat.match(name)
+            if m:
+                w = t.detach().float().cpu().numpy()
+                node = tree
+                *parents, leaf = m.expand(dst).split("/")
+                for part in parents:
+                    node = node.setdefault(part, {})
+                node[leaf] = tf(w) if tf is not None else w
+                break
+        else:
+            raise KeyError(f"to_flax: no rule names the tensor {name!r}")
+    return tree

@@ -1,0 +1,157 @@
+"""Train state: model, its EMA copy, the optimizer and the step count (port
+of unicorn_tpu/core/train_state.py).
+
+The JAX package keeps parameters, optimizer state and EMA in one immutable
+pytree and returns a new one each step; here the state owns an nn.Module and
+updates it in place. `make_optimizer` returns a description of the update
+rule (what optax calls a gradient transformation); `TrainState.create` turns
+it into a torch.optim optimizer over the model's parameters.
+
+How the update rule maps onto optax's, which the tests hold it to:
+  * `optax.adamw` (eps outside the root, decay added to the update before the
+    learning rate) is `torch.optim.AdamW` algebraically; decay applies where
+    `default_wd_mask` says, which selects the same tensors on torch shapes
+    as `p.ndim > 1` does on flax shapes.
+  * `optax.MultiSteps` averages the gradients of `grad_accum` micro-steps
+    (a running mean) and runs the inner update once per `grad_accum`; the
+    schedule is read at `count * grad_accum`, in iteration units.
+  * `apply_gradients` advances `step` and updates the EMA on every
+    micro-step, also on those where the parameters did not move.
+"""
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+import torch.nn as nn
+
+from ..device import resolve_device
+from .schedule import ema_decay_schedule
+
+
+@dataclass(frozen=True)
+class OptimizerSpec:
+    """The update rule `make_optimizer` describes."""
+    lr_fn: Callable
+    kind: str = "adamw"
+    weight_decay: float = 1e-4
+    momentum: float = 0.9
+    grad_accum: int = 1
+    max_grad_norm: Optional[float] = None
+    no_decay_mask_fn: Optional[Callable] = None
+
+
+def default_wd_mask(named_params) -> dict:
+    """{name: True where weight decay applies}: kernels of two or more
+    dimensions only, not biases, scales or norms. The head's fuse scales
+    `beta_k` are vectors in the JAX package and are kept as (1, C, 1, 1)
+    here for broadcasting: they do not decay either."""
+    return {name: p.ndim > 1 and not name.rpartition(".")[2].startswith("beta_")
+            for name, p in named_params}
+
+
+def make_optimizer(lr_fn: Callable, kind: str = "adamw",
+                   weight_decay: float = 1e-4, momentum: float = 0.9,
+                   grad_accum: int = 1,
+                   max_grad_norm: Optional[float] = None,
+                   no_decay_mask_fn: Optional[Callable] = None
+                   ) -> OptimizerSpec:
+    """AdamW for the uni stage, SGD with Nesterov momentum for detection
+    pretraining. lr_fn maps the iteration to the learning rate. Without a
+    mask function weight decay applies to every parameter."""
+    if kind not in ("adamw", "sgd"):
+        raise ValueError(kind)
+    return OptimizerSpec(lr_fn, kind, weight_decay, momentum, grad_accum,
+                         max_grad_norm, no_decay_mask_fn)
+
+
+class TrainState:
+    """model + optimizer + EMA + step. `create` builds it; `apply_gradients`
+    consumes the `.grad` of the model's parameters."""
+
+    def __init__(self, model, ema_model, tx, optimizer, ema_base_decay):
+        self.model = model
+        self.ema_model = ema_model
+        self.tx = tx
+        self.optimizer = optimizer
+        self.ema_base_decay = ema_base_decay
+        self.step = 0          # micro-steps taken
+        self.opt_count = 0     # inner optimizer updates taken
+        self.mini_step = 0     # micro-steps since the last inner update
+        self._params = [p for p in model.parameters()]
+        self._ema = ([p for p in ema_model.parameters()]
+                     if ema_model is not None else None)
+        self._acc = None       # running mean of the micro-steps' gradients
+
+    @classmethod
+    def create(cls, model: nn.Module, tx: OptimizerSpec,
+               ema_base_decay: float = 0.9998, use_ema: bool = True,
+               device="cuda") -> "TrainState":
+        """The model goes to `device` (the card unless the caller asks for
+        the CPU); the EMA copy starts equal to it."""
+        model = model.to(resolve_device(device))
+        named = list(model.named_parameters())
+        mask = (tx.no_decay_mask_fn(named) if tx.no_decay_mask_fn
+                else {n: True for n, _ in named})
+        groups = [
+            {"params": [p for n, p in named if mask[n]],
+             "weight_decay": tx.weight_decay},
+            {"params": [p for n, p in named if not mask[n]],
+             "weight_decay": 0.0}]
+        if tx.kind == "adamw":
+            opt = torch.optim.AdamW(groups, lr=0.0, betas=(0.9, 0.999),
+                                    eps=1e-8)
+        else:
+            opt = torch.optim.SGD(groups, lr=0.0, momentum=tx.momentum,
+                                  nesterov=True)
+        ema = None
+        if use_ema:
+            ema = copy.deepcopy(model).requires_grad_(False)
+        return cls(model, ema, tx, opt, ema_base_decay)
+
+    def lr(self) -> float:
+        """The learning rate of the next inner update."""
+        return float(self.tx.lr_fn(self.opt_count * self.tx.grad_accum))
+
+    @torch.no_grad()
+    def apply_gradients(self) -> "TrainState":
+        """One micro-step from the parameters' `.grad` (a parameter without
+        one counts as a zero gradient, so that it still decays)."""
+        tx = self.tx
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self._params]
+        if tx.grad_accum > 1:
+            if self._acc is None:
+                self._acc = [torch.zeros_like(p) for p in self._params]
+            # acc += (g - acc) / (mini_step + 1): optax.MultiSteps' mean
+            torch._foreach_sub_(grads, self._acc)
+            torch._foreach_add_(self._acc, grads,
+                                alpha=1.0 / (self.mini_step + 1))
+            self.mini_step += 1
+            grads = self._acc if self.mini_step == tx.grad_accum else None
+        if grads is not None:
+            if tx.max_grad_norm is not None:
+                norm = torch.linalg.vector_norm(torch.stack(
+                    [torch.linalg.vector_norm(g) for g in grads]))
+                scale = tx.max_grad_norm / norm.clamp_min(tx.max_grad_norm)
+                grads = [g * scale for g in grads]
+            lr = self.lr()
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+            for p, g in zip(self._params, grads):
+                p.grad = g
+            self.optimizer.step()
+            self.opt_count += 1
+            self.mini_step = 0
+            if self._acc is not None:
+                torch._foreach_zero_(self._acc)
+        for p in self._params:
+            p.grad = None
+        self.step += 1
+        if self._ema is not None:
+            d = ema_decay_schedule(self.ema_base_decay, self.step)
+            torch._foreach_mul_(self._ema, d)
+            torch._foreach_add_(self._ema, self._params, alpha=1.0 - d)
+        return self

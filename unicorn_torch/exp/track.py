@@ -1,10 +1,14 @@
-"""Unified SOT+MOT experiment: the model and test fields of
-unicorn_tpu/exp/track.py ExpTrack, and get_model() building the port's
-Unicorn."""
+"""Unified SOT+MOT experiment: the model, training and test fields of
+unicorn_tpu/exp/track.py ExpTrack, get_model() building the port's Unicorn,
+and the training factories get_lr_fn / get_optimizer / get_train_step. The
+loader, the trainer, checkpoints and `load_pretrained` are not ported yet."""
 from __future__ import annotations
 
 import torch
 
+from ..core.schedule import yolox_warm_cos_lr
+from ..core.train_state import default_wd_mask, make_optimizer
+from ..core.train_step import make_uni_train_step
 from ..models.unicorn import Unicorn
 
 
@@ -30,6 +34,28 @@ class ExpTrack:
         self.bf16 = True
         # serving runs the interaction and embedding stages in bf16 too
         self.serve_interact_bf16 = True
+        # backbone block remat is not ported yet (same numbers, less memory)
+        self.remat = False
+        self.input_size = (800, 1280)
+        # --------------  training config --------------------- #
+        self.warmup_epochs = 1
+        self.max_epoch = 15
+        self.warmup_lr = 0
+        self.basic_lr_per_img = 5e-4 / 64.0
+        self.scheduler = "yoloxwarmcos"
+        self.no_aug_epochs = 3
+        self.min_lr_ratio = 0.1
+        self.ema = True
+        self.mhs = True
+        self.weight_decay = 5e-4
+        self.always_l1 = True
+        self.use_grad_acc = True
+        self.grad_acc_step = 2
+        self.bidirect = True
+        self.train_mode = "alter"
+        self.alter_step = 1
+        self.mot_weight = 3
+        self.scale_all_mot = True
         # -----------------  testing config ------------------ #
         self.test_size = (800, 1280)
         self.test_conf = 0.01
@@ -51,5 +77,43 @@ class ExpTrack:
             use_attention=self.use_attention, n_layer_att=self.n_layer_att,
             unshared_obj=self.unshared_obj, unshared_reg=self.unshared_reg,
             fuse_method=self.fuse_method, learnable_fuse=self.learnable_fuse,
+            remat=self.remat,
             dtype=torch.bfloat16 if self.bf16 else torch.float32,
             interact_dtype=idt, msda_method=msda_method, generator=generator)
+
+    # ---- training factories ----
+
+    def get_lr_fn(self, batch_size, iters_per_epoch):
+        """iteration -> learning rate: quadratic warm-up, cosine, floor."""
+        lr = self.basic_lr_per_img * batch_size
+
+        def lr_fn(step):
+            return yolox_warm_cos_lr(
+                lr, self.min_lr_ratio,
+                total_iters=self.max_epoch * iters_per_epoch,
+                warmup_total_iters=self.warmup_epochs * iters_per_epoch,
+                warmup_lr_start=self.warmup_lr,
+                no_aug_iter=self.no_aug_epochs * iters_per_epoch,
+                iters=step)
+
+        return lr_fn
+
+    def get_optimizer(self, batch_size, iters_per_epoch=12500):
+        """AdamW, decay on kernels only, with gradient accumulation; hand it
+        to core.train_state.TrainState.create with the model."""
+        return make_optimizer(
+            self.get_lr_fn(batch_size, iters_per_epoch), kind="adamw",
+            weight_decay=self.weight_decay,
+            grad_accum=self.grad_acc_step if self.use_grad_acc else 1,
+            no_decay_mask_fn=default_wd_mask)
+
+    def get_train_step(self, batch_size):
+        """step(state, images (B, 2, 3, H, W), targets (B, 2, M, 6),
+        task_ids (B,)) -> (state, loss_dict) at this experiment's input
+        size and loss weights."""
+        del batch_size  # shapes are the batch's own
+        return make_uni_train_step(
+            self.input_size,
+            mot_weight=float(self.mot_weight) if self.scale_all_mot else 1.0,
+            bidirect=self.bidirect, use_l1=self.always_l1,
+            num_classes=self.num_classes, mhs=self.mhs)

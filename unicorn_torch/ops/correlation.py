@@ -1,5 +1,5 @@
 """Pixel-correspondence correlation and label propagation, plain PyTorch
-(port of unicorn_tpu/ops/correlation.py; `dice_loss` waits for training).
+(port of unicorn_tpu/ops/correlation.py).
 
     out[b, k, j] = sum_i lbs0[b, k, i] * softmax_i(e0[b, i] . e1[b, j])
 
@@ -55,6 +55,18 @@ def resize_bilinear_torch(x, out_h: int, out_w: int):
     are taken down by 2, 4 and 8."""
     return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
                          align_corners=False, antialias=False)
+
+
+def dice_loss(pred, gt, sample_mask=None):
+    """Dice loss over flattened maps. pred, gt (B, ...); sample_mask:
+    optional (B,) weights, giving the dice of the masked sub-batch."""
+    eps = 1e-5
+    axes = tuple(range(1, pred.dim()))
+    inter = (pred * gt).sum(axes)
+    union = (pred ** 2).sum(axes) + (gt ** 2).sum(axes)
+    if sample_mask is not None:
+        inter, union = inter * sample_mask, union * sample_mask
+    return 1.0 - 2.0 * inter.sum() / (union.sum() + eps)
 
 
 def grid_sample_at_points(feat, points_xy):

@@ -25,7 +25,16 @@ same cell, and only in bf16.
 
 `ms_deform_attn` launches the kernel for a CUDA tensor and takes a plain
 version only for a tensor on the CPU; a CUDA tensor the kernel does not take
-raises. There is no backward yet: inputs that require grad raise on CUDA.
+raises.
+
+Gradients: on a CUDA tensor the op is an autograd Function whose forward is
+the kernel (fp32 in training, where the interaction is fp32) and whose
+backward is autograd of the plain gather in the kernel's mode, giving dvalue,
+dlocations and dweights. The JAX package's custom VJPs
+(`_msda_pallas_factored_bwd`, `_msda_pallas_bwd`, deform_attn.py:428, :449)
+likewise recompute through a non-kernel form and it has no backward kernel,
+so the port has none either: the plain backward is the op's definition, not a
+fall-back from a kernel.
 """
 from __future__ import annotations
 
@@ -33,6 +42,9 @@ import ctypes
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
+
+from .dwconv7x7 import plain_backward
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}   # channels per 16-byte vector
@@ -161,7 +173,8 @@ def ms_deform_attn_cuda(value, locs, attw, mode: str = "factored"):
     """The CUDA kernel on PyTorch's current stream. value: contiguous
     (B,L,H,W,M,D) CUDA tensor, float32 or bfloat16, D a multiple of the
     16-byte vector (4 fp32, 8 bf16 channels); locs: contiguous float32;
-    attw: contiguous float32 or bfloat16. Forward only."""
+    attw: contiguous float32 or bfloat16. Autograd does not see this launch;
+    `ms_deform_attn` wraps it in a Function."""
     if mode not in _MODE_CODE:
         raise ValueError(f"ms_deform_attn_cuda: unknown mode {mode!r}")
     _check_shapes(value, locs, attw)
@@ -172,10 +185,6 @@ def ms_deform_attn_cuda(value, locs, attw, mode: str = "factored"):
         if not t.is_contiguous():
             raise ValueError(f"ms_deform_attn_cuda: {name} is not contiguous "
                              f"(shape {tuple(t.shape)}, strides {t.stride()})")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "ms_deform_attn_cuda has no backward yet; run under "
-                "torch.no_grad() or detach the inputs")
     if value.dtype not in _DTYPE_CODE or attw.dtype not in _DTYPE_CODE:
         raise TypeError(f"ms_deform_attn_cuda: value {value.dtype} / weights "
                         f"{attw.dtype} must be float32 or bfloat16")
@@ -194,6 +203,25 @@ def ms_deform_attn_cuda(value, locs, attw, mode: str = "factored"):
     return out
 
 
+class _MSDeformAttn(torch.autograd.Function):
+    """forward = the gather kernel in `mode`; backward = autograd of
+    ms_deform_attn_plain in the same mode."""
+
+    @staticmethod
+    def forward(ctx, value, locs, attw, mode):
+        ctx.save_for_backward(value, locs, attw)
+        ctx.mode = mode
+        return ms_deform_attn_cuda(value, locs, attw, mode)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        mode = ctx.mode
+        return plain_backward(
+            lambda v, l, a: ms_deform_attn_plain(v, l, a, mode),
+            ctx.saved_tensors, ctx.needs_input_grad[:3], grad_out) + (None,)
+
+
 def ms_deform_attn(value, locs, attw, method: str = "auto"):
     """Deformable attention aggregation over L equal-shape levels.
 
@@ -202,7 +230,8 @@ def ms_deform_attn(value, locs, attw, method: str = "auto"):
 
     method, with the JAX package's names: "pallas_factored" is the kernel's
     factored mode and "pallas" its direct mode (the kernel on a CUDA tensor,
-    that mode's plain version on a CPU tensor); "auto" is the factored
+    that mode's plain version on a CPU tensor; differentiable, with the
+    plain version's backward); "auto" is the factored
     kernel on a CUDA tensor and the plain gather on a CPU tensor, as the
     JAX package takes its gather off the TPU; "gather" is the plain direct
     form on any device. "onehot" and "onehot_factored" are XLA formulations
@@ -219,7 +248,7 @@ def ms_deform_attn(value, locs, attw, method: str = "auto"):
                          f"{sorted(_METHOD_MODE) + ['gather']}")
     kernel_mode, cpu_mode = _METHOD_MODE[method]
     if value.is_cuda:
-        return ms_deform_attn_cuda(value, locs, attw, kernel_mode)
+        return _MSDeformAttn.apply(value, locs, attw, kernel_mode)
     if value.device.type != "cpu":
         raise ValueError(f"ms_deform_attn: no kernel for device {value.device}")
     return ms_deform_attn_plain(value, locs, attw, cpu_mode)

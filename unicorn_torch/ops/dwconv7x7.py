@@ -10,6 +10,14 @@ bias in the compute dtype, so in bf16 it rounds twice; fp32 is identical.)
 `dwconv7x7` launches the kernel for a CUDA tensor and takes the plain
 version only for a tensor on the CPU. There is no fall-back: a CUDA tensor
 the kernel does not take raises.
+
+Gradients: on a CUDA tensor `dwconv7x7` is an autograd Function whose forward
+is the kernel and whose backward is autograd of `dwconv7x7_plain` on the
+saved (x, kdw, bias), as the JAX package's custom VJP (`_dw_bwd`,
+pallas_convnext.py:305) recomputes through `dwconv7x7_ref`: that package has
+no backward kernel for this op, so the port has none either. The backward
+running the plain version is the op's definition, not a fall-back from a
+kernel.
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 # (H, W, C) of the dw7x7 calls of one 800x1280 frame of the MOT path (B=1),
 # with how many blocks run at each: trunk stages 0-3, then the head's
@@ -123,13 +132,43 @@ def launch(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor,
     launches += 1
 
 
+def plain_backward(plain, inputs, needs, grad_out):
+    """Gradients of plain(*inputs) against grad_out for the inputs whose
+    `needs` flag is set (None for the others): the backward of an autograd
+    Function whose forward kernel has no backward kernel."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        out = plain(*leaves)
+        wanted = [t for t, n in zip(leaves, needs) if n]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out))
+    return tuple(next(grads) if n else None for n in needs)
+
+
+class _DwConv7x7(torch.autograd.Function):
+    """forward = the kernel on the tensors it was given (x is often an NHWC
+    view of a channels_last map: that view is what is saved); backward =
+    autograd of dwconv7x7_plain, reaching x and the fp32 taps and bias."""
+
+    @staticmethod
+    def forward(ctx, x, kdw, bias):
+        ctx.save_for_backward(x, kdw, bias)
+        return dwconv7x7_cuda(x, kdw, bias)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        return plain_backward(dwconv7x7_plain, ctx.saved_tensors,
+                              ctx.needs_input_grad, grad_out)
+
+
 def dwconv7x7(x: torch.Tensor, kdw: torch.Tensor,
               bias: torch.Tensor) -> torch.Tensor:
     """Depthwise 7x7 SAME conv + bias. x (B,H,W,C); kdw (7,7,C) or
-    (7,7,1,C); bias (C,). The kernel on a CUDA tensor, the plain version on
-    a CPU tensor."""
+    (7,7,1,C); bias (C,). The kernel on a CUDA tensor (differentiable: the
+    backward is autograd of the plain version), the plain version on a CPU
+    tensor."""
     if x.is_cuda:
-        return dwconv7x7_cuda(x, kdw, bias)
+        return _DwConv7x7.apply(x, kdw, bias)
     if x.device.type != "cpu":
         raise ValueError(f"dwconv7x7: no kernel for device {x.device}")
     return dwconv7x7_plain(x, kdw, bias)
