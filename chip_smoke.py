@@ -5,20 +5,31 @@
 
 Phases (each must pass, else the exit code is 1):
   build      the card's name and power limit; every CUDA source of csrc/
-             built with nvcc (dwconv7x7, msda, correlation,
+             built with nvcc (dwconv7x7, convnext_block, msda, correlation,
              correlation_train), in parallel
   kernels    each kernel against its plain PyTorch version at the main
              paths' shapes and at ragged ones, in bf16 and fp32, with times
              of kernel, plain version and the PyTorch library call that
              computes the same function, and the bound; the gradients of
-             the dw7x7 and MSDA autograd Functions against autograd of
-             their plain versions
+             the dw7x7, fused-block and MSDA autograd Functions against
+             autograd of their plain versions
   model      the ConvNeXt-Tiny Unicorn at 800x1280 in bf16 (seeded random
              weights): forward_whole through the dw7x7 kernel vs the same
              model through the plain version, on the card
   main       the MOT path: MOTDriver.update over synthetic 1080x1920 uint8
              frames, letterboxed on the card; frames/s, per-stage ms, dets
              and tracks per frame, launch counts (27 dw7x7 per frame)
+  block_model  the same model with each of its 27 ConvNeXt blocks run as
+             one convnext_block call (the fused block kernels) against the
+             model's own blocks; 27 launches of the op; ms per frame for the
+             27 blocks each way
+  stream     the streaming MOT path: tracker_step on the card against the
+             same function on the CPU over a synthetic detection clip, then
+             StreamingMOTPipeline (3 warm-up frames, 16 push_frame, the same
+             frames as two run_chunk of 8, one run_chunk with n_streams=2);
+             frames/s beside MOTDriver.update on the same frames, tracker ms,
+             auction rounds and host synchronisations per frame, 27 dw7x7
+             launches per frame
   sot_model  the served model (bf16 trunk, bf16 interaction): one SOT frame
              through the three kernels vs through their plain versions
   sot        the SOT path: SOTDriver.initialize, 16 track calls, one
@@ -36,7 +47,7 @@ Phases (each must pass, else the exit code is 1):
              batch (the loss must fall), 2 steps with their stages timed
              apart; ms/step, peak memory, launch counts per step (36 dw7x7,
              1 msda, 2 each of the three correlation training kernels)
-`--only profile` adds a torch.profiler breakdown of the three paths.
+`--only profile` adds a torch.profiler breakdown of the paths.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the rest of the
 repo beside this file, it exits non-zero and prints no result.
@@ -152,7 +163,7 @@ def phase_card_and_build(report):
           f"{bf16 / 1e12:.0f} TFLOP/s bf16 | "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    logs = build.build(["dwconv7x7", "msda", "correlation",
+    logs = build.build(["dwconv7x7", "convnext_block", "msda", "correlation",
                         "correlation_train"])
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for n, log in logs.items():
@@ -175,8 +186,9 @@ def phase_kernels(report):
     when one disagrees."""
     bad = []
     with tf32_off():
-        for check in (kernels_dw7x7, kernels_msda, kernels_correlation,
-                      kernels_correlation_train, kernels_backward):
+        for check in (kernels_dw7x7, kernels_convnext_block, kernels_msda,
+                      kernels_correlation, kernels_correlation_train,
+                      kernels_backward):
             if not check(report):
                 bad.append(check.__name__)
     if bad:
@@ -286,6 +298,179 @@ def kernels_dw7x7(report) -> bool:
         bound_by=("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
                   else "operations"),
         library_ms=tot["library_ms"])
+    return ok
+
+
+def _cb_params(C, g, dev):
+    """Seeded parameters of one ConvNeXt block under the port's names:
+    lecun-scaled weights, small biases, LayerNorm scale about 1, gamma about
+    0.5 so that the block's branch weighs as much as the residual."""
+    import torch
+
+    def rn(*shape, s=1.0):
+        return s * torch.randn(*shape, device=dev, generator=g)
+
+    return {
+        "dwconv": {"weight": rn(C, 1, 7, 7, s=0.1), "bias": rn(C, s=0.1)},
+        "norm": {"weight": 1 + rn(C, s=0.1), "bias": rn(C, s=0.1)},
+        "pwconv1": {"weight": rn(4 * C, C, s=C ** -0.5),
+                    "bias": rn(4 * C, s=0.1)},
+        "pwconv2": {"weight": rn(C, 4 * C, s=(4 * C) ** -0.5),
+                    "bias": rn(C, s=0.1)},
+        "gamma": 0.5 + rn(C, s=0.1),
+    }
+
+
+def cb_disagreement(x, p, exact_gelu, yk, yp):
+    """(outputs of the convnext_block kernel beyond tolerance, share of
+    outputs that differ at all, max |d|) against the plain version.
+    Tolerance, set before the first run and widened once after it (the
+    second term of the bf16 bound was missing). fp32: 5e-5 + 5e-5 |plain|
+    (the same fp32 sums of up to 4C terms in other orders). bf16: kernel
+    and plain version round at the same five places, so they differ only
+    where another summation order moves one rounding of yn or of the hidden
+    map h. The bound is 2 bf16 ulps of the largest of |kernel|, |plain| and
+    |x| (the output is x + gamma * y: where the two cancel, the terms'
+    rounding steps are the scale), plus 2^-7 of the root-sum-square over k
+    of gamma_c * h_k * W2_ck: what product 2 would move by if every hidden
+    value moved one ulp with random signs (in fact about 1% of them move).
+    At most 2% of the outputs may differ at all: the share grows with the
+    number of terms (measured 0.09% at C = 96, 0.93% at C = 768)."""
+    import torch
+
+    from unicorn_torch.ops import convnext_block as cb
+
+    d = (yk.float() - yp.float()).abs()
+    if x.dtype == torch.float32:
+        nbad = int((d > 5e-5 + 5e-5 * yp.abs()).sum().item())
+    else:
+        mag = torch.maximum(torch.maximum(yk.float().abs(), yp.float().abs()),
+                            x.float().abs())
+        h = cb.plain_hidden(x, p, exact_gelu).float()
+        w2 = p["pwconv2"]["weight"].to(x.dtype).float()
+        rss = torch.sqrt((h * h) @ (w2 * w2).t()) * p["gamma"].abs()
+        nbad = int((d > 2 * bf16_ulp(mag) + 2.0 ** -7 * rss).sum().item())
+    return nbad, (d > 0).float().mean().item(), d.max().item()
+
+
+def kernels_convnext_block(report) -> bool:
+    """The fused ConvNeXt block kernels against convnext_block_plain at the
+    seven served shapes, at a ragged shape with a C that is no multiple of
+    16 and at B = 2, in bf16 and fp32 and with both GELUs; times of the
+    kernel, the plain version, the composition on library calls
+    (F.conv2d(groups=C) + F.layer_norm + F.linear) and the ConvNeXtBlock
+    module as served (dw7x7 kernel + F.layer_norm + F.linear), with erf GELU
+    as the model runs it."""
+    import torch
+    import torch.nn.functional as F
+
+    from unicorn_torch.models.blocks import ConvNeXtBlock
+    from unicorn_torch.ops import convnext_block as cb
+    from unicorn_torch.ops import dwconv7x7 as dw
+
+    bw, fp32_peak, bf16_peak = report["peaks"]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    ok = True
+    keys = ("ms", "plain_ms", "library_ms", "served_ms", "bound_ms",
+            "bytes_ms", "ops_ms")
+    tot = {dt: dict.fromkeys(keys, 0.0)
+           for dt in (torch.bfloat16, torch.float32)}
+    max_err = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    print("block  B x H x W x C    dtype    n  max|err|  differ   kernel_ms "
+          "plain_ms  library_ms served_ms bound_ms bound_by")
+    shapes = [((1, H, W, C), n) for (H, W, C), n in dw.PATH_SHAPES]
+    shapes += [((2, 13, 17, 24), 0), ((1, 9, 70, 40), 0),
+               ((2, 50, 80, 384), 0)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, n in shapes:
+            B, H, W, C = shape
+            x = torch.randn(*shape, device=dev, generator=g).to(dtype)
+            p = _cb_params(C, g, dev)
+            good, err, differ = True, 0.0, 0.0
+            for exact_gelu in (True, False):
+                n0 = cb.launches
+                yk = cb.convnext_block_cuda(x, p, exact_gelu)
+                assert cb.launches == n0 + 1
+                yp = cb.convnext_block_plain(x, p, exact_gelu)
+                torch.cuda.synchronize()
+                nbad, share, e = cb_disagreement(x, p, exact_gelu, yk, yp)
+                err, differ = max(err, e), max(differ, share)
+                fine = (nbad == 0 and (dtype == torch.float32 or share <= 0.02)
+                        and bool(torch.isfinite(yk.float()).all().item()))
+                if not fine:
+                    print(f"       {shape} {dtype} exact_gelu={exact_gelu}: "
+                          f"{nbad} outputs beyond tolerance, {share:.2%} "
+                          "differ")
+                good &= fine
+            ok &= good
+            max_err[dtype] = max(max_err[dtype], err)
+            if n == 0:
+                print(f"       {B}x{H:3d}x{W:3d}x{C:<4d} {str(dtype)[6:]:8s} - "
+                      f"{err:.2e}  {differ:.2e}{'' if good else '  FAIL'}")
+                continue
+            # bound: x in, y out and every parameter once; the products'
+            # operations at the tensor-core rate in bf16, the dw taps'
+            # fp32 FMAs at the fp32 rate
+            P, esz = B * H * W, x.element_size()
+            nbytes = (2 * P * C + 8 * C * C) * esz + 58 * C * 4
+            mm_peak = bf16_peak if dtype == torch.bfloat16 else fp32_peak
+            t_bytes = nbytes / bw * 1e3
+            t_ops = (16 * P * C * C / mm_peak + 98 * P * C / fp32_peak) * 1e3
+            bound = max(t_bytes, t_ops)
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            prepared, buffers = cb.prepare(x, p), cb.scratch(x)
+            y = torch.empty_like(x)
+            t_k = graph_time_ms(
+                lambda: cb.launch(x, prepared, buffers, y, True), iters=10)
+            t_p = graph_time_ms(
+                lambda: cb.convnext_block_plain(x, p, True), iters=3, reps=3)
+            # the composition on library calls, in x.dtype
+            xc = x.permute(0, 3, 1, 2)
+            cast = {k: (v.to(dtype) if not isinstance(v, dict) else
+                        {kk: vv.to(dtype) for kk, vv in v.items()})
+                    for k, v in p.items()}
+
+            def library():
+                t = F.conv2d(xc, cast["dwconv"]["weight"],
+                             cast["dwconv"]["bias"], padding=3, groups=C)
+                t = F.layer_norm(t.permute(0, 2, 3, 1).float(), (C,),
+                                 p["norm"]["weight"], p["norm"]["bias"],
+                                 1e-6).to(dtype)
+                t = F.gelu(F.linear(t, cast["pwconv1"]["weight"],
+                                    cast["pwconv1"]["bias"]))
+                t = F.linear(t, cast["pwconv2"]["weight"],
+                             cast["pwconv2"]["bias"])
+                return x + t * cast["gamma"]
+
+            t_l = graph_time_ms(library, iters=10)
+            block = ConvNeXtBlock(C, 1.0, dtype=dtype, exact_gelu=True).to(dev)
+            with torch.no_grad():
+                for dst, src in zip(cb.flatten_params(cb.block_params(block)),
+                                    cb.flatten_params(p)):
+                    dst.copy_(src)
+                t_s = graph_time_ms(lambda: block(xc), iters=10)
+            print(f"       {B}x{H:3d}x{W:3d}x{C:<4d} {str(dtype)[6:]:8s} {n}  "
+                  f"{err:.2e}  {differ:.2e}  {t_k:.4f}    {t_p:.4f}   "
+                  f"{t_l:.4f}     {t_s:.4f}    {bound:.4f}   {bound_by}"
+                  f"{'' if good else '  FAIL'}")
+            for key, val in zip(keys, (t_k, t_p, t_l, t_s, bound, t_bytes,
+                                       t_ops)):
+                tot[dtype][key] += n * val
+    for dtype, t in tot.items():
+        print(f"block per frame ({str(dtype)[6:]}, 27 blocks): kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+              f"composition {t['library_ms']:.4f} ms, module as served "
+              f"{t['served_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
+    t = tot[torch.bfloat16]
+    report.setdefault("kernels", {})["convnext_block"] = dict(
+        name="convnext_block", route="cuda",
+        source="unicorn_torch/csrc/convnext_block.cu",
+        replaces="unicorn_tpu/ops/pallas_convnext.py:54",
+        launches=None, max_abs_err=max_err[torch.bfloat16], ms=t["ms"],
+        plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by="bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
+        library_ms=t["library_ms"], served_module_ms=t["served_ms"])
     return ok
 
 
@@ -660,15 +845,17 @@ def kernels_correlation_train(report) -> bool:
 
 
 def kernels_backward(report) -> bool:
-    """The dw7x7 and MSDA autograd Functions (forward = kernel, backward =
-    autograd of the plain version) against autograd of their plain versions,
-    at one served shape each, with the time of the plain backward.
+    """The dw7x7, fused-block and MSDA autograd Functions (forward = kernel,
+    backward = autograd of the plain version; of the composition for the
+    fused block) against autograd of those, at one served shape each, with
+    the time of the plain backward.
     Tolerance: the forwards differ as the forward checks allow, the
     backwards are the same plain code on the same saved inputs: every
     gradient within 1e-5 of its largest magnitude in fp32 (scatter-adds in
     another order), within 2^-7 (one bf16 ulp of the largest) in bf16."""
     import torch
 
+    from unicorn_torch.ops import convnext_block as cb
     from unicorn_torch.ops import deform_attn as da
     from unicorn_torch.ops import dwconv7x7 as dw
 
@@ -709,6 +896,19 @@ def kernels_backward(report) -> bool:
         compare(f"dw7x7 2x50x80x384 {str(dtype)[6:]}", dw.dwconv7x7,
                 dw.dwconv7x7_plain, (x, k, b), (True, True, True), tol)
         assert dw.launches == n0 + 1, "dwconv7x7 did not launch its kernel"
+    # the fused block op: x and the nine leaves; the backward is autograd of
+    # the composition on the saved inputs, whatever the forward gave
+    for dtype, tol in ((torch.bfloat16, 2.0 ** -7), (torch.float32, 1e-5)):
+        x = torch.randn(2, 50, 80, 384, device=dev, generator=g).to(dtype)
+        leaves = cb.flatten_params(_cb_params(384, g, dev))
+        n0 = cb.launches
+        compare(f"convnext_block 2x50x80x384 {str(dtype)[6:]}",
+                lambda x_, *l: cb.convnext_block(
+                    x_, cb.unflatten_params(l), True),
+                lambda x_, *l: cb.convnext_block_ref(
+                    x_, cb.unflatten_params(l), True),
+                (x, *leaves), (True,) * 10, tol)
+        assert cb.launches == n0 + 1, "convnext_block did not launch"
     value, locs, attw = _msda_inputs((2, 2, 50, 80, 8, 32, 8000, 4),
                                      torch.float32, g, True)
     for method, mode in (("auto", "factored"), ("pallas", "direct")):
@@ -720,9 +920,12 @@ def kernels_backward(report) -> bool:
     return ok
 
 
-def _model(report):
+def _model(report, raised_priors=False):
     """The unicorn_track_tiny Unicorn (ConvNeXt-Tiny, bf16) on the card,
-    seeded random weights; built once per run."""
+    seeded random weights; built once per run. raised_priors: the obj/cls
+    prediction biases raised by 6 (once), so that the random-weight
+    detector's scores clear ByteTrack's thresholds and a tracker has work
+    to do."""
     import torch
 
     from unicorn_torch.exp.unicorn_track_tiny import Exp
@@ -731,6 +934,13 @@ def _model(report):
         exp = Exp()
         model = exp.get_model(torch.Generator().manual_seed(0))
         report["model"] = (exp, model.to(DEVICE).eval())
+    if raised_priors and not report.get("raised_priors"):
+        with torch.no_grad():
+            for name, p in report["model"][1].head.named_parameters():
+                if name.startswith(("obj_preds.", "cls_preds.")) and \
+                        name.endswith(".bias"):
+                    p.add_(6.0)
+        report["raised_priors"] = True
     return report["model"]
 
 
@@ -790,21 +1000,14 @@ def phase_model(report):
 def phase_main(report):
     """MOTDriver.update over N_FRAMES synthetic 1080x1920 uint8 frames (a
     panning random texture), letterboxed on the card, conf_thre 0.0 so that
-    NMS sees its 512 candidates. The obj/cls prediction biases are raised
-    so that the random-weight detector's scores clear ByteTrack's
-    thresholds and the tracker has work to do."""
+    NMS sees its 512 candidates, on the model with raised priors."""
     import numpy as np
     import torch
 
     from unicorn_torch.drivers.mot import MOTDriver
     from unicorn_torch.ops import dwconv7x7 as dw
 
-    exp, model = _model(report)
-    with torch.no_grad():
-        for name, p in model.head.named_parameters():
-            if name.startswith(("obj_preds.", "cls_preds.")) and \
-                    name.endswith(".bias"):
-                p.add_(6.0)
+    exp, model = _model(report, raised_priors=True)
     driver = MOTDriver(model, input_size=exp.test_size,
                        num_classes=exp.num_classes, conf_thre=0.0,
                        nms_thre=exp.nmsthre, device=DEVICE)
@@ -830,8 +1033,8 @@ def phase_main(report):
     print(f"main path: {N_FRAMES} frames {fh}x{fw} -> {exp.test_size}, "
           f"{fps:.2f} frames/s ({wall / N_FRAMES * 1e3:.2f} ms/frame); "
           f"dw7x7 launches {launches} (27 x {N_FRAMES} = {27 * N_FRAMES})")
-    report.setdefault("kernels", {}).setdefault(
-        "dwconv7x7", {})["launches"] = launches
+    report.setdefault("kernels", {}).setdefault("dwconv7x7", {}).update(
+        launches=launches, launches_by_path={"mot": launches})
     report["fps"] = fps
 
     # per-stage times: the same stages as update(), synchronised apart
@@ -866,6 +1069,303 @@ def phase_main(report):
     assert launches == 27 * N_FRAMES, launches
     assert all(np.isfinite(v.tlbr).all() for vs in tracks for v in vs)
     assert min(dets_n) > 0 and ids, "the main path produced no tracks"
+
+
+# ------------------------------------------------- fused block in the model
+def _fused_block_forward(self, t):
+    """A ConvNeXtBlock's forward as one convnext_block call on the block's
+    own parameters: NCHW in and out, as the module's."""
+    from unicorn_torch.models.blocks import CL
+    from unicorn_torch.ops import convnext_block as cb
+
+    tn = t.to(self.dtype).contiguous(memory_format=CL)
+    y = cb.convnext_block(tn.permute(0, 2, 3, 1), cb.block_params(self),
+                          exact_gelu=self.approximate == "none")
+    return y.permute(0, 3, 1, 2)
+
+
+def phase_block_model(report):
+    """The full-width bf16 model with each of its 27 ConvNeXt blocks (18 of
+    the trunk, 9 of the head's attention) run as one `convnext_block` call
+    on the block's own parameters, against the model's own blocks (dw7x7
+    kernel + F.layer_norm + F.linear). The stem, the downsample layers, the
+    PAFPN and the rest of the head are the model's in both runs; the
+    harness is the patch below, the model has no switch for it. The
+    trunk's layer scales, 1e-6 at init (each block would be the identity to
+    bf16), are set to seeded values in [0.05, 0.15] for both runs and put
+    back afterwards; the head's are 1.0. Bounds, set before the first run:
+    the two forms round at different places (the op keeps fp32 through
+    LayerNorm, the biases and gamma), about a bf16 ulp of each block's
+    branch, over 18 + 3 blocks in a row: raw logits within 0.1 of their
+    largest magnitude, decoded scores within 0.1."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from unicorn_torch.models import blocks
+    from unicorn_torch.models.heads import decode_for_inference
+    from unicorn_torch.ops import convnext_block as cb
+    from unicorn_torch.ops import dwconv7x7 as dw
+
+    exp, model = _model(report)
+    H, W = exp.test_size
+    rng = np.random.RandomState(0)
+    img = torch.from_numpy((rng.rand(1, H, W, 3) * 255).round()
+                           .astype(np.float32)).to(DEVICE)
+    x = img.permute(0, 3, 1, 2)
+    all_blocks = [m for m in model.modules()
+                  if isinstance(m, blocks.ConvNeXtBlock)]
+    trunk = [m for m in model.backbone.backbone.modules()
+             if isinstance(m, blocks.ConvNeXtBlock)]
+    assert (len(all_blocks), len(trunk)) == (27, 18)
+
+    saved = [m.gamma.detach().clone() for m in trunk]
+    g = torch.Generator(device=DEVICE).manual_seed(8)
+    try:
+        with torch.inference_mode():
+            for m in trunk:
+                m.gamma.copy_(0.05 + 0.1 * torch.rand(
+                    m.gamma.shape, device=DEVICE, generator=g))
+            inputs = {}
+            hooks = [m.register_forward_pre_hook(
+                lambda mod, args: inputs.__setitem__(mod, args[0]))
+                for m in all_blocks]
+            dw.launches = cb.launches = 0
+            raw_m = model.forward_whole(x)[0]
+            n_m = (dw.launches, cb.launches)
+            for h in hooks:
+                h.remove()
+            dw.launches = cb.launches = 0
+            with mock.patch.object(blocks.ConvNeXtBlock, "forward",
+                                   _fused_block_forward):
+                raw_k = model.forward_whole(x)[0]
+            n_k = (dw.launches, cb.launches)
+            dec_k = decode_for_inference(raw_k, (8, 16, 32))
+            dec_m = decode_for_inference(raw_m, (8, 16, 32))
+            torch.cuda.synchronize()
+            pairs = [(m, inputs[m]) for m in all_blocks]
+            t_op = graph_time_ms(
+                lambda: [_fused_block_forward(m, t) for m, t in pairs], iters=3)
+            t_mod = graph_time_ms(lambda: [m(t) for m, t in pairs], iters=3)
+    finally:
+        with torch.no_grad():
+            for m, gm in zip(trunk, saved):
+                m.gamma.copy_(gm)
+    d_raw = max(
+        ((lk[key].float() - lm[key].float()).abs().max()
+         / lm[key].float().abs().max()).item()
+        for lk, lm in zip(raw_k, raw_m) for key in ("_cls_packed",
+                                                     "_reg_packed"))
+    assert bool(torch.isfinite(dec_k).all()) and tuple(dec_k.shape) == tuple(
+        dec_m.shape)
+    d_scores = (dec_k[..., 4:] - dec_m[..., 4:]).abs().max().item()
+    print(f"forward_whole {H}x{W} bf16, 27 blocks as convnext_block calls vs "
+          f"the model's own blocks: raw logits max |d| / max|model| "
+          f"{d_raw:.3e} (bound 0.1), max |d score| {d_scores:.3e} (bound "
+          f"0.1); launches (dw7x7, convnext_block): model's own {n_m}, "
+          f"fused {n_k}")
+    print(f"the 27 blocks of one frame, wrappers included (graph replay): "
+          f"convnext_block {t_op:.4f} ms, the model's blocks {t_mod:.4f} ms")
+    report.setdefault("kernels", {}).setdefault(
+        "convnext_block", {})["launches"] = n_k[1]
+    report["block_frame_ms"] = (t_op, t_mod)
+    assert n_m == (27, 0) and n_k == (0, 27), (n_m, n_k)
+    assert d_raw <= 0.1 and d_scores <= 0.1
+
+
+# ------------------------------------------------------------ streaming MOT
+STREAM_FRAMES = 16        # push_frame calls; then two run_chunk of 8
+STREAM_CHUNK = 8
+
+
+def _detection_clip(n_frames=40, n_obj=20, seed=0):
+    """Synthetic detections per frame, (n, 5) [x1, y1, x2, y2, score]: moving
+    boxes with jitter, dropouts, low-score frames, a crossing pair and
+    clutter."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    pos = rng.uniform(50, 400, (n_obj, 2))
+    vel = rng.uniform(-5, 5, (n_obj, 2))
+    vel[1] = (pos[0] - pos[1]) / 20.0      # object 1 crosses object 0
+    size = rng.uniform(30, 80, (n_obj, 2))
+    for t in range(n_frames):
+        rows = []
+        for i in range(n_obj):
+            if rng.rand() < 0.1:           # missed detection
+                continue
+            tl = pos[i] + t * vel[i] + rng.randn(2) * 1.5
+            rows.append(np.r_[tl, tl + size[i],
+                              rng.choice([0.95, 0.8, 0.4, 0.2])])
+        for _ in range(rng.randint(0, 3)):  # clutter
+            tl = rng.uniform(0, 450, 2)
+            rows.append(np.r_[tl, tl + rng.uniform(20, 60, 2),
+                              rng.uniform(0.05, 0.7)])
+        yield np.asarray(rows, np.float32).reshape(-1, 5)
+
+
+def phase_stream(report):
+    """The streaming MOT path, tracker on the card. (i) tracker_step over a
+    synthetic detection clip on the card against the same function on the
+    CPU: valid masks and ids equal frame by frame. (ii)
+    StreamingMOTPipeline on the full-width bf16 model with raised priors,
+    the JAX bench's settings (conf 0.1, nms 0.8, 128 candidates, 64
+    detections, 128 track slots): 3 warm-up frames, STREAM_FRAMES
+    push_frame calls on synthetic 1080x1920 uint8 frames letterboxed on the
+    card, the same frames again as two run_chunk calls (which must give the
+    pushed frames' rows), one run_chunk with n_streams=2; frames/s beside
+    MOTDriver.update on the same frames in the same call, in the order MOT,
+    stream, stream, MOT."""
+    import numpy as np
+    import torch
+
+    from unicorn_torch.drivers.mot import MOTDriver
+    from unicorn_torch.drivers.stream import StreamingMOTPipeline
+    from unicorn_torch.ops import dwconv7x7 as dw
+    from unicorn_torch.ops.letterbox import letterbox_device
+    from unicorn_torch.tracker import device_tracker as dtk
+
+    # (i) the device tracker on the card against itself on the CPU
+    T, D = 64, 32
+    ts_c = dtk.init_state(T, device="cpu")
+    ts_g = dtk.init_state(T, device=DEVICE)
+    emitted = 0
+    for t, rows in enumerate(_detection_clip()):
+        dets = torch.zeros(1, D, 5)
+        dets[0, :len(rows)] = torch.from_numpy(rows)
+        valid = (torch.arange(D) < len(rows))[None]
+        ts_c, out_c, ov_c = dtk.tracker_step(ts_c, dets, valid)
+        ts_g, out_g, ov_g = dtk.tracker_step(ts_g, dets.to(DEVICE),
+                                             valid.to(DEVICE))
+        assert torch.equal(ov_g.cpu(), ov_c), f"valid mask, frame {t}"
+        assert torch.equal(out_g.cpu()[..., 5], out_c[..., 5]), f"ids, {t}"
+        assert torch.equal(ts_g.track_id.cpu(), ts_c.track_id)
+        assert torch.equal(ts_g.state.cpu(), ts_c.state)
+        d_box = (out_g.cpu()[ov_c][:, :4] - out_c[ov_c][:, :4]).abs()
+        assert not len(d_box) or d_box.max().item() < 1e-2
+        emitted += int(ov_c.sum())
+    print(f"tracker_step, 40 frames of 20 objects: card == CPU (valid, ids, "
+          f"slot states; boxes within 1e-2 px); {emitted} rows emitted, "
+          f"{int(ts_c.next_id[0]) - 1} ids given")
+    assert emitted > 300
+
+    # (ii) the pipeline
+    exp, model = _model(report, raised_priors=True)
+    kw = dict(input_size=exp.test_size, num_classes=exp.num_classes,
+              conf_thre=0.1, nms_thre=0.8, max_dets=64, max_tracks=128,
+              n_cand=128)
+    pipe = StreamingMOTPipeline(model, device=DEVICE, **kw)
+    mot = MOTDriver(model, input_size=exp.test_size,
+                    num_classes=exp.num_classes, conf_thre=0.1, nms_thre=0.8,
+                    max_out=64, device=DEVICE)
+    rng = np.random.RandomState(1)
+    fh, fw = FRAME_HW
+    n = STREAM_FRAMES
+    base = (rng.rand(fh, fw + 4 * n, 3) * 255).astype(np.uint8)
+    frames = [np.ascontiguousarray(base[:, 4 * t:4 * t + fw])
+              for t in range(n)]
+
+    def ingest(f):
+        """uint8 frame -> (1, H, W, 3) float32 on the card, letterboxed."""
+        return letterbox_device(torch.from_numpy(f).to(DEVICE),
+                                exp.test_size)[0][None]
+
+    def run_mot():
+        mot.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in frames:
+            mot.update(f)
+        torch.cuda.synchronize()
+        return n / (time.perf_counter() - t0)
+
+    def run_stream():
+        pipe.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [pipe.push_frame(ingest(f)) for f in frames]
+        torch.cuda.synchronize()
+        return n / (time.perf_counter() - t0), torch.stack(outs)
+
+    for f in frames[:3]:                       # warm-up, not counted
+        pipe.push_frame(ingest(f))
+        mot.update(f)
+    fps_mot = [run_mot()]
+    dw.launches = 0
+    for k in dtk.auction_stats:
+        dtk.auction_stats[k] = 0
+    fps_stream, pushed = run_stream()
+    launches = dw.launches
+    stats = dict(dtk.auction_stats)
+    frame_id = int(pipe.ts.frame_id[0])
+    fps_stream2, pushed2 = run_stream()
+    fps_mot.append(run_mot())
+    print(f"stream path: push_frame x {n}, {fh}x{fw} -> {exp.test_size}, "
+          f"upload and letterbox included: {fps_stream:.2f} and "
+          f"{fps_stream2:.2f} frames/s; MOTDriver.update on the same frames "
+          f"before and after: {fps_mot[0]:.2f} and {fps_mot[1]:.2f} frames/s; "
+          f"dw7x7 launches {launches} (27 x {n} = {27 * n})")
+    print(f"  per frame: {stats['calls'] / n:.1f} auctions, "
+          f"{stats['rounds'] / n:.1f} auction rounds run (blocks of "
+          f"{dtk.AUCTION_BLOCK}), {stats['syncs'] / n:.2f} host "
+          f"synchronisations (the loop's condition, read before each block)")
+
+    # the same frames as two chunks, then tracker-only timing on their dets
+    stack = torch.cat([ingest(f) for f in frames])
+    pipe.reset()
+    chunks = torch.cat([pipe.run_chunk(stack[:STREAM_CHUNK]),
+                        pipe.run_chunk(stack[STREAM_CHUNK:])])
+    torch.cuda.synchronize()
+    same_valid = torch.equal(chunks[..., 6], pushed[..., 6])
+    same_ids = torch.equal(chunks[..., 5], pushed[..., 5])
+    d_rows = (chunks - pushed).abs().max().item()
+    n_valid = int((pushed[..., 6] > 0.5).sum())
+    with torch.inference_mode():
+        dets = [pipe.detect(stack[t:t + 1]) for t in range(n)]
+        pipe.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for d5, v in dets:
+            pipe.associate(d5, v)
+        torch.cuda.synchronize()
+        tracker_ms = (time.perf_counter() - t0) / n * 1e3
+    n_dets = float(np.mean([int(v.sum()) for _, v in dets]))
+    print(f"  run_chunk 2 x {STREAM_CHUNK} vs the pushed frames: valid equal "
+          f"{same_valid}, ids equal {same_ids}, max |d| {d_rows:.2e}; "
+          f"{n_valid / n:.1f} tracks emitted per frame, {n_dets:.1f} "
+          f"detections per frame; tracker_step {tracker_ms:.2f} ms per frame "
+          f"(host clock, detections ready)")
+
+    # two streams through one detector batch
+    pipe2 = StreamingMOTPipeline(model, device=DEVICE, n_streams=2, **kw)
+    two = stack.reshape(2, STREAM_CHUNK, *stack.shape[1:])
+    pipe2.run_chunk(two[:, :2])                # warm-up, not counted
+    pipe2.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out2 = pipe2.run_chunk(two)
+    torch.cuda.synchronize()
+    fps2 = 2 * STREAM_CHUNK / (time.perf_counter() - t0)
+    ids_s0 = (out2[0][..., 5] == chunks[:STREAM_CHUNK][..., 5]).float().mean()
+    print(f"  n_streams=2, run_chunk of {STREAM_CHUNK}: {fps2:.2f} frames/s "
+          f"over both streams; stream 0 gives the single stream's ids at "
+          f"{ids_s0.item():.1%} of the slots (a batch of 2 moves bf16 "
+          f"roundings); frame_id {pipe2.ts.frame_id.tolist()}")
+    report["stream_fps"] = (fps_stream, fps_stream2)
+    dwk = report.setdefault("kernels", {}).setdefault("dwconv7x7", {})
+    dwk.setdefault("launches_by_path", {})["stream"] = launches
+    dwk["launches"] = (dwk.get("launches") or 0) + launches
+
+    assert launches == 27 * n, launches
+    assert frame_id == n and pipe2.ts.frame_id.tolist() == [STREAM_CHUNK] * 2
+    assert tuple(pushed.shape) == (n, 128, 7)
+    assert tuple(out2.shape) == (2, STREAM_CHUNK, 128, 7)
+    for t in (pushed, pushed2, chunks, out2):
+        assert bool(torch.isfinite(t).all())
+    assert same_valid and same_ids and d_rows < 1e-3
+    assert torch.equal(pushed2[..., 5], pushed[..., 5])
+    assert n_valid > 0, "the stream path emitted no track"
 
 
 # ------------------------------------------------------------ SOT phases
@@ -1042,8 +1542,7 @@ def phase_sot(report):
         ker.setdefault(name, {}).update(
             launches=counts[name], launches_by_path={"sot": counts[name]})
     dwk = ker.setdefault("dwconv7x7", {})
-    dwk["launches_by_path"] = {"mot": dwk.get("launches"),
-                               "sot": counts["dwconv7x7"]}
+    dwk.setdefault("launches_by_path", {})["sot"] = counts["dwconv7x7"]
     dwk["launches"] = (dwk.get("launches") or 0) + counts["dwconv7x7"]
 
     # per-stage times: the stages of track(), synchronised apart
@@ -1410,7 +1909,8 @@ def _profile(label, step, frames):
 
 
 def phase_profile(report):
-    """torch.profiler over 4 frames of the MOT path and 4 of the SOT path.
+    """torch.profiler over 4 frames each of the MOT path, the streaming path,
+    the detector with fused blocks and the SOT path, and 4 training steps.
     Opt-in: --only profile."""
     import numpy as np
 
@@ -1427,6 +1927,30 @@ def phase_profile(report):
     for f in frames[:2]:
         driver.update(f)
     _profile("mot", driver.update, frames[2:])
+
+    # the streaming path, and the detector with its 27 blocks run as
+    # convnext_block calls (the fused block's four kernels by name)
+    import torch
+    from unittest import mock
+
+    from unicorn_torch.drivers.stream import StreamingMOTPipeline
+    from unicorn_torch.models import blocks
+    from unicorn_torch.ops.letterbox import letterbox_device
+
+    exp, model = _model(report, raised_priors=True)
+    pipe = StreamingMOTPipeline(model, input_size=exp.test_size,
+                                num_classes=exp.num_classes, device=DEVICE)
+    on_card = [letterbox_device(torch.from_numpy(f).to(DEVICE),
+                                exp.test_size)[0][None] for f in frames]
+    for f in on_card[:2]:
+        pipe.push_frame(f)
+    _profile("stream (push_frame, frames on the card)", pipe.push_frame,
+             on_card[2:])
+    with mock.patch.object(blocks.ConvNeXtBlock, "forward",
+                           _fused_block_forward), torch.inference_mode():
+        for f in on_card[:2]:
+            pipe.detect(f)
+        _profile("detector with fused blocks", pipe.detect, on_card[2:])
 
     exp, model = _sot_model(report)
     sot = SOTDriver(model, input_size=exp.test_size, conf_thre=0.0,
@@ -1456,14 +1980,16 @@ PHASES = {
     "kernels": phase_kernels,
     "model": phase_model,
     "main": phase_main,
+    "block_model": phase_block_model,
+    "stream": phase_stream,
     "sot_model": phase_sot_model,
     "sot": phase_sot,
     "train_model": phase_train_model,
     "train": phase_train,
     "profile": phase_profile,
 }
-DEFAULT_PHASES = ("build", "kernels", "model", "main", "sot_model", "sot",
-                  "train_model", "train")
+DEFAULT_PHASES = ("build", "kernels", "model", "main", "block_model",
+                  "stream", "sot_model", "sot", "train_model", "train")
 
 
 def main(argv=None) -> int:

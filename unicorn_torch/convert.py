@@ -83,6 +83,41 @@ def map_convnext_block(dst):
     }
 
 
+def convnext_block_params(tree) -> dict:
+    """The flax sub-tree of one ConvNeXtBlock (Conv_0, LayerNorm_0, Dense_0,
+    Dense_1, gamma) -> the parameter dict of ops.convnext_block under the
+    port's names (dwconv, norm, pwconv1, pwconv2, gamma), fp32 tensors in
+    the torch layouts."""
+    p: dict = {}
+    for name, (path, tf) in map_convnext_block("").items():
+        node = tree
+        for part in path.strip("/").split("/"):
+            node = node[part]
+        *parents, leaf = name.split(".")
+        d = p
+        for part in parents:
+            d = d.setdefault(part, {})
+        d[leaf] = torch.tensor(INVERSE[tf](np.asarray(node, np.float32)))
+    return p
+
+
+def convnext_block_params_to_flax(p) -> dict:
+    """The inverse of convnext_block_params: fp32 numpy arrays under the
+    flax names and in the flax layouts."""
+    tree: dict = {}
+    for name, (path, tf) in map_convnext_block("").items():
+        t = p
+        for part in name.split("."):
+            t = t[part]
+        w = t.detach().float().cpu().numpy()
+        *parents, leaf = path.strip("/").split("/")
+        d = tree
+        for part in parents:
+            d = d.setdefault(part, {})
+        d[leaf] = tf(w) if tf is not None else w
+    return tree
+
+
 def build_rules(depth=1.0, n_layer_att=3, n_levels=3):
     """Returns list of (regex, dst_template, transform) rules."""
     rules = []

@@ -228,7 +228,9 @@ class DepthwiseConv7x7(nn.Module):
 
 class ConvNeXtBlock(nn.Module):
     """dw7x7 -> fp32 LayerNorm -> Linear C->4C -> GELU -> Linear 4C->C ->
-    x gamma -> + residual. Used by the trunk and by the head's attention."""
+    x gamma -> + residual. Used by the trunk and by the head's attention.
+    Its fused alternative is the op `ops.convnext_block.convnext_block` on
+    `block_params(self)`, which no model calls (as in the JAX package)."""
 
     def __init__(self, dim: int, layer_scale_init_value: float = 1e-6,
                  dtype=torch.float32, exact_gelu: bool = True):
