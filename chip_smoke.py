@@ -662,6 +662,10 @@ def kernels_correlation(report) -> bool:
                   + (f"  (sdpa vs plain {lib_err.item():.1e})"
                      if t_l is not None else "")
                   + ("" if good else "  FAIL"))
+            print(f"         {flops / t_k / 1e9:.1f} TFLOP/s, {bound / t_k:.1%} "
+                  "of the bound"
+                  + (f", kernel / sdpa {t_k / t_l:.3f}" if t_l is not None
+                     else ""))
             if nbad:
                 print(f"       {nbad} elements beyond tolerance")
             if (B, N) == (1, 16000) and bf16_dots:
@@ -830,7 +834,8 @@ def kernels_correlation_train(report) -> bool:
             t_p = graph_time_ms(plain, iters=2, reps=3)
             print(f"           {name:8s} B={B}: kernel {t_k:.3f} ms, plain "
                   f"{t_p:.3f} ms, bound {bound:.3f} ms ({bound_by}), "
-                  f"{flops / t_k / 1e9:.1f} TFLOP/s fp32")
+                  f"{flops / t_k / 1e9:.1f} TFLOP/s fp32, {bound / t_k:.1%} "
+                  "of the bound")
             entry = dict(
                 name=f"correlation_{name}", route="cuda",
                 source="unicorn_torch/csrc/correlation_train.cu",
@@ -1880,9 +1885,10 @@ def phase_train(report):
 
 
 # ------------------------------------------------------ opt-in: profile
-def _profile(label, step, frames):
+def _profile(label, step, frames, show=()):
     """torch.profiler over step(frame) for each frame: CUDA time by kernel
-    and the device's busy share."""
+    and the device's busy share; the 20 longest kernels, and those whose
+    names contain a string of `show` wherever they rank."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1903,9 +1909,11 @@ def _profile(label, step, frames):
           f"busy {dev_ms:.1f} ms ({dev_ms / (wall * 10):.1f}% of wall), "
           f"{sum(e.count for e in kernels) / n:.0f} kernels/frame")
     kernels.sort(key=lambda e: -e.self_device_time_total)
-    for e in kernels[:20]:
-        print(f"  {e.self_device_time_total / (n * 1e3):8.3f} ms/frame "
-              f"{e.count / n:6.1f}/frame  {e.key[:100]}")
+    for i, e in enumerate(kernels):
+        if i < 20 or any(s in e.key for s in show):
+            print(f"  {e.self_device_time_total / (n * 1e3):8.3f} ms/frame "
+                  f"{e.count / n:6.1f}/frame  {e.key[:100]}")
+    return {s: sum(e.count for e in kernels if s in e.key) / n for s in show}
 
 
 def phase_profile(report):
@@ -1958,7 +1966,12 @@ def phase_profile(report):
     sot.initialize(frames[0], INIT_BOX)
     for f in frames[:2]:
         sot.track(f)
-    _profile("sot", sot.track, frames[2:])
+    counts = _profile("sot", sot.track, frames[2:],
+                      show=("prep_kernel", "corr_tc_kernel", "msda"))
+    # one call of the serving correlation op a frame: its CUDA launches
+    print(f"  correlation op: {counts['prep_kernel']:.0f} prep_kernel + "
+          f"{counts['corr_tc_kernel']:.0f} corr_tc_kernel launches a frame, "
+          "one op call")
 
     from unicorn_torch.core.train_state import TrainState
 
@@ -1972,7 +1985,8 @@ def phase_profile(report):
     for b in batches:
         step(state, *b)
     _profile("train (per step: SOT, MOT, SOT, MOT)",
-             lambda b: step(state, *b), batches * 2)
+             lambda b: step(state, *b), batches * 2,
+             show=("fwd_lse_kernel", "bwd_i_kernel", "bwd_j_kernel"))
 
 
 PHASES = {

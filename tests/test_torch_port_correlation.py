@@ -24,12 +24,18 @@ from unicorn_tpu.ops import correlation as jc
 from unicorn_tpu.ops.pallas_correlation import correlation_propagate_pallas
 
 # (N, C, K, scale of the embeddings, Pallas block, rtol): the cases of
-# tests/test_pallas.py and a ragged N that no chunk or block divides
+# tests/test_pallas.py, a ragged N that no chunk or block divides, and the
+# edges of the CUDA kernel's tiling: N one below and above its tiles of 64
+# and 128 rows, C that its padding to 64 channels touches, K above 1
 CASES = {
     "n512": (512, 32, 2, 1.0, 128, 1e-4),
     "sharp": (256, 16, 1, 10.0, 64, 1e-3),
     "ragged200": (200, 16, 2, 1.0, 128, 1e-4),
     "ragged77": (77, 48, 3, 1.0, 128, 1e-4),
+    "n63c16": (63, 16, 2, 1.0, 64, 1e-4),
+    "n65c48": (65, 48, 3, 1.0, 64, 1e-4),
+    "n127c96": (127, 96, 2, 1.0, 128, 1e-4),
+    "n129c16": (129, 16, 5, 1.0, 128, 1e-4),
 }
 
 
@@ -151,7 +157,10 @@ def test_kernel_matches_plain_on_card(bf16_dots):
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     for N, C, K, scale in ((16000, 128, 1, 0.3), (1000, 48, 3, 1.0),
-                           (77, 16, 16, 1.0), (300, 32, 2, 10.0)):
+                           (77, 16, 16, 1.0), (300, 32, 2, 10.0),
+                           (63, 16, 2, 1.0), (65, 48, 3, 1.0),
+                           (127, 96, 2, 1.0), (129, 16, 5, 1.0),
+                           (129, 192, 16, 1.0), (257, 64, 1, 1.0)):
         e0, e1, v = (torch.from_numpy(a).cuda()
                      for a in _inputs(N, C, K, scale, seed=4))
         n0 = ck.launches

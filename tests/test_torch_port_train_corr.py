@@ -28,7 +28,12 @@ from unicorn_tpu.ops import pallas_convnext as jdw
 from unicorn_tpu.ops import pallas_correlation as jpc
 from unicorn_tpu.ops.correlation import correlation_propagate_dense
 
-SHAPES = {"n200": (1, 200, 16, 2), "ragged77": (2, 77, 16, 3)}   # B, N, C, K
+# B, N, C, K: and the edges of the bwd_i kernel's tiling (N one below and
+# above its half tiles of 64 and tiles of 128 rows, C of one and two channel
+# groups of 64, K above 1)
+SHAPES = {"n200": (1, 200, 16, 2), "ragged77": (2, 77, 16, 3),
+          "n63c16": (1, 63, 16, 2), "n65c48": (1, 65, 48, 3),
+          "n127c96": (1, 127, 96, 2), "n129c16": (2, 129, 16, 4)}
 RTOL, ATOL = 1e-4, 1e-5
 
 
@@ -195,7 +200,11 @@ def _need_card():
 
 
 CARD_SHAPES = {"train": ((2, 16000, 128, 1), 0.3), "ragged": ((2, 77, 16, 16), 1.0),
-               "sharp": ((2, 1000, 16, 3), 10.0), "c96": ((1, 300, 96, 2), 1.0)}
+               "sharp": ((2, 1000, 16, 3), 10.0), "c96": ((1, 300, 96, 2), 1.0),
+               "n63c16": ((1, 63, 16, 2), 1.0), "n65c48": ((1, 65, 48, 3), 1.0),
+               "n127c96": ((1, 127, 96, 2), 1.0), "n129c16": ((2, 129, 16, 4), 1.0),
+               "n129c128k16": ((1, 129, 128, 16), 1.0),
+               "n257c64": ((2, 257, 64, 1), 1.0)}
 
 
 @pytest.mark.cuda

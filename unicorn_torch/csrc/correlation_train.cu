@@ -39,20 +39,34 @@
 // special function units beside them. chip_smoke.py recomputes the bounds
 // from the shapes it runs.
 //
-// Design (simple and right first). 256 threads form a 16 x 16 grid. The
-// block's own tile and the streamed tile lie row-major in shared memory with
-// a row stride of C + 4 floats. Thread (to, ts) computes the 4 x 4 scores of
-// own rows to + 16 r against streamed rows ts + 16 q with float4 reads along
-// C: the interleaved rows keep the 16 lanes of a half-warp on distinct
-// banks. The forward then runs the online softmax on those registers (the
-// column maximum is one xor-shuffle reduction over the 16 lanes; the
-// denominators and numerators stay per lane and are reduced once, after the
-// last tile). The backward kernels turn the scores into dS in registers,
-// park the 64 x 64 dS tile in shared memory and take the second product
-// dS . streamed tile into a 4 x (C/16) register tile per thread. Loads are
-// not overlapped with compute and the tensor cores are not used (TF32 would
-// not be the TPU kernels' fp32): both are for the change that makes these
-// fast.
+// Design of fwd_lse and bwd_j (simple and right first). 256 threads form a
+// 16 x 16 grid. The block's own tile and the streamed tile lie row-major in
+// shared memory with a row stride of C + 4 floats. Thread (to, ts) computes
+// the 4 x 4 scores of own rows to + 16 r against streamed rows ts + 16 q
+// with float4 reads along C: the interleaved rows keep the 16 lanes of a
+// half-warp on distinct banks. The forward then runs the online softmax on
+// those registers (the column maximum is one xor-shuffle reduction over the
+// 16 lanes; the denominators and numerators stay per lane and are reduced
+// once, after the last tile). bwd_j turns the scores into dS in registers,
+// parks the 64 x 64 dS tile in shared memory and takes the second product
+// dS . streamed tile into a 4 x (C/16) register tile per thread. Their loads
+// are not overlapped with compute.
+//
+// Design of bwd_i (bwd_i_kernel). A block owns 128 source rows (e0 and v
+// loaded once) and streams e1, dO, lse and c in half tiles of 64 target
+// rows through a ring of three shared-memory slots filled with cp.async, so
+// that the next tile's two halves land while this tile is computed; it
+// halves the streaming of e1 from L2 against 64-row blocks. A tile is two
+// halves (128 target rows). Each of the 256 threads (a 16 x 16 grid) holds
+// an 8 x 8 register tile in both products: the scores of own rows to + 16 r
+// against target rows ts + 16 q, and dE0 of own rows to + 16 r at channels
+// 4 ts + 64 qc + (0..3). P = exp2((S - lse) log2 e), dP, dS and dV's share
+// stay in registers; dS goes through a 128 x 64 shared tile one half at a
+// time (a 128 x 128 tile beside the ring would not fit in 227 KB), its rows
+// xor-swizzled so the two half-warps of a warp read distinct banks. One
+// block an SM with up to 255 registers a thread; every product stays an
+// fp32 FMA, and the tensor cores are not used (TF32 would not be the TPU
+// kernels' fp32).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -231,28 +245,26 @@ fwd_lse_kernel(const float* __restrict__ e0, const float* __restrict__ e1,
   }
 }
 
-// --------------------------------------------------------------- backward
-// grid: x = tiles of T own rows, y = batch. OWN_I: the block owns source
-// rows (e0) and streams target columns (e1), writing dE0 and dV; else it
-// owns target columns (e1) and streams source rows (e0), writing dE1.
-// CQ = ceil(C / 64): a thread keeps channels 4 ts + 64 qc + (0..3). With one
-// label map the registers are held to 128, so that two blocks share an SM.
-template <bool OWN_I, int KT, int CQ>
+// ------------------------------------------------------------------ bwd_j
+// grid: x = tiles of T target columns, y = batch. The block owns e1 rows
+// and streams e0, writing dE1. CQ = ceil(C / 64): a thread keeps channels
+// 4 ts + 64 qc + (0..3). With one label map the registers are held to 128,
+// so that two blocks share an SM.
+template <int KT, int CQ>
 __global__ void __launch_bounds__(THREADS, KT == 1 ? 2 : 1)
-bwd_kernel(const float* __restrict__ e0, const float* __restrict__ e1,
-           const float* __restrict__ v, const float* __restrict__ lse,
-           const float* __restrict__ dout, const float* __restrict__ cvec,
-           float* __restrict__ d_own, float* __restrict__ dv, int N, int C,
-           int K) {
+bwd_j_kernel(const float* __restrict__ e0, const float* __restrict__ e1,
+             const float* __restrict__ v, const float* __restrict__ lse,
+             const float* __restrict__ dout, const float* __restrict__ cvec,
+             float* __restrict__ de1, int N, int C, int K) {
   extern __shared__ __align__(16) float smem[];
   const int ld = C + PAD;
-  float* own = smem;                  // the block's tile
-  float* str = own + T * ld;          // the streamed tile
-  float* ds = str + T * ld;           // dS, [own row][streamed row]
+  float* own = smem;                  // the block's e1 tile
+  float* str = own + T * ld;          // the streamed e0 tile
+  float* ds = str + T * ld;           // dS, [own column][streamed row]
   float* vs = ds + T * DLD;           // v of the tile's source rows, K x T
-  float* dos = vs + K * T;            // dO of the tile's target columns, K x T
-  float* lses = dos + K * T;          // lse of the target columns
-  float* cs = lses + T;               // c of the target columns
+  float* dos = vs + K * T;            // dO of the own columns, K x T
+  float* lses = dos + K * T;          // lse of the own columns
+  float* cs = lses + T;               // c of the own columns
 
   const int tid = threadIdx.x;
   const int to = tid / G, ts = tid % G;
@@ -264,44 +276,26 @@ bwd_kernel(const float* __restrict__ e0, const float* __restrict__ e1,
   lse += b * N;
   dout += b * K * N;
   cvec += b * N;
-  d_own += b * N * C;
-  if (OWN_I) dv += b * K * N;
-  const float* own_src = OWN_I ? e0 : e1;
-  const float* str_src = OWN_I ? e1 : e0;
+  de1 += b * N * C;
 
-  load_rows(own_src, o0, N, C, own, tid);
-  if (OWN_I) {
-    load_vecs(v, o0, N, K, vs, tid);
-  } else {
-    load_vecs(dout, o0, N, K, dos, tid);
-    load_vecs(lse, o0, N, 1, lses, tid);
-    load_vecs(cvec, o0, N, 1, cs, tid);
-  }
+  load_rows(e1, o0, N, C, own, tid);
+  load_vecs(dout, o0, N, K, dos, tid);
+  load_vecs(lse, o0, N, 1, lses, tid);
+  load_vecs(cvec, o0, N, 1, cs, tid);
 
   float acc[R][4 * CQ];
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int x = 0; x < 4 * CQ; ++x) acc[r][x] = 0.f;
-  float dvp[KT][R];                   // OWN_I: this lane's share of dV
-#pragma unroll
-  for (int k = 0; k < KT; ++k)
-#pragma unroll
-    for (int r = 0; r < R; ++r) dvp[k][r] = 0.f;
 
   for (int s0 = 0; s0 < N; s0 += T) {
     __syncthreads();   // the tiles before have been read to their end
-    load_rows(str_src, s0, N, C, str, tid);
-    if (OWN_I) {
-      load_vecs(dout, s0, N, K, dos, tid);
-      load_vecs(lse, s0, N, 1, lses, tid);
-      load_vecs(cvec, s0, N, 1, cs, tid);
-    } else {
-      load_vecs(v, s0, N, K, vs, tid);
-    }
+    load_rows(e0, s0, N, C, str, tid);
+    load_vecs(v, s0, N, K, vs, tid);
     __syncthreads();
 
-    // scores -> P, in place: p[r][q] of own row to + G r, streamed row
+    // scores -> P, in place: p[r][q] of own column to + G r, streamed row
     // ts + G q
     float p[R][R];
     score_tile(own, str, C, to, ts, p);
@@ -310,12 +304,11 @@ bwd_kernel(const float* __restrict__ e0, const float* __restrict__ e1,
 #pragma unroll
       for (int q = 0; q < R; ++q) {
         const int ol = to + G * r, sl = ts + G * q;
-        const int jl = OWN_I ? sl : ol;
         const bool inside = (o0 + ol < N) && (s0 + sl < N);
-        p[r][q] = inside ? expf(p[r][q] - lses[jl]) : 0.f;
+        p[r][q] = inside ? expf(p[r][q] - lses[ol]) : 0.f;
       }
 
-    // dP[i][j] = sum_k v[k][i] dO[k][j]; dV's share of this tile
+    // dP[i][j] = sum_k v[k][i] dO[k][j]
     float dp[R][R];
 #pragma unroll
     for (int r = 0; r < R; ++r)
@@ -327,16 +320,13 @@ bwd_kernel(const float* __restrict__ e0, const float* __restrict__ e1,
         float vo[R], vq[R];           // the k-th factor of own and streamed rows
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          vo[r] = (OWN_I ? vs : dos)[k * T + to + G * r];
-          vq[r] = (OWN_I ? dos : vs)[k * T + ts + G * r];
+          vo[r] = dos[k * T + to + G * r];
+          vq[r] = vs[k * T + ts + G * r];
         }
 #pragma unroll
         for (int r = 0; r < R; ++r)
 #pragma unroll
-          for (int q = 0; q < R; ++q) {
-            dp[r][q] = fmaf(vo[r], vq[q], dp[r][q]);
-            if (OWN_I) dvp[k][r] = fmaf(p[r][q], vq[q], dvp[k][r]);
-          }
+          for (int q = 0; q < R; ++q) dp[r][q] = fmaf(vo[r], vq[q], dp[r][q]);
       }
     }
 
@@ -346,12 +336,11 @@ bwd_kernel(const float* __restrict__ e0, const float* __restrict__ e1,
 #pragma unroll
       for (int q = 0; q < R; ++q) {
         const int ol = to + G * r, sl = ts + G * q;
-        const float cj = cs[OWN_I ? sl : ol];
-        ds[ol * DLD + sl] = p[r][q] * (dp[r][q] - cj);
+        ds[ol * DLD + sl] = p[r][q] * (dp[r][q] - cs[ol]);
       }
     __syncthreads();
 
-    // acc[own row][channel] += sum over streamed rows dS * streamed tile
+    // acc[own column][channel] += sum over streamed rows dS * streamed tile
     for (int j = 0; j < T; j += 4) {
       float4 d4[R];
 #pragma unroll
@@ -388,20 +377,324 @@ bwd_kernel(const float* __restrict__ e0, const float* __restrict__ e1,
     for (int qc = 0; qc < CQ; ++qc) {
       const int cc = 4 * ts + 64 * qc;
       if (o < N && cc < C)
-        *reinterpret_cast<float4*>(d_own + (size_t)o * C + cc) =
+        *reinterpret_cast<float4*>(de1 + (size_t)o * C + cc) =
             make_float4(acc[r][4 * qc], acc[r][4 * qc + 1], acc[r][4 * qc + 2],
                         acc[r][4 * qc + 3]);
     }
-    if (OWN_I) {
+  }
+}
+
+// ------------------------------------------------------------------ bwd_i
+constexpr int TO = 128;                // own source rows a block
+constexpr int TH = 64;                 // target rows a streamed half tile
+constexpr int RO = TO / G;             // own rows a thread (8)
+constexpr int RQ = 2 * TH / G;         // target rows a thread (8: 4 a half)
+constexpr int SLOTS = 3;               // ring of half tiles
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// asynchronous copies into shared memory; ok = false writes zeros
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// rows r0 .. r0+ROWS of src (N, C) into a row-major tile of stride C + PAD
+template <int ROWS>
+__device__ __forceinline__ void async_rows(const float* __restrict__ src,
+                                           int r0, int N, int C, float* dst,
+                                           int tid) {
+  const int c4n = C / 4;
+  for (int idx = tid; idx < ROWS * c4n; idx += THREADS) {
+    const int r = idx / c4n, c4 = idx % c4n;
+    const bool ok = r0 + r < N;
+    cp16(dst + r * (C + PAD) + 4 * c4,
+         ok ? src + (size_t)(r0 + r) * C + 4 * c4 : src, ok);
+  }
+}
+
+// src[r0 .. r0+len] into dst, zero beyond N
+__device__ __forceinline__ void async_vec(const float* __restrict__ src,
+                                          int r0, int N, int len, float* dst,
+                                          int tid) {
+  for (int idx = tid; idx < len; idx += THREADS) {
+    const bool ok = r0 + idx < N;
+    cp4(dst + idx, ok ? src + r0 + idx : src, ok);
+  }
+}
+
+// grid: x = tiles of TO source rows, y = batch. KT = 1: dV's share in
+// registers; KT = KMAX: reduced into shared memory after each tile. CQ =
+// ceil(C / 64).
+template <int KT, int CQ>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_i_kernel(const float* __restrict__ e0, const float* __restrict__ e1,
+             const float* __restrict__ v, const float* __restrict__ lse,
+             const float* __restrict__ dout, const float* __restrict__ cvec,
+             float* __restrict__ de0, float* __restrict__ dv, int N, int C,
+             int K) {
+  extern __shared__ __align__(16) float smem[];
+  const int ld = C + PAD;
+  float* own = smem;                           // e0 rows, [TO][ld]
+  float* vs = own + TO * ld;                   // v of the own rows, [K][TO]
+  float* dvs = vs + K * TO;                    // dV (KT > 1), [K][TO]
+  float* dsm = dvs + (KT > 1 ? K * TO : 0);    // a dS half, [TO][TH], swizzled
+  float* ring = dsm + TO * TH;
+  const int slot_floats = TH * ld + (K + 2) * TH;
+  // slot: e1 rows [TH][ld], then lse [TH], c [TH], dO [K][TH]
+
+  const int tid = threadIdx.x;
+  const int to = tid / G, ts = tid % G;
+  const int swz = (to & 1) << 4;               // dS column swizzle of my rows
+  const int o0 = blockIdx.x * TO;
+  const size_t b = blockIdx.y;
+  e0 += b * N * C;
+  e1 += b * N * C;
+  v += b * K * N;
+  lse += b * N;
+  dout += b * K * N;
+  cvec += b * N;
+  de0 += b * N * C;
+  dv += b * K * N;
+
+  auto load_half = [&](int h) {
+    float* d = ring + (h % SLOTS) * slot_floats;
+    const int j = h * TH;
+    async_rows<TH>(e1, j, N, C, d, tid);
+    d += TH * ld;
+    async_vec(lse, j, N, TH, d, tid);
+    async_vec(cvec, j, N, TH, d + TH, tid);
+    for (int k = 0; k < K; ++k)
+      async_vec(dout + (size_t)k * N, j, N, TH, d + (2 + k) * TH, tid);
+    cp_commit();
+  };
+
+  async_rows<TO>(e0, o0, N, C, own, tid);
+  for (int k = 0; k < K; ++k)
+    async_vec(v + (size_t)k * N, o0, N, TO, vs + k * TO, tid);
+  cp_commit();
+  if (KT > 1)
+    for (int idx = tid; idx < K * TO; idx += THREADS) dvs[idx] = 0.f;
+  const int ntiles = (N + 2 * TH - 1) / (2 * TH);
+  load_half(0);
+  load_half(1);
+  cp_wait_all();
+  __syncthreads();
+
+  float acc[RO][4 * CQ];
 #pragma unroll
-      for (int k = 0; k < KT; ++k) {
-        if (k < K) {
-          const float a = sum16(dvp[k][r]);
-          if (ts == 0 && o < N) dv[(size_t)k * N + o] = a;
+  for (int r = 0; r < RO; ++r)
+#pragma unroll
+    for (int x = 0; x < 4 * CQ; ++x) acc[r][x] = 0.f;
+  float dvp[RO];                       // KT = 1: dV's share of my rows
+#pragma unroll
+  for (int r = 0; r < RO; ++r) dvp[r] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const float* hs[2] = {ring + ((2 * t) % SLOTS) * slot_floats,
+                          ring + ((2 * t + 1) % SLOTS) * slot_floats};
+    if (t + 1 < ntiles) load_half(2 * t + 2);
+
+    // scores: p[r][q] of own row to + G r, target row ts + G (q % 4) of
+    // half q / 4
+    float p[RO][RQ];
+#pragma unroll
+    for (int r = 0; r < RO; ++r)
+#pragma unroll
+      for (int q = 0; q < RQ; ++q) p[r][q] = 0.f;
+    {
+      const float* a_p = own + to * ld;
+#pragma unroll 1
+      for (int c = 0; c < C; c += 4) {
+        float4 a[RO];
+#pragma unroll
+        for (int r = 0; r < RO; ++r)
+          a[r] = *reinterpret_cast<const float4*>(a_p + r * G * ld + c);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float4 bq[RQ / 2];
+#pragma unroll
+          for (int q = 0; q < RQ / 2; ++q)
+            bq[q] = *reinterpret_cast<const float4*>(hs[h] + (ts + G * q) * ld + c);
+#pragma unroll
+          for (int r = 0; r < RO; ++r)
+#pragma unroll
+            for (int q = 0; q < RQ / 2; ++q) {
+              float x = p[r][4 * h + q];
+              x = fmaf(a[r].x, bq[q].x, x);
+              x = fmaf(a[r].y, bq[q].y, x);
+              x = fmaf(a[r].z, bq[q].z, x);
+              x = fmaf(a[r].w, bq[q].w, x);
+              p[r][4 * h + q] = x;
+            }
         }
       }
     }
+
+    // P = exp(S - lse[j]) (0 for targets j >= N), dV's share, dS in place
+#pragma unroll
+    for (int q = 0; q < RQ; ++q) {
+      const float* vec = hs[q / 4] + TH * ld;        // lse, c, dO of the half
+      const int sl = ts + G * (q % 4);
+      const bool inside = (2 * t + q / 4) * TH + sl < N;
+      const float lq = vec[sl];
+#pragma unroll
+      for (int r = 0; r < RO; ++r)
+        p[r][q] = inside ? ex2((p[r][q] - lq) * LOG2E) : 0.f;
+    }
+    // dV[k][i] += sum_j P[i][j] dO[k][j], and dS = P (dP - c[j]) in place
+    // with dP[i][j] = sum_k v[k][i] dO[k][j]
+    if (KT == 1) {
+      float cq[RQ], dq[RQ];
+#pragma unroll
+      for (int q = 0; q < RQ; ++q) {
+        const float* vec = hs[q / 4] + TH * ld + ts + G * (q % 4);
+        cq[q] = vec[TH];
+        dq[q] = vec[2 * TH];
+      }
+#pragma unroll
+      for (int r = 0; r < RO; ++r) {
+        const float vr = vs[to + G * r];
+#pragma unroll
+        for (int q = 0; q < RQ; ++q) {
+          dvp[r] = fmaf(p[r][q], dq[q], dvp[r]);
+          p[r][q] *= fmaf(vr, dq[q], -cq[q]);
+        }
+      }
+    } else {
+      // dV: a lane's 8 terms, the sum over the 16 lanes of the row, added
+      // to shared memory by lane ts == r
+      for (int k = 0; k < K; ++k) {
+        float dq[RQ];
+#pragma unroll
+        for (int q = 0; q < RQ; ++q)
+          dq[q] = hs[q / 4][TH * ld + (2 + k) * TH + ts + G * (q % 4)];
+#pragma unroll
+        for (int r = 0; r < RO; ++r) {
+          float x = 0.f;
+#pragma unroll
+          for (int q = 0; q < RQ; ++q) x = fmaf(p[r][q], dq[q], x);
+          x = sum16(x);
+          if (ts == r) dvs[k * TO + to + G * r] += x;
+        }
+      }
+      float dp[RO][RQ];
+#pragma unroll
+      for (int r = 0; r < RO; ++r)
+#pragma unroll
+        for (int q = 0; q < RQ; ++q) dp[r][q] = 0.f;
+      for (int k = 0; k < K; ++k) {
+        float vk[RO], dq[RQ];
+#pragma unroll
+        for (int r = 0; r < RO; ++r) vk[r] = vs[k * TO + to + G * r];
+#pragma unroll
+        for (int q = 0; q < RQ; ++q)
+          dq[q] = hs[q / 4][TH * ld + (2 + k) * TH + ts + G * (q % 4)];
+#pragma unroll
+        for (int r = 0; r < RO; ++r)
+#pragma unroll
+          for (int q = 0; q < RQ; ++q) dp[r][q] = fmaf(vk[r], dq[q], dp[r][q]);
+      }
+#pragma unroll
+      for (int q = 0; q < RQ; ++q) {
+        const float cq = hs[q / 4][TH * ld + TH + ts + G * (q % 4)];
+#pragma unroll
+        for (int r = 0; r < RO; ++r) p[r][q] *= dp[r][q] - cq;
+      }
+    }
+
+    // dE0 += dS . e1, one half at a time through the shared dS tile
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int r = 0; r < RO; ++r)
+#pragma unroll
+        for (int q = 0; q < RQ / 2; ++q)
+          dsm[(to + G * r) * TH + ((ts + G * q) ^ swz)] = p[r][4 * h + q];
+      __syncthreads();
+      // channels at or beyond C are computed from whatever follows in the
+      // slot (never past its end) and not stored: no branch in the loop
+      const float* e = hs[h] + 4 * ts;
+#pragma unroll 2
+      for (int j = 0; j < TH; j += 4) {
+        float4 d4[RO], ev[4][CQ];
+#pragma unroll
+        for (int r = 0; r < RO; ++r)
+          d4[r] = *reinterpret_cast<const float4*>(dsm + (to + G * r) * TH + (j ^ swz));
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int qc = 0; qc < CQ; ++qc)
+            ev[jj][qc] = *reinterpret_cast<const float4*>(e + (j + jj) * ld + 64 * qc);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+          for (int qc = 0; qc < CQ; ++qc) {
+#pragma unroll
+            for (int r = 0; r < RO; ++r) {
+              const float d = jj == 0 ? d4[r].x
+                            : jj == 1 ? d4[r].y
+                            : jj == 2 ? d4[r].z : d4[r].w;
+              acc[r][4 * qc + 0] = fmaf(d, ev[jj][qc].x, acc[r][4 * qc + 0]);
+              acc[r][4 * qc + 1] = fmaf(d, ev[jj][qc].y, acc[r][4 * qc + 1]);
+              acc[r][4 * qc + 2] = fmaf(d, ev[jj][qc].z, acc[r][4 * qc + 2]);
+              acc[r][4 * qc + 3] = fmaf(d, ev[jj][qc].w, acc[r][4 * qc + 3]);
+            }
+          }
+        }
+      }
+      if (h == 0) {
+        __syncthreads();   // dsm and the first half's slot are free
+        if (t + 1 < ntiles) load_half(2 * t + 3);
+      }
+    }
+    cp_wait_all();         // the next tile's halves have landed
+    __syncthreads();       // for every thread; dsm and this tile's slots free
   }
+
+#pragma unroll
+  for (int r = 0; r < RO; ++r) {
+    const int o = o0 + to + G * r;
+#pragma unroll
+    for (int qc = 0; qc < CQ; ++qc) {
+      const int cc = 4 * ts + 64 * qc;
+      if (o < N && cc < C)
+        *reinterpret_cast<float4*>(de0 + (size_t)o * C + cc) =
+            make_float4(acc[r][4 * qc], acc[r][4 * qc + 1], acc[r][4 * qc + 2],
+                        acc[r][4 * qc + 3]);
+    }
+    if (KT == 1) {
+      const float a = sum16(dvp[r]);
+      if (ts == 0 && o < N) dv[o] = a;
+    }
+  }
+  if (KT > 1)
+    for (int idx = tid; idx < K * TO; idx += THREADS) {
+      const int o = o0 + idx % TO;
+      if (o < N) dv[(size_t)(idx / TO) * N + o] = dvs[idx];
+    }
 }
 
 // ------------------------------------------------------------------ launch
@@ -409,9 +702,15 @@ inline size_t fwd_smem(int C, int K) {
   return ((size_t)2 * T * (C + PAD) + (size_t)K * T) * sizeof(float);
 }
 
-inline size_t bwd_smem(int C, int K) {
+inline size_t bwd_j_smem(int C, int K) {
   return ((size_t)2 * T * (C + PAD) + (size_t)T * DLD + (size_t)2 * K * T +
           2 * T) * sizeof(float);
+}
+
+inline size_t bwd_i_smem(int C, int K, bool dv_shared) {
+  return ((size_t)TO * (C + PAD) + (size_t)(dv_shared ? 2 : 1) * K * TO +
+          (size_t)TO * TH + (size_t)SLOTS * (TH * (C + PAD) + (K + 2) * TH)) *
+         sizeof(float);
 }
 
 inline bool bad_shape(int B, int N, int C, int K) {
@@ -433,44 +732,37 @@ int launch_fwd(const float* e0, const float* e1, const float* v, float* out,
   return (int)cudaGetLastError();
 }
 
-template <bool OWN_I, int KT, int CQ>
-int launch_bwd(const float* e0, const float* e1, const float* v,
-               const float* lse, const float* dout, const float* c,
-               float* d_own, float* dv, int B, int N, int C, int K,
-               cudaStream_t s) {
-  const size_t smem = bwd_smem(C, K);
+template <int KT, int CQ>
+int launch_bwd_j(const float* e0, const float* e1, const float* v,
+                 const float* lse, const float* dout, const float* c,
+                 float* de1, int B, int N, int C, int K, cudaStream_t s) {
+  const size_t smem = bwd_j_smem(C, K);
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_kernel<OWN_I, KT, CQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_j_kernel<KT, CQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       MAX_SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + T - 1) / T, B);
-  bwd_kernel<OWN_I, KT, CQ><<<grid, THREADS, smem, s>>>(
-      e0, e1, v, lse, dout, c, d_own, dv, N, C, K);
+  bwd_j_kernel<KT, CQ><<<grid, THREADS, smem, s>>>(e0, e1, v, lse, dout, c,
+                                                   de1, N, C, K);
   return (int)cudaGetLastError();
 }
 
-template <bool OWN_I>
-int dispatch_bwd(const void* e0, const void* e1, const void* v, const void* lse,
-                 const void* dout, const void* c, void* d_own, void* dv, int B,
-                 int N, int C, int K, void* stream) {
-  if (bad_shape(B, N, C, K)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const float* a0 = static_cast<const float*>(e0);
-  const float* a1 = static_cast<const float*>(e1);
-  const float* a2 = static_cast<const float*>(v);
-  const float* a3 = static_cast<const float*>(lse);
-  const float* a4 = static_cast<const float*>(dout);
-  const float* a5 = static_cast<const float*>(c);
-  float* o0 = static_cast<float*>(d_own);
-  float* o1 = static_cast<float*>(dv);
-  if (K == 1)
-    return C <= 64
-        ? launch_bwd<OWN_I, 1, 1>(a0, a1, a2, a3, a4, a5, o0, o1, B, N, C, K, s)
-        : launch_bwd<OWN_I, 1, 2>(a0, a1, a2, a3, a4, a5, o0, o1, B, N, C, K, s);
-  return C <= 64
-      ? launch_bwd<OWN_I, KMAX, 1>(a0, a1, a2, a3, a4, a5, o0, o1, B, N, C, K, s)
-      : launch_bwd<OWN_I, KMAX, 2>(a0, a1, a2, a3, a4, a5, o0, o1, B, N, C, K, s);
+template <int KT, int CQ>
+int launch_bwd_i(const float* e0, const float* e1, const float* v,
+                 const float* lse, const float* dout, const float* c,
+                 float* de0, float* dv, int B, int N, int C, int K,
+                 cudaStream_t s) {
+  const size_t smem = bwd_i_smem(C, K, KT > 1);
+  if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_i_kernel<KT, CQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((N + TO - 1) / TO, B);
+  bwd_i_kernel<KT, CQ><<<grid, THREADS, smem, s>>>(e0, e1, v, lse, dout, c,
+                                                   de0, dv, N, C, K);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -497,16 +789,45 @@ extern "C" int correlation_bwd_i(const void* e0, const void* e1, const void* v,
                                  const void* lse, const void* dout,
                                  const void* c, void* de0, void* dv, int B,
                                  int N, int C, int K, void* stream) {
-  return dispatch_bwd<true>(e0, e1, v, lse, dout, c, de0, dv, B, N, C, K,
-                            stream);
+  if (bad_shape(B, N, C, K)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const float* a0 = static_cast<const float*>(e0);
+  const float* a1 = static_cast<const float*>(e1);
+  const float* a2 = static_cast<const float*>(v);
+  const float* a3 = static_cast<const float*>(lse);
+  const float* a4 = static_cast<const float*>(dout);
+  const float* a5 = static_cast<const float*>(c);
+  float* o0 = static_cast<float*>(de0);
+  float* o1 = static_cast<float*>(dv);
+  if (K == 1)
+    return C <= 64
+        ? launch_bwd_i<1, 1>(a0, a1, a2, a3, a4, a5, o0, o1, B, N, C, K, s)
+        : launch_bwd_i<1, 2>(a0, a1, a2, a3, a4, a5, o0, o1, B, N, C, K, s);
+  return C <= 64
+      ? launch_bwd_i<KMAX, 1>(a0, a1, a2, a3, a4, a5, o0, o1, B, N, C, K, s)
+      : launch_bwd_i<KMAX, 2>(a0, a1, a2, a3, a4, a5, o0, o1, B, N, C, K, s);
 }
 
 extern "C" int correlation_bwd_j(const void* e0, const void* e1, const void* v,
                                  const void* lse, const void* dout,
                                  const void* c, void* de1, int B, int N, int C,
                                  int K, void* stream) {
-  return dispatch_bwd<false>(e0, e1, v, lse, dout, c, de1, nullptr, B, N, C, K,
-                             stream);
+  if (bad_shape(B, N, C, K)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const float* a0 = static_cast<const float*>(e0);
+  const float* a1 = static_cast<const float*>(e1);
+  const float* a2 = static_cast<const float*>(v);
+  const float* a3 = static_cast<const float*>(lse);
+  const float* a4 = static_cast<const float*>(dout);
+  const float* a5 = static_cast<const float*>(c);
+  float* o0 = static_cast<float*>(de1);
+  if (K == 1)
+    return C <= 64
+        ? launch_bwd_j<1, 1>(a0, a1, a2, a3, a4, a5, o0, B, N, C, K, s)
+        : launch_bwd_j<1, 2>(a0, a1, a2, a3, a4, a5, o0, B, N, C, K, s);
+  return C <= 64
+      ? launch_bwd_j<KMAX, 1>(a0, a1, a2, a3, a4, a5, o0, B, N, C, K, s)
+      : launch_bwd_j<KMAX, 2>(a0, a1, a2, a3, a4, a5, o0, B, N, C, K, s);
 }
 
 extern "C" const char* correlation_train_error_string(int err) {

@@ -76,26 +76,35 @@ def _lib() -> ctypes.CDLL:
     from ..csrc import build
 
     lib = build.load("correlation")
-    lib.correlation_forward.argtypes = ([ctypes.c_void_p] * 4
+    lib.correlation_forward.argtypes = ([ctypes.c_void_p] * 5
                                         + [ctypes.c_int] * 5
                                         + [ctypes.c_void_p])
     lib.correlation_forward.restype = ctypes.c_int
+    lib.correlation_workspace_bytes.argtypes = [ctypes.c_int] * 5
+    lib.correlation_workspace_bytes.restype = ctypes.c_size_t
     lib.correlation_error_string.argtypes = [ctypes.c_int]
     lib.correlation_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def launch(e0, e1, v, out, bf16_dots: bool) -> None:
-    """One launch of the kernel into out (B,K,N), on arguments that
-    correlation_propagate_cuda has checked."""
+    """One call of the kernel into out (B,K,N), on arguments that
+    correlation_propagate_cuda has checked. With bf16_dots it is two
+    launches, counted as one: the prep kernel writes the padded bf16
+    embeddings and fp32 labels into a workspace allocated here, then the
+    wgmma kernel reads them."""
     global launches
     B, N, C = e0.shape
     K = v.shape[1]
     lib = _lib()
+    nbytes = lib.correlation_workspace_bytes(B, N, C, K, int(bf16_dots))
+    ws = (torch.empty(nbytes, dtype=torch.uint8, device=e0.device)
+          if nbytes else None)
     stream = torch.cuda.current_stream(e0.device).cuda_stream
     err = lib.correlation_forward(e0.data_ptr(), e1.data_ptr(), v.data_ptr(),
-                                  out.data_ptr(), B, N, C, K, int(bf16_dots),
-                                  stream)
+                                  out.data_ptr(),
+                                  ws.data_ptr() if ws is not None else None,
+                                  B, N, C, K, int(bf16_dots), stream)
     if err:
         raise RuntimeError(
             f"correlation launch failed: {err} "
