@@ -8,7 +8,9 @@ Phases (each must pass, else the exit code is 1):
              built with nvcc (dwconv7x7, convnext_block, msda, correlation,
              correlation_train), in parallel
   kernels    each kernel against its plain PyTorch version at the main
-             paths' shapes and at ragged ones, in bf16 and fp32, with times
+             paths' shapes and at ragged ones (the correlation kernels also
+             at K = 17 and 33 label maps, one launch a group of 16), in
+             bf16 and fp32, with times
              of kernel, plain version and the PyTorch library call that
              computes the same function, and the bound; the gradients of
              the dw7x7, fused-block and MSDA autograd Functions against
@@ -608,10 +610,10 @@ def kernels_correlation(report) -> bool:
     g = torch.Generator(device="cuda").manual_seed(2)
     dev = torch.device("cuda")
     # (B, N, C, K, scale, rtol); the first is the SOT path's shape, the
-    # second a track_window chunk's
+    # second a track_window chunk's; K = 17 goes in two kernel calls
     cases = ((1, 16000, 128, 1, 0.3, 1e-4), (WINDOW, 16000, 128, 1, 0.3, 1e-4),
              (1, 1000, 128, 3, 0.3, 1e-4), (2, 77, 16, 16, 1.0, 1e-4),
-             (1, 1000, 16, 3, 10.0, 1e-3))
+             (1, 1000, 16, 3, 10.0, 1e-3), (2, 1000, 128, 17, 0.3, 1e-4))
     ok = True
     print("corr   B N     C   K  scale bf16_dots max|err|  kernel_ms plain_ms "
           " sdpa_ms  bound_ms bound_by")
@@ -620,22 +622,24 @@ def kernels_correlation(report) -> bool:
         e1 = scale * torch.randn(B, N, C, device=dev, generator=g)
         v = torch.rand(B, K, N, device=dev, generator=g)
         for bf16_dots in (True, False):
+            n0 = ck.launches
             yk = ck.correlation_propagate_cuda(e0, e1, v, bf16_dots=bf16_dots)
+            calls = ck.launches - n0
             yp = ck.correlation_propagate_plain(e0, e1, v,
                                                 bf16_dots=bf16_dots)
             torch.cuda.synchronize()
             diff = (yk - yp).abs()
             err = diff.max().item()
             nbad = int((diff > 1e-5 + rtol * yp.abs()).sum().item())
-            good = nbad == 0 and bool(torch.isfinite(yk).all())
+            good = (nbad == 0 and bool(torch.isfinite(yk).all())
+                    and calls == -(-K // ck.K_MAX))
             ok &= good
             nbytes = (e0.numel() + e1.numel() + v.numel() + yk.numel()) * 4
             flops = 2 * B * N * N * (C + K)
             bound, bound_by = roofline(
                 nbytes, flops, bw, bf16_peak if bf16_dots else fp32_peak)
-            out = torch.empty_like(yk)
-            t_k = graph_time_ms(
-                lambda: ck.launch(e0, e1, v, out, bf16_dots), iters=5)
+            t_k = graph_time_ms(lambda: ck.correlation_propagate_cuda(
+                e0, e1, v, bf16_dots=bf16_dots), iters=5)
             t_p = graph_time_ms(
                 lambda: ck.correlation_propagate_plain(
                     e0, e1, v, bf16_dots=bf16_dots), iters=3)
@@ -662,7 +666,8 @@ def kernels_correlation(report) -> bool:
                   + (f"  (sdpa vs plain {lib_err.item():.1e})"
                      if t_l is not None else "")
                   + ("" if good else "  FAIL"))
-            print(f"         {flops / t_k / 1e9:.1f} TFLOP/s, {bound / t_k:.1%} "
+            print(f"         {calls} kernel call(s), "
+                  f"{flops / t_k / 1e9:.1f} TFLOP/s, {bound / t_k:.1%} "
                   "of the bound"
                   + (f", kernel / sdpa {t_k / t_l:.3f}" if t_l is not None
                      else ""))
@@ -711,7 +716,10 @@ def kernels_correlation_train(report) -> bool:
     magnitude (plus 1e-6: with a nearly one-hot softmax dE0 and dE1 are all
     cancellation); each is a sum of N products of P, which carries the
     exponential's relative error, taken in another order. Both backward
-    kernels and their plain versions get the kernel forward's lse and c."""
+    kernels and their plain versions get the kernel forward's lse and c.
+    Every case goes through the grouping of label maps (ck.fwd_lse_grouped,
+    ck.bwd_grouped): one launch of each kernel a group of at most 16 maps,
+    held against the plain versions over all K at once."""
     import torch
     import torch.nn.functional as F
 
@@ -722,9 +730,11 @@ def kernels_correlation_train(report) -> bool:
     g = torch.Generator(device="cuda").manual_seed(5)
     dev = torch.device("cuda")
     # (B, N, C, K, scale, rtol): the training step's shape, a ragged one, a
-    # sharp one, and a width that fills only part of the channel tile
+    # sharp one, a width that fills only part of the channel tile, and two
+    # or three groups of label maps
     cases = (TRAIN_SHAPE + (0.3, 1e-4), (2, 77, 16, 16, 1.0, 1e-4),
-             (2, 1000, 16, 3, 10.0, 1e-3), (1, 300, 96, 2, 1.0, 1e-4))
+             (2, 1000, 16, 3, 10.0, 1e-3), (1, 300, 96, 2, 1.0, 1e-4),
+             (2, 300, 128, 17, 1.0, 1e-4), (1, 257, 128, 33, 1.0, 1e-4))
     ok = True
     print("corr_train B N     C   K  scale  d_out    d_lse    d_dE0/max "
           "d_dE1/max d_dV/max  vjp_vs_autograd")
@@ -734,11 +744,13 @@ def kernels_correlation_train(report) -> bool:
         v = torch.rand(B, K, N, device=dev, generator=g)
         dout = torch.randn(B, K, N, device=dev, generator=g)
         n0 = dict(ck.train_launches)
-        out, lse = ck.correlation_fwd_lse_cuda(e0, e1, v)
+        out, lse = ck.fwd_lse_grouped(ck.correlation_fwd_lse_cuda, e0, e1, v)
+        de0, de1, dv = ck.bwd_grouped(ck.correlation_bwd_i_cuda,
+                                      ck.correlation_bwd_j_cuda, e0, e1, v,
+                                      out, lse, dout)
+        groups = -(-K // ck.K_MAX)
+        assert ck.train_launches == {k: n + groups for k, n in n0.items()}
         c = (out * dout).sum(1, keepdim=True)
-        de0, dv = ck.correlation_bwd_i_cuda(e0, e1, v, lse, dout, c)
-        de1 = ck.correlation_bwd_j_cuda(e0, e1, v, lse, dout, c)
-        assert ck.train_launches == {k: n + 1 for k, n in n0.items()}
         out_p, lse_p = ck.correlation_fwd_lse_plain(e0, e1, v)
         de0_p, dv_p = ck.correlation_bwd_i_plain(e0, e1, v, lse, dout, c)
         de1_p = ck.correlation_bwd_j_plain(e0, e1, v, lse, dout, c)

@@ -19,17 +19,17 @@
 //   bwd_j    dE1[j,:] = sum_i dS[i,j] e0[i,:]
 // Every product is an fp32 FMA with an fp32 sum, as the TPU kernels cast all
 // of their inputs to fp32; the N x N matrices S, P and dS never reach device
-// memory. Both backward kernels read the lse the forward wrote, so their P
-// is the forward's softmax bit for bit.
+// memory. All three kernels form S with the same FMAs in the same channel
+// order, and both backward kernels read the lse the forward wrote, so their
+// P is the same bit for bit.
 //
 // The TPU grids pad N to the block sizes and carry their sums in VMEM from
 // one grid step to the next along a sequential axis. On this card blocks run
-// in no order, so a block owns one tile of T = 64 rows of the axis whose
-// result it writes (target columns for the forward and bwd_j, source rows
-// for bwd_i) and loops over the other axis itself: no atomics, and the same
-// bits on every run. Nothing is padded: a source row i >= N is masked to
-// -1e30 before the exponential (P = 0 there), a target column j >= N adds
-// nothing, and neither is written.
+// in no order, so a block owns TO = 128 rows of the axis whose result it
+// writes (target rows for the forward and bwd_j, source rows for bwd_i) and
+// loops over the other axis itself: no atomics, and the same bits on every
+// run. Nothing is padded: a streamed source row i >= N gets P = 0, a streamed
+// target row j >= N adds nothing, and no row >= N is written.
 //
 // Bound on an H100 SXM at the training shape (N = 16000, C = 128, K = 1),
 // per sample: forward 2*N*N*(C+K) = 66 GFLOP, bwd_i 2*N*N*(2C+2K) = 133
@@ -39,109 +39,57 @@
 // special function units beside them. chip_smoke.py recomputes the bounds
 // from the shapes it runs.
 //
-// Design of fwd_lse and bwd_j (simple and right first). 256 threads form a
-// 16 x 16 grid. The block's own tile and the streamed tile lie row-major in
-// shared memory with a row stride of C + 4 floats. Thread (to, ts) computes
-// the 4 x 4 scores of own rows to + 16 r against streamed rows ts + 16 q
-// with float4 reads along C: the interleaved rows keep the 16 lanes of a
-// half-warp on distinct banks. The forward then runs the online softmax on
-// those registers (the column maximum is one xor-shuffle reduction over the
-// 16 lanes; the denominators and numerators stay per lane and are reduced
-// once, after the last tile). bwd_j turns the scores into dS in registers,
-// parks the 64 x 64 dS tile in shared memory and takes the second product
-// dS . streamed tile into a 4 x (C/16) register tile per thread. Their loads
-// are not overlapped with compute.
-//
-// Design of bwd_i (bwd_i_kernel). A block owns 128 source rows (e0 and v
-// loaded once) and streams e1, dO, lse and c in half tiles of 64 target
-// rows through a ring of three shared-memory slots filled with cp.async, so
-// that the next tile's two halves land while this tile is computed; it
-// halves the streaming of e1 from L2 against 64-row blocks. A tile is two
-// halves (128 target rows). Each of the 256 threads (a 16 x 16 grid) holds
-// an 8 x 8 register tile in both products: the scores of own rows to + 16 r
-// against target rows ts + 16 q, and dE0 of own rows to + 16 r at channels
-// 4 ts + 64 qc + (0..3). P = exp2((S - lse) log2 e), dP, dS and dV's share
-// stay in registers; dS goes through a 128 x 64 shared tile one half at a
-// time (a 128 x 128 tile beside the ring would not fit in 227 KB), its rows
-// xor-swizzled so the two half-warps of a warp read distinct banks. One
-// block an SM with up to 255 registers a thread; every product stays an
-// fp32 FMA, and the tensor cores are not used (TF32 would not be the TPU
-// kernels' fp32).
+// Design, shared by the three kernels. A block owns 128 rows (its e rows and
+// per-row vectors loaded once with cp.async) and streams the other side's
+// rows in half tiles of TH = 64 through a ring of three shared-memory slots
+// filled with cp.async, so that the next tile's halves land while this tile
+// is computed. A tile is two halves (128 streamed rows). Each of the 256
+// threads (a 16 x 16 grid) holds an 8 x 8 register tile of scores: own rows
+// to + 16 r against streamed rows ts + 16 q, read as float4 along C from
+// row-major tiles of stride C + 4 (the interleaved rows keep the lanes of a
+// quarter-warp on distinct banks). Exponentials are ex2 of base-2 arguments.
+// A second product over the streamed rows (dE0 in bwd_i, dE1 in bwd_j)
+// takes dS through a 128 x 64 shared tile one half at a time (a 128 x 128
+// tile beside the ring would not fit in 227 KB), its odd rows xor-swizzled
+// by 16 columns so the two half-warps of a warp use distinct banks, into
+// an 8 x 8 register tile of own rows to + 16 r at channels 4 ts + 64 qc +
+// (0..3). One block an SM with up to 255 registers a thread; the tensor
+// cores are not used (TF32 would not be the TPU kernels' fp32).
+//   fwd_lse  own e1 rows; streams e0 and v. Online softmax in base 2: the
+//            row maximum of the tile (one xor-shuffle reduction over the 16
+//            lanes of a row), one rescale per 128-row tile, P = ex2(S log2 e
+//            - m); the lane's share of the denominator and, for K = 1, of
+//            P . v stay in registers and are summed over the 16 lanes once,
+//            at the end. For K > 1 the tile's P goes through the shared tile
+//            and lane ts takes label map ts (16 maps of 8 rows would not fit
+//            in registers beside the scores).
+//   bwd_i    own e0 rows and v; streams e1, lse, c and dO. dV's share stays
+//            in registers for K = 1 and is summed into shared memory for
+//            K > 1.
+//   bwd_j    own e1 rows, dO, lse and c; streams e0 and v. P, dP and dS stay
+//            in registers; there is no dV.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int T = 64;                  // rows of a tile, own and streamed
 constexpr int THREADS = 256;
 constexpr int G = 16;                  // the thread grid is G x G
-constexpr int R = T / G;               // own rows, and streamed rows, per thread
+constexpr int TO = 128;                // own rows a block
+constexpr int TH = 64;                 // streamed rows a half tile
+constexpr int RO = TO / G;             // own rows a thread (8)
+constexpr int RQ = 2 * TH / G;         // streamed rows a thread (8: 4 a half)
+constexpr int SLOTS = 3;               // ring of half tiles
 constexpr int KMAX = 16;               // label maps per call
 constexpr int CMAX = 128;              // embedding width
 constexpr int PAD = 4;                 // floats of padding per tile row
-constexpr int DLD = T + PAD;           // row stride of the dS tile
+constexpr int VLD = TH + PAD;          // row stride of the forward's v in a slot
 constexpr float NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr int MAX_SMEM = 232448;       // 227 KB, the most a block may ask for
 constexpr unsigned FULL = 0xffffffffu;
-
-// rows r0 .. r0+T of src (N, C) into a row-major tile of stride C + PAD,
-// zero beyond row N
-__device__ __forceinline__ void load_rows(const float* __restrict__ src, int r0,
-                                          int N, int C, float* dst, int tid) {
-  const int c4n = C / 4;
-  const int ld = C + PAD;
-  for (int idx = tid; idx < T * c4n; idx += THREADS) {
-    const int r = idx / c4n, c4 = idx % c4n;
-    float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < N)
-      q = __ldg(reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * C) + c4);
-    *reinterpret_cast<float4*>(dst + r * ld + 4 * c4) = q;
-  }
-}
-
-// K vectors of T entries: dst[k*T + r] = src[k*N + r0 + r], zero beyond N
-__device__ __forceinline__ void load_vecs(const float* __restrict__ src, int r0,
-                                          int N, int K, float* dst, int tid) {
-  for (int idx = tid; idx < K * T; idx += THREADS) {
-    const int k = idx / T, r = idx % T;
-    dst[idx] = (r0 + r < N) ? __ldg(src + (size_t)k * N + r0 + r) : 0.f;
-  }
-}
-
-// s[r][q] = own row (to + G r) . streamed row (ts + G q)
-__device__ __forceinline__ void score_tile(const float* own, const float* str,
-                                           int C, int to, int ts,
-                                           float (&s)[R][R]) {
-  const int ld = C + PAD;
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int q = 0; q < R; ++q) s[r][q] = 0.f;
-  const float* a_p = own + to * ld;
-  const float* b_p = str + ts * ld;
-#pragma unroll 2
-  for (int c = 0; c < C; c += 4) {
-    float4 a[R], b[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      a[r] = *reinterpret_cast<const float4*>(a_p + r * G * ld + c);
-#pragma unroll
-    for (int q = 0; q < R; ++q)
-      b[q] = *reinterpret_cast<const float4*>(b_p + q * G * ld + c);
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int q = 0; q < R; ++q) {
-        float t = s[r][q];
-        t = fmaf(a[r].x, b[q].x, t);
-        t = fmaf(a[r].y, b[q].y, t);
-        t = fmaf(a[r].z, b[q].z, t);
-        t = fmaf(a[r].w, b[q].w, t);
-        s[r][q] = t;
-      }
-  }
-}
 
 // sum over the 16 lanes that share `to` (xor offsets below 16 stay inside
 // the half-warp); every lane gets the sum
@@ -157,240 +105,6 @@ __device__ __forceinline__ float max16(float x) {
     x = fmaxf(x, __shfl_xor_sync(FULL, x, off));
   return x;
 }
-
-// ---------------------------------------------------------------- forward
-// grid: x = tiles of T target columns, y = batch. The block owns e1 rows
-// j0 .. j0+T and streams e0.
-template <int KT>
-__global__ void __launch_bounds__(THREADS)
-fwd_lse_kernel(const float* __restrict__ e0, const float* __restrict__ e1,
-               const float* __restrict__ v, float* __restrict__ out,
-               float* __restrict__ lse, int N, int C, int K) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = C + PAD;
-  float* own = smem;                  // e1 tile
-  float* str = own + T * ld;          // e0 tile
-  float* vs = str + T * ld;           // v of the streamed rows, K x T
-
-  const int tid = threadIdx.x;
-  const int to = tid / G, ts = tid % G;
-  const int j0 = blockIdx.x * T;
-  const size_t b = blockIdx.y;
-  e0 += b * N * C;
-  e1 += b * N * C;
-  v += b * K * N;
-  out += b * K * N;
-  lse += b * N;
-
-  load_rows(e1, j0, N, C, own, tid);
-
-  float m[R], l[R], acc[KT][R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    m[r] = NEG;
-    l[r] = 0.f;
-#pragma unroll
-    for (int k = 0; k < KT; ++k) acc[k][r] = 0.f;
-  }
-
-  for (int i0 = 0; i0 < N; i0 += T) {
-    __syncthreads();   // the tile before has been read to its end
-    load_rows(e0, i0, N, C, str, tid);
-    load_vecs(v, i0, N, K, vs, tid);
-    __syncthreads();
-
-    float s[R][R];
-    score_tile(own, str, C, to, ts, s);
-
-    // online softmax of column (to + G r) over this lane's 4 source rows;
-    // the running maximum is shared by the 16 lanes of the column
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float tmax = NEG;
-#pragma unroll
-      for (int q = 0; q < R; ++q) {
-        if (i0 + ts + G * q >= N) s[r][q] = NEG;
-        tmax = fmaxf(tmax, s[r][q]);
-      }
-      tmax = max16(tmax);
-      const float m_new = fmaxf(m[r], tmax);
-      const float alpha = expf(m[r] - m_new);
-      l[r] *= alpha;
-#pragma unroll
-      for (int k = 0; k < KT; ++k) acc[k][r] *= alpha;
-#pragma unroll
-      for (int q = 0; q < R; ++q) {
-        const float p = expf(s[r][q] - m_new);
-        l[r] += p;
-#pragma unroll
-        for (int k = 0; k < KT; ++k)
-          if (k < K) acc[k][r] = fmaf(vs[k * T + ts + G * q], p, acc[k][r]);
-      }
-      m[r] = m_new;
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const float lsum = sum16(l[r]);
-    const int j = j0 + to + G * r;
-#pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      if (k < K) {
-        const float a = sum16(acc[k][r]);
-        if (ts == 0 && j < N) out[(size_t)k * N + j] = a / lsum;
-      }
-    }
-    if (ts == 0 && j < N) lse[j] = m[r] + logf(lsum);
-  }
-}
-
-// ------------------------------------------------------------------ bwd_j
-// grid: x = tiles of T target columns, y = batch. The block owns e1 rows
-// and streams e0, writing dE1. CQ = ceil(C / 64): a thread keeps channels
-// 4 ts + 64 qc + (0..3). With one label map the registers are held to 128,
-// so that two blocks share an SM.
-template <int KT, int CQ>
-__global__ void __launch_bounds__(THREADS, KT == 1 ? 2 : 1)
-bwd_j_kernel(const float* __restrict__ e0, const float* __restrict__ e1,
-             const float* __restrict__ v, const float* __restrict__ lse,
-             const float* __restrict__ dout, const float* __restrict__ cvec,
-             float* __restrict__ de1, int N, int C, int K) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = C + PAD;
-  float* own = smem;                  // the block's e1 tile
-  float* str = own + T * ld;          // the streamed e0 tile
-  float* ds = str + T * ld;           // dS, [own column][streamed row]
-  float* vs = ds + T * DLD;           // v of the tile's source rows, K x T
-  float* dos = vs + K * T;            // dO of the own columns, K x T
-  float* lses = dos + K * T;          // lse of the own columns
-  float* cs = lses + T;               // c of the own columns
-
-  const int tid = threadIdx.x;
-  const int to = tid / G, ts = tid % G;
-  const int o0 = blockIdx.x * T;
-  const size_t b = blockIdx.y;
-  e0 += b * N * C;
-  e1 += b * N * C;
-  v += b * K * N;
-  lse += b * N;
-  dout += b * K * N;
-  cvec += b * N;
-  de1 += b * N * C;
-
-  load_rows(e1, o0, N, C, own, tid);
-  load_vecs(dout, o0, N, K, dos, tid);
-  load_vecs(lse, o0, N, 1, lses, tid);
-  load_vecs(cvec, o0, N, 1, cs, tid);
-
-  float acc[R][4 * CQ];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int x = 0; x < 4 * CQ; ++x) acc[r][x] = 0.f;
-
-  for (int s0 = 0; s0 < N; s0 += T) {
-    __syncthreads();   // the tiles before have been read to their end
-    load_rows(e0, s0, N, C, str, tid);
-    load_vecs(v, s0, N, K, vs, tid);
-    __syncthreads();
-
-    // scores -> P, in place: p[r][q] of own column to + G r, streamed row
-    // ts + G q
-    float p[R][R];
-    score_tile(own, str, C, to, ts, p);
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int q = 0; q < R; ++q) {
-        const int ol = to + G * r, sl = ts + G * q;
-        const bool inside = (o0 + ol < N) && (s0 + sl < N);
-        p[r][q] = inside ? expf(p[r][q] - lses[ol]) : 0.f;
-      }
-
-    // dP[i][j] = sum_k v[k][i] dO[k][j]
-    float dp[R][R];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int q = 0; q < R; ++q) dp[r][q] = 0.f;
-#pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      if (k < K) {
-        float vo[R], vq[R];           // the k-th factor of own and streamed rows
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          vo[r] = dos[k * T + to + G * r];
-          vq[r] = vs[k * T + ts + G * r];
-        }
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-#pragma unroll
-          for (int q = 0; q < R; ++q) dp[r][q] = fmaf(vo[r], vq[q], dp[r][q]);
-      }
-    }
-
-    // dS = P * (dP - c[j]) into shared memory
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int q = 0; q < R; ++q) {
-        const int ol = to + G * r, sl = ts + G * q;
-        ds[ol * DLD + sl] = p[r][q] * (dp[r][q] - cs[ol]);
-      }
-    __syncthreads();
-
-    // acc[own column][channel] += sum over streamed rows dS * streamed tile
-    for (int j = 0; j < T; j += 4) {
-      float4 d4[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        d4[r] = *reinterpret_cast<const float4*>(ds + (to + G * r) * DLD + j);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int qc = 0; qc < CQ; ++qc) {
-          const int cc = 4 * ts + 64 * qc;
-          if (cc < C) {
-            const float4 e =
-                *reinterpret_cast<const float4*>(str + (j + jj) * ld + cc);
-#pragma unroll
-            for (int r = 0; r < R; ++r) {
-              const float d = jj == 0 ? d4[r].x
-                            : jj == 1 ? d4[r].y
-                            : jj == 2 ? d4[r].z : d4[r].w;
-              acc[r][4 * qc + 0] = fmaf(d, e.x, acc[r][4 * qc + 0]);
-              acc[r][4 * qc + 1] = fmaf(d, e.y, acc[r][4 * qc + 1]);
-              acc[r][4 * qc + 2] = fmaf(d, e.z, acc[r][4 * qc + 2]);
-              acc[r][4 * qc + 3] = fmaf(d, e.w, acc[r][4 * qc + 3]);
-            }
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int o = o0 + to + G * r;
-#pragma unroll
-    for (int qc = 0; qc < CQ; ++qc) {
-      const int cc = 4 * ts + 64 * qc;
-      if (o < N && cc < C)
-        *reinterpret_cast<float4*>(de1 + (size_t)o * C + cc) =
-            make_float4(acc[r][4 * qc], acc[r][4 * qc + 1], acc[r][4 * qc + 2],
-                        acc[r][4 * qc + 3]);
-    }
-  }
-}
-
-// ------------------------------------------------------------------ bwd_i
-constexpr int TO = 128;                // own source rows a block
-constexpr int TH = 64;                 // target rows a streamed half tile
-constexpr int RO = TO / G;             // own rows a thread (8)
-constexpr int RQ = 2 * TH / G;         // target rows a thread (8: 4 a half)
-constexpr int SLOTS = 3;               // ring of half tiles
-constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -421,17 +135,19 @@ __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
-// rows r0 .. r0+ROWS of src (N, C) into a row-major tile of stride C + PAD
+// rows r0 .. r0+ROWS of src (N, C) into a row-major tile of stride C + PAD:
+// warp w copies rows w, w + 8, ..., lane l the l-th 16 bytes of each (C is
+// at most 128 = 32 lanes x 4 floats, and no thread divides by C)
 template <int ROWS>
 __device__ __forceinline__ void async_rows(const float* __restrict__ src,
                                            int r0, int N, int C, float* dst,
                                            int tid) {
-  const int c4n = C / 4;
-  for (int idx = tid; idx < ROWS * c4n; idx += THREADS) {
-    const int r = idx / c4n, c4 = idx % c4n;
+  const int c = 4 * (tid % 32);
+  if (c >= C) return;
+  for (int r = tid / 32; r < ROWS; r += THREADS / 32) {
     const bool ok = r0 + r < N;
-    cp16(dst + r * (C + PAD) + 4 * c4,
-         ok ? src + (size_t)(r0 + r) * C + 4 * c4 : src, ok);
+    cp16(dst + r * (C + PAD) + c, ok ? src + (size_t)(r0 + r) * C + c : src,
+         ok);
   }
 }
 
@@ -445,6 +161,392 @@ __device__ __forceinline__ void async_vec(const float* __restrict__ src,
   }
 }
 
+// p[r][q] = own row (to + G r) . streamed row (ts + G (q % 4)) of half q / 4:
+// fp32 FMAs in channel order. h0, h1: the two halves' rows (stride C + PAD).
+__device__ __forceinline__ void score_tile(const float* own, const float* h0,
+                                           const float* h1, int C, int to,
+                                           int ts, float (&p)[RO][RQ]) {
+  const int ld = C + PAD;
+#pragma unroll
+  for (int r = 0; r < RO; ++r)
+#pragma unroll
+    for (int q = 0; q < RQ; ++q) p[r][q] = 0.f;
+  const float* a_p = own + to * ld;
+  const float* b_p[2] = {h0 + ts * ld, h1 + ts * ld};
+#pragma unroll 1
+  for (int c = 0; c < C; c += 4) {
+    float4 a[RO];
+#pragma unroll
+    for (int r = 0; r < RO; ++r)
+      a[r] = *reinterpret_cast<const float4*>(a_p + r * G * ld + c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float4 bq[RQ / 2];
+#pragma unroll
+      for (int q = 0; q < RQ / 2; ++q)
+        bq[q] = *reinterpret_cast<const float4*>(b_p[h] + q * G * ld + c);
+#pragma unroll
+      for (int r = 0; r < RO; ++r)
+#pragma unroll
+        for (int q = 0; q < RQ / 2; ++q) {
+          float x = p[r][4 * h + q];
+          x = fmaf(a[r].x, bq[q].x, x);
+          x = fmaf(a[r].y, bq[q].y, x);
+          x = fmaf(a[r].z, bq[q].z, x);
+          x = fmaf(a[r].w, bq[q].w, x);
+          p[r][4 * h + q] = x;
+        }
+    }
+  }
+}
+
+// half h of the thread's 8 x 8 tile into the shared [TO][TH] tile, odd rows
+// xor-swizzled by 16 columns (swz)
+__device__ __forceinline__ void park_half(float* tile, const float (&p)[RO][RQ],
+                                          int h, int to, int ts, int swz) {
+#pragma unroll
+  for (int r = 0; r < RO; ++r)
+#pragma unroll
+    for (int q = 0; q < RQ / 2; ++q)
+      tile[(to + G * r) * TH + ((ts + G * q) ^ swz)] = p[r][4 * h + q];
+}
+
+// acc[r][4 qc + x] += sum over the TH rows j of a half: tile[to + G r][j] *
+// rows[j][4 ts + 64 qc + x]. Channels at or beyond C are computed from
+// whatever follows the rows in their slot (never past its end) and not
+// stored: no branch in the loop.
+template <int CQ>
+__device__ __forceinline__ void ds_product(const float* tile,
+                                           const float* rows, int ld, int to,
+                                           int ts, int swz,
+                                           float (&acc)[RO][4 * CQ]) {
+  const float* e = rows + 4 * ts;
+#pragma unroll 2
+  for (int j = 0; j < TH; j += 4) {
+    float4 d4[RO], ev[4][CQ];
+#pragma unroll
+    for (int r = 0; r < RO; ++r)
+      d4[r] = *reinterpret_cast<const float4*>(tile + (to + G * r) * TH + (j ^ swz));
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int qc = 0; qc < CQ; ++qc)
+        ev[jj][qc] = *reinterpret_cast<const float4*>(e + (j + jj) * ld + 64 * qc);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int qc = 0; qc < CQ; ++qc) {
+#pragma unroll
+        for (int r = 0; r < RO; ++r) {
+          const float d = jj == 0 ? d4[r].x
+                        : jj == 1 ? d4[r].y
+                        : jj == 2 ? d4[r].z : d4[r].w;
+          acc[r][4 * qc + 0] = fmaf(d, ev[jj][qc].x, acc[r][4 * qc + 0]);
+          acc[r][4 * qc + 1] = fmaf(d, ev[jj][qc].y, acc[r][4 * qc + 1]);
+          acc[r][4 * qc + 2] = fmaf(d, ev[jj][qc].z, acc[r][4 * qc + 2]);
+          acc[r][4 * qc + 3] = fmaf(d, ev[jj][qc].w, acc[r][4 * qc + 3]);
+        }
+      }
+    }
+  }
+}
+
+// the own rows' accumulators, channels 4 ts + 64 qc + (0..3), rows < N
+template <int CQ>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst,
+                                           const float (&acc)[RO][4 * CQ],
+                                           int o0, int N, int C, int to,
+                                           int ts) {
+#pragma unroll
+  for (int r = 0; r < RO; ++r) {
+    const int o = o0 + to + G * r;
+#pragma unroll
+    for (int qc = 0; qc < CQ; ++qc) {
+      const int cc = 4 * ts + 64 * qc;
+      if (o < N && cc < C)
+        *reinterpret_cast<float4*>(dst + (size_t)o * C + cc) =
+            make_float4(acc[r][4 * qc], acc[r][4 * qc + 1], acc[r][4 * qc + 2],
+                        acc[r][4 * qc + 3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- forward
+// grid: x = tiles of TO target rows, y = batch. KT = 1: P . v in registers;
+// KT = KMAX: through the shared tile, label map ts on lane ts.
+template <int KT>
+__global__ void __launch_bounds__(THREADS, 1)
+fwd_lse_kernel(const float* __restrict__ e0, const float* __restrict__ e1,
+               const float* __restrict__ v, float* __restrict__ out,
+               float* __restrict__ lse, int N, int C, int K) {
+  extern __shared__ __align__(16) float smem[];
+  const int ld = C + PAD;
+  float* own = smem;                           // e1 rows, [TO][ld]
+  float* psm = own + TO * ld;                  // KT > 1: a P half, [TO][TH]
+  float* ring = psm + (KT > 1 ? TO * TH : 0);
+  const int slot_floats = TH * ld + K * VLD;
+  // slot: e0 rows [TH][ld], then v [K][VLD]
+
+  const int tid = threadIdx.x;
+  const int to = tid / G, ts = tid % G;
+  const int swz = (to & 1) << 4;               // P column swizzle of my rows
+  const int o0 = blockIdx.x * TO;
+  const size_t b = blockIdx.y;
+  e0 += b * N * C;
+  e1 += b * N * C;
+  v += b * K * N;
+  out += b * K * N;
+  lse += b * N;
+
+  auto load_half = [&](int h) {
+    float* d = ring + (h % SLOTS) * slot_floats;
+    const int i = h * TH;
+    async_rows<TH>(e0, i, N, C, d, tid);
+    for (int k = 0; k < K; ++k)
+      async_vec(v + (size_t)k * N, i, N, TH, d + TH * ld + k * VLD, tid);
+    cp_commit();
+  };
+
+  async_rows<TO>(e1, o0, N, C, own, tid);
+  cp_commit();
+  const int ntiles = (N + 2 * TH - 1) / (2 * TH);
+  load_half(0);
+  load_half(1);
+  cp_wait_all();
+  __syncthreads();
+
+  // per own row: the running maximum of S log2 e (the same on the row's 16
+  // lanes), this lane's share of the denominator, and of P . v (KT = 1) or
+  // the whole of P . v for label map ts (KT > 1), all scaled by 2^-m
+  float m[RO], l[RO], acc[RO];
+#pragma unroll
+  for (int r = 0; r < RO; ++r) {
+    m[r] = NEG;
+    l[r] = 0.f;
+    acc[r] = 0.f;
+  }
+
+  for (int t = 0; t < ntiles; ++t) {
+    const float* hs[2] = {ring + ((2 * t) % SLOTS) * slot_floats,
+                          ring + ((2 * t + 1) % SLOTS) * slot_floats};
+    if (t + 1 < ntiles) load_half(2 * t + 2);
+
+    float p[RO][RQ];
+    score_tile(own, hs[0], hs[1], C, to, ts, p);
+    float vq[RQ];
+    bool inside[RQ];
+#pragma unroll
+    for (int q = 0; q < RQ; ++q) {
+      const int sl = ts + G * (q % 4);
+      inside[q] = (2 * t + q / 4) * TH + sl < N;
+      vq[q] = KT == 1 ? hs[q / 4][TH * ld + sl] : 0.f;
+    }
+    if (KT == 1) {
+      __syncthreads();     // the first half's slot is free
+      if (t + 1 < ntiles) load_half(2 * t + 3);
+    }
+
+    // online softmax in base 2: one rescale per tile; source rows >= N out
+#pragma unroll
+    for (int r = 0; r < RO; ++r) {
+      float tmax = NEG;
+#pragma unroll
+      for (int q = 0; q < RQ; ++q) {
+        if (!inside[q]) p[r][q] = NEG;
+        tmax = fmaxf(tmax, p[r][q]);
+      }
+      const float m_new = fmaxf(m[r], max16(tmax) * LOG2E);
+      const float alpha = ex2(m[r] - m_new);
+      l[r] *= alpha;
+      acc[r] *= alpha;
+#pragma unroll
+      for (int q = 0; q < RQ; ++q) {
+        const float x = ex2(fmaf(p[r][q], LOG2E, -m_new));
+        l[r] += x;
+        if (KT == 1) acc[r] = fmaf(x, vq[q], acc[r]);
+        p[r][q] = x;
+      }
+      m[r] = m_new;
+    }
+
+    if (KT > 1) {
+      // acc[r] += sum over the tile's source rows i of P[to + G r][i] *
+      // v[ts][i], one half at a time through the shared tile
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        park_half(psm, p, h, to, ts, swz);
+        __syncthreads();
+        if (ts < K) {
+          const float* vk = hs[h] + TH * ld + ts * VLD;
+#pragma unroll 4
+          for (int i = 0; i < TH; i += 4) {
+            const float4 w = *reinterpret_cast<const float4*>(vk + i);
+#pragma unroll
+            for (int r = 0; r < RO; ++r) {
+              const float4 d = *reinterpret_cast<const float4*>(
+                  psm + (to + G * r) * TH + (i ^ swz));
+              acc[r] = fmaf(d.x, w.x, acc[r]);
+              acc[r] = fmaf(d.y, w.y, acc[r]);
+              acc[r] = fmaf(d.z, w.z, acc[r]);
+              acc[r] = fmaf(d.w, w.w, acc[r]);
+            }
+          }
+        }
+        __syncthreads();   // psm, and after h = 0 the first half's slot, free
+        if (h == 0 && t + 1 < ntiles) load_half(2 * t + 3);
+      }
+    }
+    cp_wait_all();         // the next tile's halves have landed
+    __syncthreads();       // for every thread; this tile's slots free
+  }
+
+#pragma unroll
+  for (int r = 0; r < RO; ++r) {
+    const float lsum = sum16(l[r]);
+    const int j = o0 + to + G * r;
+    if (KT == 1) {
+      const float a = sum16(acc[r]);
+      if (ts == 0 && j < N) out[j] = a / lsum;
+    } else if (ts < K && j < N) {
+      out[(size_t)ts * N + j] = acc[r] / lsum;
+    }
+    if (ts == 0 && j < N) lse[j] = fmaf(m[r], LN2, logf(lsum));
+  }
+}
+
+// ------------------------------------------------------------------ bwd_j
+// grid: x = tiles of TO target rows, y = batch. CQ = ceil(C / 64).
+template <int KT, int CQ>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_j_kernel(const float* __restrict__ e0, const float* __restrict__ e1,
+             const float* __restrict__ v, const float* __restrict__ lse,
+             const float* __restrict__ dout, const float* __restrict__ cvec,
+             float* __restrict__ de1, int N, int C, int K) {
+  extern __shared__ __align__(16) float smem[];
+  const int ld = C + PAD;
+  float* own = smem;                           // e1 rows, [TO][ld]
+  float* dos = own + TO * ld;                  // dO of the own rows, [K][TO]
+  float* lses = dos + K * TO;                  // lse of the own rows, [TO]
+  float* cs = lses + TO;                       // c of the own rows, [TO]
+  float* dsm = cs + TO;                        // a dS half, [TO][TH], swizzled
+  float* ring = dsm + TO * TH;
+  const int slot_floats = TH * ld + K * TH;
+  // slot: e0 rows [TH][ld], then v [K][TH]
+
+  const int tid = threadIdx.x;
+  const int to = tid / G, ts = tid % G;
+  const int swz = (to & 1) << 4;               // dS column swizzle of my rows
+  const int o0 = blockIdx.x * TO;
+  const size_t b = blockIdx.y;
+  e0 += b * N * C;
+  e1 += b * N * C;
+  v += b * K * N;
+  lse += b * N;
+  dout += b * K * N;
+  cvec += b * N;
+  de1 += b * N * C;
+
+  auto load_half = [&](int h) {
+    float* d = ring + (h % SLOTS) * slot_floats;
+    const int i = h * TH;
+    async_rows<TH>(e0, i, N, C, d, tid);
+    for (int k = 0; k < K; ++k)
+      async_vec(v + (size_t)k * N, i, N, TH, d + TH * ld + k * TH, tid);
+    cp_commit();
+  };
+
+  async_rows<TO>(e1, o0, N, C, own, tid);
+  for (int k = 0; k < K; ++k)
+    async_vec(dout + (size_t)k * N, o0, N, TO, dos + k * TO, tid);
+  async_vec(lse, o0, N, TO, lses, tid);
+  async_vec(cvec, o0, N, TO, cs, tid);
+  cp_commit();
+  const int ntiles = (N + 2 * TH - 1) / (2 * TH);
+  load_half(0);
+  load_half(1);
+  cp_wait_all();
+  __syncthreads();
+
+  float acc[RO][4 * CQ];
+#pragma unroll
+  for (int r = 0; r < RO; ++r)
+#pragma unroll
+    for (int x = 0; x < 4 * CQ; ++x) acc[r][x] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const float* hs[2] = {ring + ((2 * t) % SLOTS) * slot_floats,
+                          ring + ((2 * t + 1) % SLOTS) * slot_floats};
+    if (t + 1 < ntiles) load_half(2 * t + 2);
+
+    // scores: p[r][q] of own row to + G r, source row ts + G (q % 4) of half
+    // q / 4; then P = exp(S - lse[j]) in place (0 for sources i >= N)
+    float p[RO][RQ];
+    score_tile(own, hs[0], hs[1], C, to, ts, p);
+#pragma unroll
+    for (int r = 0; r < RO; ++r) {
+      const float lr = lses[to + G * r];
+#pragma unroll
+      for (int q = 0; q < RQ; ++q) {
+        const bool inside = (2 * t + q / 4) * TH + ts + G * (q % 4) < N;
+        p[r][q] = inside ? ex2((p[r][q] - lr) * LOG2E) : 0.f;
+      }
+    }
+    // dS = P (dP - c[j]) in place, dP[i][j] = sum_k v[k][i] dO[k][j]
+    if (KT == 1) {
+      float vq[RQ];
+#pragma unroll
+      for (int q = 0; q < RQ; ++q)
+        vq[q] = hs[q / 4][TH * ld + ts + G * (q % 4)];
+#pragma unroll
+      for (int r = 0; r < RO; ++r) {
+        const float dr = dos[to + G * r], cr = cs[to + G * r];
+#pragma unroll
+        for (int q = 0; q < RQ; ++q) p[r][q] *= fmaf(dr, vq[q], -cr);
+      }
+    } else {
+      float dp[RO][RQ];
+#pragma unroll
+      for (int r = 0; r < RO; ++r)
+#pragma unroll
+        for (int q = 0; q < RQ; ++q) dp[r][q] = 0.f;
+      for (int k = 0; k < K; ++k) {
+        float dk[RO], vk[RQ];
+#pragma unroll
+        for (int r = 0; r < RO; ++r) dk[r] = dos[k * TO + to + G * r];
+#pragma unroll
+        for (int q = 0; q < RQ; ++q)
+          vk[q] = hs[q / 4][TH * ld + k * TH + ts + G * (q % 4)];
+#pragma unroll
+        for (int r = 0; r < RO; ++r)
+#pragma unroll
+          for (int q = 0; q < RQ; ++q) dp[r][q] = fmaf(dk[r], vk[q], dp[r][q]);
+      }
+#pragma unroll
+      for (int r = 0; r < RO; ++r) {
+        const float cr = cs[to + G * r];
+#pragma unroll
+        for (int q = 0; q < RQ; ++q) p[r][q] *= dp[r][q] - cr;
+      }
+    }
+
+    // dE1 += dS . e0, one half at a time through the shared dS tile
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      park_half(dsm, p, h, to, ts, swz);
+      __syncthreads();
+      ds_product<CQ>(dsm, hs[h], ld, to, ts, swz, acc);
+      if (h == 0) {
+        __syncthreads();   // dsm and the first half's slot are free
+        if (t + 1 < ntiles) load_half(2 * t + 3);
+      }
+    }
+    cp_wait_all();         // the next tile's halves have landed
+    __syncthreads();       // for every thread; dsm and this tile's slots free
+  }
+  store_rows<CQ>(de1, acc, o0, N, C, to, ts);
+}
+
+// ------------------------------------------------------------------ bwd_i
 // grid: x = tiles of TO source rows, y = batch. KT = 1: dV's share in
 // registers; KT = KMAX: reduced into shared memory after each tile. CQ =
 // ceil(C / 64).
@@ -520,38 +622,7 @@ bwd_i_kernel(const float* __restrict__ e0, const float* __restrict__ e1,
     // scores: p[r][q] of own row to + G r, target row ts + G (q % 4) of
     // half q / 4
     float p[RO][RQ];
-#pragma unroll
-    for (int r = 0; r < RO; ++r)
-#pragma unroll
-      for (int q = 0; q < RQ; ++q) p[r][q] = 0.f;
-    {
-      const float* a_p = own + to * ld;
-#pragma unroll 1
-      for (int c = 0; c < C; c += 4) {
-        float4 a[RO];
-#pragma unroll
-        for (int r = 0; r < RO; ++r)
-          a[r] = *reinterpret_cast<const float4*>(a_p + r * G * ld + c);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float4 bq[RQ / 2];
-#pragma unroll
-          for (int q = 0; q < RQ / 2; ++q)
-            bq[q] = *reinterpret_cast<const float4*>(hs[h] + (ts + G * q) * ld + c);
-#pragma unroll
-          for (int r = 0; r < RO; ++r)
-#pragma unroll
-            for (int q = 0; q < RQ / 2; ++q) {
-              float x = p[r][4 * h + q];
-              x = fmaf(a[r].x, bq[q].x, x);
-              x = fmaf(a[r].y, bq[q].y, x);
-              x = fmaf(a[r].z, bq[q].z, x);
-              x = fmaf(a[r].w, bq[q].w, x);
-              p[r][4 * h + q] = x;
-            }
-        }
-      }
-    }
+    score_tile(own, hs[0], hs[1], C, to, ts, p);
 
     // P = exp(S - lse[j]) (0 for targets j >= N), dV's share, dS in place
 #pragma unroll
@@ -628,43 +699,9 @@ bwd_i_kernel(const float* __restrict__ e0, const float* __restrict__ e1,
     // dE0 += dS . e1, one half at a time through the shared dS tile
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int r = 0; r < RO; ++r)
-#pragma unroll
-        for (int q = 0; q < RQ / 2; ++q)
-          dsm[(to + G * r) * TH + ((ts + G * q) ^ swz)] = p[r][4 * h + q];
+      park_half(dsm, p, h, to, ts, swz);
       __syncthreads();
-      // channels at or beyond C are computed from whatever follows in the
-      // slot (never past its end) and not stored: no branch in the loop
-      const float* e = hs[h] + 4 * ts;
-#pragma unroll 2
-      for (int j = 0; j < TH; j += 4) {
-        float4 d4[RO], ev[4][CQ];
-#pragma unroll
-        for (int r = 0; r < RO; ++r)
-          d4[r] = *reinterpret_cast<const float4*>(dsm + (to + G * r) * TH + (j ^ swz));
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-          for (int qc = 0; qc < CQ; ++qc)
-            ev[jj][qc] = *reinterpret_cast<const float4*>(e + (j + jj) * ld + 64 * qc);
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-          for (int qc = 0; qc < CQ; ++qc) {
-#pragma unroll
-            for (int r = 0; r < RO; ++r) {
-              const float d = jj == 0 ? d4[r].x
-                            : jj == 1 ? d4[r].y
-                            : jj == 2 ? d4[r].z : d4[r].w;
-              acc[r][4 * qc + 0] = fmaf(d, ev[jj][qc].x, acc[r][4 * qc + 0]);
-              acc[r][4 * qc + 1] = fmaf(d, ev[jj][qc].y, acc[r][4 * qc + 1]);
-              acc[r][4 * qc + 2] = fmaf(d, ev[jj][qc].z, acc[r][4 * qc + 2]);
-              acc[r][4 * qc + 3] = fmaf(d, ev[jj][qc].w, acc[r][4 * qc + 3]);
-            }
-          }
-        }
-      }
+      ds_product<CQ>(dsm, hs[h], ld, to, ts, swz, acc);
       if (h == 0) {
         __syncthreads();   // dsm and the first half's slot are free
         if (t + 1 < ntiles) load_half(2 * t + 3);
@@ -674,17 +711,10 @@ bwd_i_kernel(const float* __restrict__ e0, const float* __restrict__ e1,
     __syncthreads();       // for every thread; dsm and this tile's slots free
   }
 
+  store_rows<CQ>(de0, acc, o0, N, C, to, ts);
 #pragma unroll
   for (int r = 0; r < RO; ++r) {
     const int o = o0 + to + G * r;
-#pragma unroll
-    for (int qc = 0; qc < CQ; ++qc) {
-      const int cc = 4 * ts + 64 * qc;
-      if (o < N && cc < C)
-        *reinterpret_cast<float4*>(de0 + (size_t)o * C + cc) =
-            make_float4(acc[r][4 * qc], acc[r][4 * qc + 1], acc[r][4 * qc + 2],
-                        acc[r][4 * qc + 3]);
-    }
     if (KT == 1) {
       const float a = sum16(dvp[r]);
       if (ts == 0 && o < N) dv[o] = a;
@@ -698,13 +728,16 @@ bwd_i_kernel(const float* __restrict__ e0, const float* __restrict__ e1,
 }
 
 // ------------------------------------------------------------------ launch
-inline size_t fwd_smem(int C, int K) {
-  return ((size_t)2 * T * (C + PAD) + (size_t)K * T) * sizeof(float);
+// shared memory of each kernel, in floats: own rows, per-row vectors, the
+// shared P or dS half, and the ring
+inline size_t fwd_smem(int C, int K, bool p_shared) {
+  return ((size_t)TO * (C + PAD) + (p_shared ? (size_t)TO * TH : 0) +
+          (size_t)SLOTS * (TH * (C + PAD) + K * VLD)) * sizeof(float);
 }
 
 inline size_t bwd_j_smem(int C, int K) {
-  return ((size_t)2 * T * (C + PAD) + (size_t)T * DLD + (size_t)2 * K * T +
-          2 * T) * sizeof(float);
+  return ((size_t)TO * (C + PAD) + (size_t)(K + 2) * TO + (size_t)TO * TH +
+          (size_t)SLOTS * (TH * (C + PAD) + K * TH)) * sizeof(float);
 }
 
 inline size_t bwd_i_smem(int C, int K, bool dv_shared) {
@@ -718,50 +751,17 @@ inline bool bad_shape(int B, int N, int C, int K) {
          K <= 0 || K > KMAX;
 }
 
-template <int KT>
-int launch_fwd(const float* e0, const float* e1, const float* v, float* out,
-               float* lse, int B, int N, int C, int K, cudaStream_t s) {
-  const size_t smem = fwd_smem(C, K);
+// set the kernel's shared-memory size and launch it on a grid of TO-row
+// tiles by batch
+template <typename Kernel, typename... Args>
+int launch_tiles(Kernel kernel, size_t smem, int B, int N, cudaStream_t s,
+                 Args... args) {
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_lse_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      MAX_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + T - 1) / T, B);
-  fwd_lse_kernel<KT><<<grid, THREADS, smem, s>>>(e0, e1, v, out, lse, N, C, K);
-  return (int)cudaGetLastError();
-}
-
-template <int KT, int CQ>
-int launch_bwd_j(const float* e0, const float* e1, const float* v,
-                 const float* lse, const float* dout, const float* c,
-                 float* de1, int B, int N, int C, int K, cudaStream_t s) {
-  const size_t smem = bwd_j_smem(C, K);
-  if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_j_kernel<KT, CQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      MAX_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + T - 1) / T, B);
-  bwd_j_kernel<KT, CQ><<<grid, THREADS, smem, s>>>(e0, e1, v, lse, dout, c,
-                                                   de1, N, C, K);
-  return (int)cudaGetLastError();
-}
-
-template <int KT, int CQ>
-int launch_bwd_i(const float* e0, const float* e1, const float* v,
-                 const float* lse, const float* dout, const float* c,
-                 float* de0, float* dv, int B, int N, int C, int K,
-                 cudaStream_t s) {
-  const size_t smem = bwd_i_smem(C, K, KT > 1);
-  if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_i_kernel<KT, CQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + TO - 1) / TO, B);
-  bwd_i_kernel<KT, CQ><<<grid, THREADS, smem, s>>>(e0, e1, v, lse, dout, c,
-                                                   de0, dv, N, C, K);
+  kernel<<<grid, THREADS, smem, s>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -781,8 +781,11 @@ extern "C" int correlation_fwd_lse(const void* e0, const void* e1,
   const float* a2 = static_cast<const float*>(v);
   float* o0 = static_cast<float*>(out);
   float* o1 = static_cast<float*>(lse);
-  return K == 1 ? launch_fwd<1>(a0, a1, a2, o0, o1, B, N, C, K, s)
-                : launch_fwd<KMAX>(a0, a1, a2, o0, o1, B, N, C, K, s);
+  return K == 1
+      ? launch_tiles(fwd_lse_kernel<1>, fwd_smem(C, K, false), B, N, s, a0, a1,
+                     a2, o0, o1, N, C, K)
+      : launch_tiles(fwd_lse_kernel<KMAX>, fwd_smem(C, K, true), B, N, s, a0,
+                     a1, a2, o0, o1, N, C, K);
 }
 
 extern "C" int correlation_bwd_i(const void* e0, const void* e1, const void* v,
@@ -799,13 +802,18 @@ extern "C" int correlation_bwd_i(const void* e0, const void* e1, const void* v,
   const float* a5 = static_cast<const float*>(c);
   float* o0 = static_cast<float*>(de0);
   float* o1 = static_cast<float*>(dv);
+  const size_t smem = bwd_i_smem(C, K, K > 1);
   if (K == 1)
     return C <= 64
-        ? launch_bwd_i<1, 1>(a0, a1, a2, a3, a4, a5, o0, o1, B, N, C, K, s)
-        : launch_bwd_i<1, 2>(a0, a1, a2, a3, a4, a5, o0, o1, B, N, C, K, s);
+        ? launch_tiles(bwd_i_kernel<1, 1>, smem, B, N, s, a0, a1, a2, a3, a4,
+                       a5, o0, o1, N, C, K)
+        : launch_tiles(bwd_i_kernel<1, 2>, smem, B, N, s, a0, a1, a2, a3, a4,
+                       a5, o0, o1, N, C, K);
   return C <= 64
-      ? launch_bwd_i<KMAX, 1>(a0, a1, a2, a3, a4, a5, o0, o1, B, N, C, K, s)
-      : launch_bwd_i<KMAX, 2>(a0, a1, a2, a3, a4, a5, o0, o1, B, N, C, K, s);
+      ? launch_tiles(bwd_i_kernel<KMAX, 1>, smem, B, N, s, a0, a1, a2, a3, a4,
+                     a5, o0, o1, N, C, K)
+      : launch_tiles(bwd_i_kernel<KMAX, 2>, smem, B, N, s, a0, a1, a2, a3, a4,
+                     a5, o0, o1, N, C, K);
 }
 
 extern "C" int correlation_bwd_j(const void* e0, const void* e1, const void* v,
@@ -821,13 +829,18 @@ extern "C" int correlation_bwd_j(const void* e0, const void* e1, const void* v,
   const float* a4 = static_cast<const float*>(dout);
   const float* a5 = static_cast<const float*>(c);
   float* o0 = static_cast<float*>(de1);
+  const size_t smem = bwd_j_smem(C, K);
   if (K == 1)
     return C <= 64
-        ? launch_bwd_j<1, 1>(a0, a1, a2, a3, a4, a5, o0, B, N, C, K, s)
-        : launch_bwd_j<1, 2>(a0, a1, a2, a3, a4, a5, o0, B, N, C, K, s);
+        ? launch_tiles(bwd_j_kernel<1, 1>, smem, B, N, s, a0, a1, a2, a3, a4,
+                       a5, o0, N, C, K)
+        : launch_tiles(bwd_j_kernel<1, 2>, smem, B, N, s, a0, a1, a2, a3, a4,
+                       a5, o0, N, C, K);
   return C <= 64
-      ? launch_bwd_j<KMAX, 1>(a0, a1, a2, a3, a4, a5, o0, B, N, C, K, s)
-      : launch_bwd_j<KMAX, 2>(a0, a1, a2, a3, a4, a5, o0, B, N, C, K, s);
+      ? launch_tiles(bwd_j_kernel<KMAX, 1>, smem, B, N, s, a0, a1, a2, a3, a4,
+                     a5, o0, N, C, K)
+      : launch_tiles(bwd_j_kernel<KMAX, 2>, smem, B, N, s, a0, a1, a2, a3, a4,
+                     a5, o0, N, C, K);
 }
 
 extern "C" const char* correlation_train_error_string(int err) {

@@ -1,7 +1,7 @@
-"""Time breakdowns of two kernels on the card, from edited copies of their
+"""Time breakdowns of four kernels on the card, from edited copies of their
 sources.
 
-    python3 -m unicorn_torch.csrc.variants [bwd_i] [correlation]
+    python3 -m unicorn_torch.csrc.variants [bwd_i] [bwd_j] [fwd_lse] [correlation]
 
 Builds the copies, one nvcc each in parallel, and times each twice with
 CUDA-graph replays, in a process of its own. The cut copies give wrong results;
@@ -15,6 +15,18 @@ bwd_i (csrc/correlation_train.cu) at (B, N, C, K) = (2, 16000, 128, 1):
     rest       both cut: the softmax, dS, dV, loads and barriers
     score_u2   the score loop unrolled by 2 (built: 1)
     de0_u1     the dE0 loop unrolled by 1 (built: 2)
+    no_loads   the ring filled once, then reused without loads
+
+bwd_j (the same file, the same shape):
+    as_built, no_scores, rest, no_loads as for bwd_i
+    no_de1     the dE1 product cut to 4 of the 64 source rows of a half
+
+fwd_lse (the same file, the same shape):
+    as_built, no_scores, no_loads, score_u2 as above
+    no_softmax the online softmax and P . v cut: the scores are only summed
+
+The score and dS products are helpers that the three training kernels
+share, so a copy cut there is cut in all three; each copy times one.
 
 correlation (csrc/correlation.cu, bf16 dots) at (1, 16000, 128, 1):
     as_built   the source as it is (checked against the plain version)
@@ -33,8 +45,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 from . import build
 
-SCORE_LOOP = "#pragma unroll 1\n      for (int c = 0; c < C; c += 4) {"
-DE0_LOOP = "#pragma unroll 2\n      for (int j = 0; j < TH; j += 4) {"
+SCORES = "void score_tile("
+SCORE_LOOP = "#pragma unroll 1\n  for (int c = 0; c < C; c += 4) {"
+DS_PRODUCT = "void ds_product("
+DS_LOOP = "#pragma unroll 2\n  for (int j = 0; j < TH; j += 4) {"
+LOAD_HALF = "  auto load_half = [&](int h) {\n"
+FWD_SOFTMAX = "      float tmax = NEG;\n"
 TMA_TILE = """        mbar_expect_tx(&full[s], L::E0_BYTES + K * BIT * 4);
         for (int ch = 0; ch < NCH; ++ch)"""
 SOFTMAX = """    const int s = t % STAGES;
@@ -42,25 +58,52 @@ SOFTMAX = """    const int s = t % STAGES;
 MMA = """      wgmma_m64n128k16(d, a_desc"""
 
 
-def _edit(src: str, anchor: str, **subs) -> str:
-    head, body = src.split(anchor, 1)
-    for old, new in subs.values():
+def _edit(src: str, *subs) -> str:
+    """src with each (anchor, old, new): the first `old` after `anchor`
+    replaced by `new`."""
+    for anchor, old, new in subs:
+        head, body = src.split(anchor, 1)
         assert old in body, f"moved: {old[:60]!r}"
-        body = body.replace(old, new)
-    return head + anchor + body
+        src = head + anchor + body.replace(old, new, 1)
+    return src
+
+
+CUT_SCORES = (SCORES, SCORE_LOOP, SCORE_LOOP.replace("c < C", "c < 4"))
+CUT_DS = (DS_PRODUCT, DS_LOOP, DS_LOOP.replace("j < TH", "j < 4"))
+
+
+def _no_loads(kernel: str):
+    return (kernel, LOAD_HALF, LOAD_HALF + "    if (h >= 2) return;\n")
 
 
 def _bwd_i_variants(src: str) -> dict[str, str]:
-    a = "bwd_i_kernel(const float*"
-    cut_s = (SCORE_LOOP, SCORE_LOOP.replace("c < C", "c < 4"))
-    cut_d = (DE0_LOOP, DE0_LOOP.replace("j < TH", "j < 4"))
-    return {"as_built": src, "no_scores": _edit(src, a, s=cut_s),
-            "no_de0": _edit(src, a, d=cut_d),
-            "rest": _edit(src, a, s=cut_s, d=cut_d),
-            "score_u2": _edit(src, a, s=(SCORE_LOOP, SCORE_LOOP.replace(
+    return {"as_built": src, "no_scores": _edit(src, CUT_SCORES),
+            "no_de0": _edit(src, CUT_DS),
+            "rest": _edit(src, CUT_SCORES, CUT_DS),
+            "score_u2": _edit(src, (SCORES, SCORE_LOOP, SCORE_LOOP.replace(
                 "unroll 1", "unroll 2"))),
-            "de0_u1": _edit(src, a, d=(DE0_LOOP, DE0_LOOP.replace(
-                "unroll 2", "unroll 1")))}
+            "de0_u1": _edit(src, (DS_PRODUCT, DS_LOOP, DS_LOOP.replace(
+                "unroll 2", "unroll 1"))),
+            "no_loads": _edit(src, _no_loads("bwd_i_kernel(const float*"))}
+
+
+def _bwd_j_variants(src: str) -> dict[str, str]:
+    return {"as_built": src, "no_scores": _edit(src, CUT_SCORES),
+            "no_de1": _edit(src, CUT_DS),
+            "rest": _edit(src, CUT_SCORES, CUT_DS),
+            "no_loads": _edit(src, _no_loads("bwd_j_kernel(const float*"))}
+
+
+def _fwd_lse_variants(src: str) -> dict[str, str]:
+    a = "fwd_lse_kernel(const float*"
+    no_softmax = (a, FWD_SOFTMAX, "      if (N > 0) {\n#pragma unroll\n        "
+                  "for (int q = 0; q < RQ; ++q) acc[r] += p[r][q];\n        "
+                  "continue;\n      }\n" + FWD_SOFTMAX)
+    return {"as_built": src, "no_scores": _edit(src, CUT_SCORES),
+            "no_softmax": _edit(src, no_softmax),
+            "no_loads": _edit(src, _no_loads(a)),
+            "score_u2": _edit(src, (SCORES, SCORE_LOOP, SCORE_LOOP.replace(
+                "unroll 1", "unroll 2")))}
 
 
 def _correlation_variants(src: str) -> dict[str, str]:
@@ -70,9 +113,9 @@ def _correlation_variants(src: str) -> dict[str, str]:
     no_softmax = (SOFTMAX, SOFTMAX + "\n    if (N > 0) { __syncwarp(); if "
                   "(lane == 0) mbar_arrive(&empty[s]); return; }")
     no_mma = (MMA, "      if (N < 0) " + MMA.lstrip())
-    return {"as_built": src, "no_loads": _edit(src, a, x=no_loads),
-            "no_softmax": _edit(src, a, x=no_softmax),
-            "no_mma": _edit(src, a, x=no_mma)}
+    return {"as_built": src, "no_loads": _edit(src, (a, *no_loads)),
+            "no_softmax": _edit(src, (a, *no_softmax)),
+            "no_mma": _edit(src, (a, *no_mma))}
 
 
 def _compile(args):
@@ -126,7 +169,7 @@ def _setup(kernel):
     g = torch.Generator(device="cuda").manual_seed(5)
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    if kernel == "bwd_i":
+    if kernel in ("bwd_i", "bwd_j", "fwd_lse"):
         B, N, C, K = 2, 16000, 128, 1
         e0, e1 = (0.3 * torch.randn(B, N, C, device="cuda", generator=g)
                   for _ in range(2))
@@ -134,16 +177,27 @@ def _setup(kernel):
         dout = torch.randn(B, K, N, device="cuda", generator=g)
         out, lse = ck.correlation_fwd_lse_plain(e0, e1, v)
         c = (out * dout).sum(1, keepdim=True)
-        ref, _ = ck.correlation_bwd_i_plain(e0, e1, v, lse, dout, c)
-        de0, dv = torch.empty_like(e0), torch.empty_like(v)
-        args = (e0, e1, v, lse, dout, c, de0, dv)   # kept alive by make
+        if kernel == "fwd_lse":
+            res, ref = torch.empty_like(out), out
+            args = (e0, e1, v, res, torch.empty_like(lse))
+            variants_of, mark = _fwd_lse_variants, "fwd_lse_kernelILi1EE"
+        elif kernel == "bwd_i":
+            ref, _ = ck.correlation_bwd_i_plain(e0, e1, v, lse, dout, c)
+            res = torch.empty_like(e0)
+            args = (e0, e1, v, lse, dout, c, res, torch.empty_like(v))
+            variants_of, mark = _bwd_i_variants, "bwd_i_kernelILi1ELi2E"
+        else:
+            ref = ck.correlation_bwd_j_plain(e0, e1, v, lse, dout, c)
+            res = torch.empty_like(e1)
+            args = (e0, e1, v, lse, dout, c, res)
+            variants_of, mark = _bwd_j_variants, "bwd_j_kernelILi1ELi2E"
 
-        def make(fn):
+        def make(fn):     # args are kept alive by this closure
             return (lambda: fn(*(t.data_ptr() for t in args), B, N, C, K,
-                               stream())), de0, ref
-        return ("correlation_train.cu", _bwd_i_variants,
-                "bwd_i_kernelILi1ELi2E", "correlation_bwd_i",
-                [ptr] * 8 + [i32] * 4 + [ptr], make)
+                               stream())), res, ref
+        return ("correlation_train.cu", variants_of, mark,
+                f"correlation_{kernel}", [ptr] * len(args) + [i32] * 4 + [ptr],
+                make)
     B, N, C, K = 1, 16000, 128, 1
     e0, e1 = (0.3 * torch.randn(B, N, C, device="cuda", generator=g)
               for _ in range(2))

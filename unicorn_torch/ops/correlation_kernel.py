@@ -28,6 +28,15 @@ Training goes through `correlation_propagate_train`, the port of
 
 Each has a plain streaming PyTorch version of the same signature beside it
 (`*_plain`), which the tests and chip_smoke.py hold it against.
+
+The kernels take at most K_MAX label maps and C a multiple of 16 (serving)
+or 4 (training). Like the JAX wrappers, the entry points take any K and C up
+to C_MAX / C_MAX_TRAIN: the embeddings are zero-padded to the kernel's
+multiple of channels (zero channels leave every score unchanged) and the
+label maps go in groups of at most K_MAX, one kernel call a group
+(`propagate_grouped`, `fwd_lse_grouped`, `bwd_grouped`, which take the
+per-group op as an argument, so that the tests run them on the plain
+versions).
 """
 from __future__ import annotations
 
@@ -35,12 +44,13 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from torch.autograd.function import once_differentiable
 
 from .correlation import correlation_propagate
 
-K_MAX = 16      # label maps per call (1 for SOT; the object count for VOS)
+K_MAX = 16      # label maps per kernel call (1 for SOT; objects for VOS)
 C_MAX = 192     # embedding width the kernel's shared-memory tiles allow
 C_MAX_TRAIN = 128   # embedding width of the training kernels' register tiles
 
@@ -138,10 +148,31 @@ def _check_k(fn: str, K: int) -> None:
                          f"{K_MAX}")
 
 
+def _pad_channels(e, multiple: int):
+    """e (B,N,C) zero-padded to a multiple of `multiple` channels."""
+    pad = -e.shape[2] % multiple
+    return F.pad(e, (0, pad)) if pad else e
+
+
+def _cat_k(outs):
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def propagate_grouped(op, e0, e1, v, group: int = K_MAX):
+    """op(e0, e1, v_g) -> (B, K_g, N) on e0, e1 zero-padded to a multiple of
+    16 channels, once for each group of at most `group` label maps. Each
+    group's output is an exact slice of the whole, so the outputs are
+    concatenated along K."""
+    e0, e1 = _pad_channels(e0, 16), _pad_channels(e1, 16)
+    return _cat_k([op(e0, e1, vg.contiguous())
+                   for vg in v.split(group, dim=1)])
+
+
 def correlation_propagate_cuda(e0, e1, v, bf16_dots: bool = True):
     """The CUDA kernel on PyTorch's current stream. e0, e1 (B,N,C) and v
-    (B,K,N): contiguous float32 CUDA tensors, any N >= 1, C a multiple of 16
-    up to C_MAX, K up to K_MAX. Returns (B,K,N) float32."""
+    (B,K,N): contiguous float32 CUDA tensors, any N >= 1, C up to C_MAX, any
+    K: one kernel call for each group of at most K_MAX label maps. Returns
+    (B,K,N) float32."""
     _check_shapes(e0, e1, v)
     _check_cuda("correlation_propagate_cuda", e0, e0=e0, e1=e1, v=v)
     if any(t.requires_grad for t in (e0, e1, v)) and torch.is_grad_enabled():
@@ -149,15 +180,17 @@ def correlation_propagate_cuda(e0, e1, v, bf16_dots: bool = True):
             "correlation_propagate_cuda is the serving kernel (bf16 dots, "
             "forward only); training goes through correlation_propagate_train")
     B, N, C = e0.shape
-    K = v.shape[1]
-    if C % 16 or not 0 < C <= C_MAX:
-        raise ValueError(f"correlation_propagate_cuda: C={C} must be a "
-                         f"multiple of 16, at most {C_MAX}")
-    _check_k("correlation_propagate_cuda", K)
-    out = torch.empty((B, K, N), dtype=torch.float32, device=e0.device)
-    if out.numel():
-        launch(e0, e1, v, out, bf16_dots)
-    return out
+    if not 0 < C <= C_MAX:
+        raise ValueError(f"correlation_propagate_cuda: C={C} channels; the "
+                         f"kernel takes 1 to {C_MAX}")
+
+    def one(a, b, vg):
+        out = torch.empty((B, vg.shape[1], N), dtype=torch.float32,
+                          device=a.device)
+        if out.numel():
+            launch(a, b, vg, out, bf16_dots)
+        return out
+    return propagate_grouped(one, e0, e1, v)
 
 
 def correlation_propagate_auto(e0, e1, v):
@@ -324,35 +357,82 @@ def correlation_bwd_j_cuda(e0, e1, v, lse, dout, c):
     return de1
 
 
+TRAIN_KERNELS = (correlation_fwd_lse_cuda, correlation_bwd_i_cuda,
+                 correlation_bwd_j_cuda)
+
+
+def fwd_lse_grouped(fwd, e0, e1, v, group: int = K_MAX):
+    """fwd(e0, e1, v_g) -> (out_g, lse) once for each group of at most
+    `group` label maps: out concatenated along K; lse does not depend on v,
+    so the first group's is kept."""
+    outs, lse = [], None
+    for vg in v.split(group, dim=1):
+        out, lse_g = fwd(e0, e1, vg.contiguous())
+        outs.append(out)
+        lse = lse_g if lse is None else lse
+    return _cat_k(outs), lse
+
+
+def bwd_grouped(bwd_i, bwd_j, e0, e1, v, out, lse, dout, group: int = K_MAX):
+    """(dE0, dE1, dV) from bwd_i and bwd_j, once for each group of at most
+    `group` label maps. dS = P (sum_k v_k dO_k - sum_k out_k dO_k) is linear
+    in the (v, dO, out) triples, so dE0 and dE1 are the sums of the groups'
+    gradients and dV is the groups' slices concatenated; each group takes
+    its own c_g = sum over k in g of out_k dO_k (the full c in every group
+    would subtract it once per group)."""
+    de0 = de1 = None
+    dvs = []
+    for vg, dg, og in zip(v.split(group, dim=1), dout.split(group, dim=1),
+                          out.split(group, dim=1)):
+        vg, dg = vg.contiguous(), dg.contiguous()
+        c = (og * dg).sum(dim=1, keepdim=True)
+        de0_g, dv = bwd_i(e0, e1, vg, lse, dg, c)
+        de1_g = bwd_j(e0, e1, vg, lse, dg, c)
+        de0 = de0_g if de0 is None else de0 + de0_g
+        de1 = de1_g if de1 is None else de1 + de1_g
+        dvs.append(dv)
+    return de0, de1, _cat_k(dvs)
+
+
 class _CorrelationTrain(torch.autograd.Function):
-    """forward = the fwd-lse kernel, saving (e0, e1, v, out, lse) as
-    `_corr_vjp_fwd` does; backward = c in plain torch, then the two backward
-    kernels (`_corr_vjp_bwd`)."""
+    """forward = the fwd-lse op over groups of label maps, on embeddings
+    zero-padded to a multiple of 4 channels, saving (e0, e1, v, out, lse) as
+    `_corr_vjp_fwd` does; backward = the two backward ops over the same
+    groups (`_corr_vjp_bwd`), the padded channels of dE0 and dE1 sliced off.
+    `ops` = (fwd_lse, bwd_i, bwd_j): the kernels, or the plain versions."""
 
     @staticmethod
-    def forward(ctx, e0, e1, v):
-        out, lse = correlation_fwd_lse_cuda(e0, e1, v)
-        ctx.save_for_backward(e0, e1, v, out, lse)
+    def forward(ctx, e0, e1, v, ops, group):
+        e0p, e1p = _pad_channels(e0, 4), _pad_channels(e1, 4)
+        out, lse = fwd_lse_grouped(ops[0], e0p, e1p, v, group)
+        ctx.save_for_backward(e0p, e1p, v, out, lse)
+        ctx.ops, ctx.group, ctx.channels = ops, group, e0.shape[2]
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dout):
         e0, e1, v, out, lse = ctx.saved_tensors
-        dout = dout.float().contiguous()
-        c = (out * dout).sum(dim=1, keepdim=True)
-        de0, dv = correlation_bwd_i_cuda(e0, e1, v, lse, dout, c)
-        de1 = correlation_bwd_j_cuda(e0, e1, v, lse, dout, c)
-        return de0, de1, dv
+        de0, de1, dv = bwd_grouped(*ctx.ops[1:], e0, e1, v, out, lse,
+                                   dout.float().contiguous(), ctx.group)
+        C = ctx.channels
+        return de0[..., :C], de1[..., :C], dv, None, None
+
+
+def propagate_train_grouped(e0, e1, v, ops=TRAIN_KERNELS, group: int = K_MAX):
+    """The training Function with per-group ops `ops` (fwd_lse, bwd_i,
+    bwd_j) over groups of at most `group` label maps."""
+    _check_shapes(e0, e1, v)
+    return _CorrelationTrain.apply(e0, e1, v, ops, group)
 
 
 def correlation_propagate_train(e0, e1, v):
     """Differentiable label propagation for training, fp32 throughout: on a
-    CUDA tensor the three training kernels (any N >= 1; an input they do not
-    take raises), on a CPU tensor the plain streaming version under ordinary
-    autograd."""
+    CUDA tensor the three training kernels (any N >= 1, any K, C up to
+    C_MAX_TRAIN; an input they do not take raises), on a CPU tensor the
+    plain streaming version under ordinary autograd."""
     if e0.is_cuda:
-        return _CorrelationTrain.apply(e0, e1, v)
+        return propagate_train_grouped(e0, e1, v)
     if e0.device.type != "cpu":
         raise ValueError(f"correlation_propagate_train: no kernel for device "
                          f"{e0.device}")
