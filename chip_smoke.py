@@ -9,8 +9,10 @@ Phases (each must pass, else the exit code is 1):
              correlation_train), in parallel
   kernels    each kernel against its plain PyTorch version at the main
              paths' shapes and at ragged ones (the correlation kernels also
-             at K = 17 and 33 label maps, one launch a group of 16), in
-             bf16 and fp32, with times
+             at K = 17 and 33 label maps, one launch a group of 16; dw7x7
+             and MSDA also at widths the wrapper zero-pads: C = 12, 20 and
+             D = 6), in bf16 and fp32, with times (dw7x7 per shape, with
+             the tiling its launcher picks)
              of kernel, plain version and the PyTorch library call that
              computes the same function, and the bound; the gradients of
              the dw7x7, fused-block and MSDA autograd Functions against
@@ -226,8 +228,10 @@ def kernels_dw7x7(report) -> bool:
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                bytes_ms=0.0, ops_ms=0.0)
     max_err = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    per_shape = []
     print("dw7x7  H x W x C     dtype  n  max|err|  tol      kernel_ms "
-          "plain_ms  conv2d_ms bound_ms bound_by")
+          "plain_ms  conv2d_ms bound_ms bound_by  tiling")
     for dtype in (torch.bfloat16, torch.float32):
         for (H, W, C), n in dw.PATH_SHAPES:
             x = torch.randn(1, H, W, C, device=dev, generator=g).to(dtype)
@@ -263,11 +267,22 @@ def kernels_dw7x7(report) -> bool:
             wl = taps.permute(2, 0, 1).unsqueeze(1).contiguous()
             t_l = graph_time_ms(
                 lambda: F.conv2d(xc, wl, bt, padding=3, groups=C))
+            pl = dw.plan(1, H, W, C)
+            blocks = pl["grid_x"] * pl["grid_y"] * pl["grid_z"]
+            lanes = H * W * C / (pl["grid_x"] * pl["columns"] * pl["strips"]
+                                 * pl["rows"] * pl["grid_z"] * pl["pairs"] * 2)
             print(f"       {H:3d}x{W:3d}x{C:<4d} {str(dtype)[6:]:8s} {n} "
                   f"{err:.2e}  {tol_desc:7s}  {t_k:.4f}    {t_p:.4f}   "
-                  f"{t_l:.4f}    {bound:.4f}   {bound_by}"
+                  f"{t_l:.4f}    {bound:.4f}   {bound_by:10s} "
+                  f"{pl['pairs']} pairs x {pl['columns']} cols x "
+                  f"{pl['rows']} rows, {blocks} blocks "
+                  f"({blocks / n_sm:.2f} per SM), lanes {lanes:.0%}"
                   f"{'' if good else '  FAIL'}")
             if dtype == torch.bfloat16:
+                per_shape.append(dict(shape=[H, W, C], launches=n, ms=t_k,
+                                      plain_ms=t_p, library_ms=t_l,
+                                      bound_ms=bound, blocks=blocks,
+                                      lanes=lanes))
                 tot["ms"] += n * t_k
                 tot["plain_ms"] += n * t_p
                 tot["library_ms"] += n * t_l
@@ -288,6 +303,27 @@ def kernels_dw7x7(report) -> bool:
         ok &= nbad == 0
     print(f"       the 7 shapes at B={WINDOW} (bf16, 1ulp+sum): "
           f"{'ok' if ok else 'FAIL'}")
+    # maps that end mid-tile and mid-strip, maps below the 7 x 7 reach, and
+    # widths that are no multiple of the 16-byte vector (zero-padded by the
+    # wrapper: one launch on the padded copy), in both dtypes
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, H, W, C in ((1, 13, 17, 40), (1, 5, 3, 16), (1, 1, 1, 8),
+                           (2, 13, 17, 12), (2, 13, 17, 20)):
+            x = torch.randn(B, H, W, C, device=dev, generator=g).to(dtype)
+            k = 0.1 * torch.randn(7, 7, C, device=dev, generator=g)
+            b = 0.1 * torch.randn(C, device=dev, generator=g)
+            n0 = dw.launches
+            yk = dw.dwconv7x7_cuda(x, k, b)
+            yp = dw.dwconv7x7_plain(x, k, b)
+            one = dw.launches == n0 + 1
+            if dtype == torch.bfloat16:
+                good = dw_beyond_tolerance_bf16(x, k, b, yk, yp) == 0
+            else:
+                good = (yk - yp).abs().max().item() <= 1e-4
+            good = good and one and tuple(yk.shape) == (B, H, W, C)
+            ok &= good
+            print(f"       {B}x{H}x{W}x{C} {str(dtype)[6:]}: "
+                  f"{'ok' if good else 'FAIL'}")
     print(f"dw7x7 per frame (bf16, 27 launches): kernel {tot['ms']:.4f} ms, "
           f"plain {tot['plain_ms']:.4f} ms, F.conv2d {tot['library_ms']:.4f} "
           f"ms, bound {tot['bound_ms']:.4f} ms")
@@ -299,7 +335,7 @@ def kernels_dw7x7(report) -> bool:
         ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
         bound_by=("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
                   else "operations"),
-        library_ms=tot["library_ms"])
+        library_ms=tot["library_ms"], per_shape=per_shape)
     return ok
 
 
@@ -519,14 +555,15 @@ def kernels_msda(report) -> bool:
     served = (1, 2, 50, 80, 8, 32, 8000, 4)
     window = (WINDOW,) + served[1:]           # a track_window chunk
     ragged = (2, 2, 13, 17, 3, 8, 29, 4)
+    padded = (2, 2, 13, 17, 3, 6, 29, 4)      # D zero-padded by the wrapper
     ok = True
     print("msda   mode     shape (B,L,H,W,M,D,Lq,P)          dtype    "
           "max|err|  kernel_ms plain_ms  grid_sample_ms bound_ms bound_by")
     for mode in ("factored", "direct"):
-        for shape in (served, window, ragged):
+        for shape in (served, window, ragged, padded):
             for dtype in (torch.bfloat16, torch.float32):
-                value, locs, attw = _msda_inputs(shape, dtype, g,
-                                                 shape is not ragged)
+                value, locs, attw = _msda_inputs(
+                    shape, dtype, g, shape in (served, window))
                 B, L, H, W, M, D, Lq, P = shape
                 yk = da.ms_deform_attn_cuda(value, locs, attw, mode)
                 yp = da.ms_deform_attn_plain(value, locs, attw, mode)
@@ -549,8 +586,12 @@ def kernels_msda(report) -> bool:
                 flops = 2 * B * Lq * M * L * P * 4 * D
                 bound, bound_by = roofline(nbytes, flops, bw, fp32_peak)
                 out = torch.empty_like(yk)
-                t_k = graph_time_ms(
-                    lambda: da.launch(value, locs, attw, out, mode))
+                if shape is padded:      # the pad, the launch, the slice
+                    t_k = graph_time_ms(lambda: da.ms_deform_attn_cuda(
+                        value, locs, attw, mode))
+                else:
+                    t_k = graph_time_ms(
+                        lambda: da.launch(value, locs, attw, out, mode))
                 t_p = graph_time_ms(
                     lambda: da.ms_deform_attn_plain(value, locs, attw, mode),
                     iters=5)
@@ -1708,21 +1749,30 @@ def _uni_loss_kwargs(exp):
 
 def phase_train_model(report):
     """One uni_loss_fn forward + backward of the full-width model on one
-    mixed batch (an SOT and a MOT sample) through the kernels, and again with
-    every wrapper pointed at its plain version. Compared: the total loss and
-    the gradient of every parameter, each leaf's largest difference as a
-    share of that leaf's largest magnitude. Bounds, set before the first
+    mixed batch (an SOT and a MOT sample) with every wrapper pointed at its
+    plain version, then through the kernels. Checked in the kernels' run:
+    each dw7x7 and MSDA call against its plain version on the same inputs,
+    at the kernels phase's tolerances. Compared: the total loss and the
+    gradient of every parameter, each leaf's largest difference as a share
+    of that leaf's largest magnitude. The kernels' run takes the SimOTA
+    assignment (which anchors are foreground, and their gt) that the plain
+    run made: the assignment is a discrete choice that a few fp32 ulps in
+    the interaction's output can flip for an anchor on its boundary (then
+    the fg count of a sample changes and leaves of a level with no other fg
+    anchor differ wholly), and no kernel tolerance bounds a flip. The
+    kernels' run without it is printed beside. Bounds, set before the first
     run: the bf16 trunk turns the kernels' one-ulp differences into about
-    1e-2 of a gradient leaf, and SimOTA may hand an anchor to another gt, so
-    the worst leaf may reach 0.1 and the loss 0.02 of its value; the median
-    leaf stays under 0.02. TF32 is off for both runs: with it the fp32
-    plain dw7x7 is no reference (worst leaf 0.15, median 0.04)."""
+    1e-2 of a gradient leaf, so the worst leaf may reach 0.1 and the loss
+    0.02 of its value; the median leaf stays under 0.02. TF32 is off for
+    every run: with it the fp32 plain dw7x7 is no reference (worst leaf
+    0.15, median 0.04)."""
     from unittest import mock
 
     import numpy as np
     import torch
 
     from unicorn_torch.core.train_step import uni_loss_fn
+    from unicorn_torch.losses import det as det_mod
     from unicorn_torch.losses import uni as uni_mod
     from unicorn_torch.models import blocks, interaction
     from unicorn_torch.ops import deform_attn as da
@@ -1742,20 +1792,63 @@ def phase_train_model(report):
         grads = {n: p.grad.clone() for n, p in model.named_parameters()}
         return total.item(), {k: v.item() for k, v in loss_dict.items()}, grads
 
+    assigned, beyond = [], []
+    simota = det_mod.simota_assign
+
+    def record(*args, **kwargs):
+        assigned.append(simota(*args, **kwargs))
+        return assigned[-1]
+
+    def checked_dw(x, k, b):
+        y = dw.dwconv7x7(x, k, b)
+        with torch.no_grad():
+            yp = dw.dwconv7x7_plain(x, k, b)
+            if x.dtype == torch.bfloat16:
+                nbad = dw_beyond_tolerance_bf16(x, k, b, y, yp)
+            else:
+                nbad = int(((y - yp).abs() > 1e-4).sum())
+        beyond.append(("dw7x7", tuple(x.shape), nbad))
+        return y
+
+    def checked_msda(v, l, a, method):
+        y = da.ms_deform_attn(v, l, a, method)
+        with torch.no_grad():
+            yp = da.ms_deform_attn_plain(v, l, a, "factored")
+            B, L, H, W, M, D = v.shape
+            mag = da.ms_deform_attn_plain(v.float().abs(), l, a.float(),
+                                          "direct")
+            tol = L * l.shape[4] * 4 * 2.0 ** -24 * mag + 1e-7
+            if v.dtype == torch.bfloat16:
+                tol = tol + bf16_ulp(torch.maximum(y.float().abs(),
+                                                   yp.float().abs()))
+            nbad = int(((y.float() - yp.float()).abs() > tol).sum())
+        beyond.append(("msda", tuple(v.shape), nbad))
+        return y
+
+    plain = (mock.patch.object(blocks, "dwconv7x7", dw.dwconv7x7_plain),
+             mock.patch.object(
+                 interaction, "ms_deform_attn",
+                 lambda v, l, a, method: da.ms_deform_attn_plain(
+                     v, l, a, "factored")),
+             mock.patch.object(uni_mod, "correlation_propagate_train",
+                               correlation_propagate))
     _reset_all_counts()
-    with tf32_off():
+    with tf32_off(), plain[0], plain[1], plain[2], \
+            mock.patch.object(det_mod, "simota_assign", record):
+        loss_p, dict_p, grads_p = run()
+    assert all(n == 0 for n in _all_counts().values()), \
+        "a plain version launched a kernel"
+    replay = iter(assigned)
+    with tf32_off(), \
+            mock.patch.object(det_mod, "simota_assign",
+                              lambda *a, **k: next(replay)), \
+            mock.patch.object(blocks, "dwconv7x7", checked_dw), \
+            mock.patch.object(interaction, "ms_deform_attn", checked_msda):
         loss_k, dict_k, grads_k = run()
     counts = _all_counts()
-    with tf32_off(), \
-            mock.patch.object(blocks, "dwconv7x7", dw.dwconv7x7_plain), \
-            mock.patch.object(
-                interaction, "ms_deform_attn",
-                lambda v, l, a, method: da.ms_deform_attn_plain(
-                    v, l, a, "factored")), \
-            mock.patch.object(uni_mod, "correlation_propagate_train",
-                              correlation_propagate):
-        loss_p, dict_p, grads_p = run()
-    assert _all_counts() == counts, "a plain version launched a kernel"
+    assert next(replay, None) is None, "the runs made other assignments"
+    with tf32_off():
+        loss_free, dict_free, _ = run()
     model.zero_grad(set_to_none=True)
 
     shares = {}
@@ -1767,16 +1860,25 @@ def phase_train_model(report):
     worst = max(shares, key=shares.get)
     median = float(np.median(list(shares.values())))
     d_loss = abs(loss_k - loss_p) / abs(loss_p)
+    nbad = sum(n for _, _, n in beyond)
     H, W = exp.input_size
     print(f"train model {H}x{W}, B={TRAIN_B} pairs, bf16 trunk + fp32 "
-          f"interaction, kernels vs plain: total_loss {loss_k:.5f} vs "
-          f"{loss_p:.5f} (rel {d_loss:.2e}, bound 0.02); {len(shares)} "
-          f"gradient leaves, worst {shares[worst]:.3e} of its max at "
-          f"{worst} (bound 0.1), median {median:.3e} (bound 0.02); "
+          f"interaction, kernels vs plain at the plain run's SimOTA "
+          f"assignment: total_loss {loss_k:.5f} vs {loss_p:.5f} (rel "
+          f"{d_loss:.2e}, bound 0.02); {len(shares)} gradient leaves, worst "
+          f"{shares[worst]:.3e} of its max at {worst} (bound 0.1), median "
+          f"{median:.3e} (bound 0.02); {len(beyond)} dw7x7 / MSDA calls "
+          f"against their plain versions, {nbad} elements beyond tolerance; "
           f"launches {counts}")
+    print(f"  kernels' run with its own assignment: total_loss "
+          f"{loss_free:.5f} (rel {abs(loss_free - loss_p) / abs(loss_p):.2e}"
+          f"), fg per sample {dict_free.get('num_fg_sot')} / "
+          f"{dict_free.get('num_fg_mot')} against the plain run's "
+          f"{dict_p.get('num_fg_sot')} / {dict_p.get('num_fg_mot')}")
     print("  loss dict (kernels): " + ", ".join(
         f"{k} {v:.4f}" for k, v in dict_k.items()))
     assert counts == TRAIN_LAUNCHES, counts
+    assert nbad == 0, [b for b in beyond if b[2]]
     assert np.isfinite(loss_k) and d_loss <= 0.02
     assert shares[worst] <= 0.1 and median <= 0.02
 

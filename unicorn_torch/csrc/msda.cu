@@ -28,14 +28,26 @@
 // the launch and the dependent loads' latency are larger than either.
 // chip_smoke.py recomputes the bound from the shapes it runs.
 //
-// Design (simple and right first). D is the contiguous axis of
-// (B,L,H,W,M,D), so a thread owns one 16-byte vector of channels (8 bf16 or
-// 4 fp32) of one (b, q, m): D/8 neighbouring threads read one 64-byte head
-// row of a cell together, and the whole warp writes a contiguous run of the
-// output. Each thread walks its L*P points, works out the four corner cells
-// and weights, and accumulates in fp32; the value maps (4 MB) stay in L2.
-// The threads of one (b, q, m) repeat the weight arithmetic, which is small
-// beside the loads.
+// Design. D is the contiguous axis of (B,L,H,W,M,D), so a head row of a
+// cell is D/8 (bf16) or D/4 (fp32) 16-byte vectors, and a team of that
+// many neighbouring lanes owns one (b, q, m): at D = 32 bf16 a warp is the 8
+// heads of one query, and a block of 256 threads is 8 neighbouring queries
+// (the served queries are the cells of both levels in raster order, so
+// their samples share L1 lines). A block works in two phases:
+//   1. one thread per (b, q, m, l, p) of the block loads the location and
+//      attention weight and computes the four corner cells and weights
+//      once, with the mode's roundings. A corner outside the map gets
+//      weight 0 and a clamped cell, as the plain version's `corner_taps`
+//      does (ops/deform_attn.py), so no load waits on a branch. Cells and
+//      weights go to shared memory as one int4 and one float4 per point,
+//      the block's queries contiguous (one row of points padded by one).
+//   2. each lane reads its (q, m)'s corners (a broadcast within the team)
+//      and issues the 8 corner loads of 2 points before their FMAs, in
+//      the order (l, p, corner) of the plain version's sum.
+// The split of the one-thread-per-vector design this replaces
+// (csrc/variants.py msda) showed it losing more to its 4-8 times repeated
+// weight arithmetic and the location loads in front of every corner than
+// to the gather itself.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,107 +58,156 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int PB = 2;                    // points per batch of corner loads
+constexpr int SMEM_MAX = 48 * 1024;      // phase 1's table, at most
 constexpr int MODE_FACTORED = 0;
 constexpr int MODE_DIRECT = 1;
 
-// one thread per (b, q, m, channel vector)
+// items: (b, q, m) per block; tpi: threads per item; istr = items + 1
 template <typename T, int MODE>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 4)
 msda_kernel(const T* __restrict__ value, const float* __restrict__ locs,
             const void* __restrict__ attw, int attw_bf16, T* __restrict__ out,
-            long long total, int L, int H, int W, int M, int D, int Lq,
-            int P) {
+            long long nitems, int L, int H, int W, int M, int D, int Lq,
+            int P, int items, int tpi) {
   constexpr int V = Vec<T>::N;
-  const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (idx >= total) return;
-  const int dv = D / V;
-  const int v = (int)(idx % dv);
-  const long long g = idx / dv;          // (b * Lq + q) * M + m
-  const int m = (int)(g % M);
-  const long long b = g / M / Lq;
-
-  float acc[V];
-#pragma unroll
-  for (int k = 0; k < V; ++k) acc[k] = 0.f;
-
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int LP = L * P;
+  const int istr = items + 1;
+  int4* cells = reinterpret_cast<int4*>(smem);               // [LP][istr]
+  float4* wts = reinterpret_cast<float4*>(smem) + LP * istr;  // [LP][istr]
+  const long long g0 = (long long)blockIdx.x * items;
+  const int nown = (int)min((long long)items, nitems - g0);
   const float fW = (float)W, fH = (float)H;
-  const long long cell = (long long)M * D;   // elements from one cell to the next
-  for (int l = 0; l < L; ++l) {
-    const T* vb = value + ((b * L + l) * H * W) * cell + (long long)m * D + v * V;
-    for (int p = 0; p < P; ++p) {
-      const long long t = (g * L + l) * P + p;
-      const float aw = attw_bf16
-          ? __bfloat162float(static_cast<const __nv_bfloat16*>(attw)[t])
-          : static_cast<const float*>(attw)[t];
-      const float2 loc = __ldg(reinterpret_cast<const float2*>(locs) + t);
-      // separate roundings, as the plain version's multiply and subtract
-      const float x = __fsub_rn(__fmul_rn(loc.x, fW), 0.5f);
-      const float y = __fsub_rn(__fmul_rn(loc.y, fH), 0.5f);
-      const float x0 = floorf(x), y0 = floorf(y);
-      const float lx = __fsub_rn(x, x0), ly = __fsub_rn(y, y0);
-      // float compares: a location far outside must not overflow an int
-      const bool inx[2] = {x0 >= 0.f && x0 < fW, x0 + 1.f >= 0.f && x0 + 1.f < fW};
-      const bool iny[2] = {y0 >= 0.f && y0 < fH, y0 + 1.f >= 0.f && y0 + 1.f < fH};
-      if (!((inx[0] || inx[1]) && (iny[0] || iny[1]))) continue;
-      const int ix = (int)x0, iy = (int)y0;   // in [-1, W-1] x [-1, H-1] here
 
-      float w[2][2];
-      if (MODE == MODE_FACTORED) {
-        const float fx = Vec<T>::round(lx), fy = Vec<T>::round(ly);
-        const float a = Vec<T>::round(aw);
-        const float wx[2] = {inx[0] ? Vec<T>::round(__fsub_rn(1.f, fx)) : 0.f,
-                             inx[1] ? fx : 0.f};
-        const float wy[2] = {
-            iny[0] ? Vec<T>::round(__fmul_rn(Vec<T>::round(__fsub_rn(1.f, fy)), a)) : 0.f,
-            iny[1] ? Vec<T>::round(__fmul_rn(fy, a)) : 0.f};
+  // phase 1: the corners of each (item, l, p), once
+  for (int e = threadIdx.x; e < nown * LP; e += blockDim.x) {
+    const int it = e / LP;
+    const int lp = e - it * LP;
+    const int l = lp / P;
+    const int slot = lp * istr + it;
+    const long long t = (g0 + it) * LP + lp;
+    const float aw = attw_bf16
+        ? __bfloat162float(static_cast<const __nv_bfloat16*>(attw)[t])
+        : static_cast<const float*>(attw)[t];
+    const float2 loc = __ldg(reinterpret_cast<const float2*>(locs) + t);
+    // separate roundings, as the plain version's multiply and subtract
+    const float x = __fsub_rn(__fmul_rn(loc.x, fW), 0.5f);
+    const float y = __fsub_rn(__fmul_rn(loc.y, fH), 0.5f);
+    const float x0 = floorf(x), y0 = floorf(y);
+    const float lx = __fsub_rn(x, x0), ly = __fsub_rn(y, y0);
+    // float compares and clamps: a location far outside must not overflow
+    const bool inx[2] = {x0 >= 0.f && x0 < fW, x0 + 1.f >= 0.f && x0 + 1.f < fW};
+    const bool iny[2] = {y0 >= 0.f && y0 < fH, y0 + 1.f >= 0.f && y0 + 1.f < fH};
+    int cx[2], cy[2];
 #pragma unroll
-        for (int dy = 0; dy < 2; ++dy)
-#pragma unroll
-          for (int dx = 0; dx < 2; ++dx)
-            w[dy][dx] = Vec<T>::round(__fmul_rn(wy[dy], wx[dx]));
-      } else {
-        const float tx[2] = {__fsub_rn(1.f, lx), lx};
-        const float ty[2] = {__fsub_rn(1.f, ly), ly};
-#pragma unroll
-        for (int dy = 0; dy < 2; ++dy)
-#pragma unroll
-          for (int dx = 0; dx < 2; ++dx)
-            w[dy][dx] = (inx[dx] && iny[dy])
-                ? Vec<T>::round(__fmul_rn(__fmul_rn(tx[dx], ty[dy]), aw))
-                : 0.f;
-      }
+    for (int d = 0; d < 2; ++d) {
+      cx[d] = (int)fminf(fmaxf(x0 + d, 0.f), fW - 1.f);
+      cy[d] = (int)fminf(fmaxf(y0 + d, 0.f), fH - 1.f);
+    }
+    float w[2][2];
+    if (MODE == MODE_FACTORED) {
+      const float fx = Vec<T>::round(lx), fy = Vec<T>::round(ly);
+      const float a = Vec<T>::round(aw);
+      const float wx[2] = {inx[0] ? Vec<T>::round(__fsub_rn(1.f, fx)) : 0.f,
+                           inx[1] ? fx : 0.f};
+      const float wy[2] = {
+          iny[0] ? Vec<T>::round(__fmul_rn(Vec<T>::round(__fsub_rn(1.f, fy)), a)) : 0.f,
+          iny[1] ? Vec<T>::round(__fmul_rn(fy, a)) : 0.f};
 #pragma unroll
       for (int dy = 0; dy < 2; ++dy)
 #pragma unroll
-        for (int dx = 0; dx < 2; ++dx) {
-          if (!(inx[dx] && iny[dy])) continue;
-          float val[V];
-          Vec<T>::unpack(__ldg(reinterpret_cast<const uint4*>(
-                             vb + ((long long)(iy + dy) * W + (ix + dx)) * cell)),
-                         val);
+        for (int dx = 0; dx < 2; ++dx)
+          w[dy][dx] = Vec<T>::round(__fmul_rn(wy[dy], wx[dx]));
+    } else {
+      const float tx[2] = {__fsub_rn(1.f, lx), lx};
+      const float ty[2] = {__fsub_rn(1.f, ly), ly};
 #pragma unroll
-          for (int k = 0; k < V; ++k) acc[k] = fmaf(w[dy][dx], val[k], acc[k]);
-        }
+      for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < 2; ++dx)
+          w[dy][dx] = (inx[dx] && iny[dy])
+              ? Vec<T>::round(__fmul_rn(__fmul_rn(tx[dx], ty[dy]), aw))
+              : 0.f;
     }
+    const int r0 = (l * H + cy[0]) * W, r1 = (l * H + cy[1]) * W;
+    cells[slot] = make_int4(r0 + cx[0], r0 + cx[1], r1 + cx[0], r1 + cx[1]);
+    wts[slot] = make_float4(w[0][0], w[0][1], w[1][0], w[1][1]);
   }
-  *reinterpret_cast<uint4*>(out + idx * V) = Vec<T>::pack(acc);
+  __syncthreads();
+
+  // phase 2: tpi lanes per item, each one 16-byte channel vector at a time
+  const int it = threadIdx.x / tpi;
+  if (it >= nown) return;
+  const long long gi = g0 + it;
+  const int m = (int)(gi % M);
+  const long long b = gi / M / Lq;
+  const int dv = D / V;
+  const long long cell = (long long)M * D;   // elements from one cell to the next
+  const T* vb = value + b * L * H * W * cell + (long long)m * D;
+  for (int v = threadIdx.x - it * tpi; v < dv; v += tpi) {
+    const T* vv = vb + v * V;
+    float acc[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) acc[k] = 0.f;
+    for (int lp0 = 0; lp0 < LP; lp0 += PB) {
+      uint4 q[PB][4];
+#pragma unroll
+      for (int j = 0; j < PB; ++j) {
+        if (lp0 + j < LP) {
+          const int4 c = cells[(lp0 + j) * istr + it];
+          q[j][0] = __ldg(reinterpret_cast<const uint4*>(vv + c.x * cell));
+          q[j][1] = __ldg(reinterpret_cast<const uint4*>(vv + c.y * cell));
+          q[j][2] = __ldg(reinterpret_cast<const uint4*>(vv + c.z * cell));
+          q[j][3] = __ldg(reinterpret_cast<const uint4*>(vv + c.w * cell));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < PB; ++j) {
+        if (lp0 + j < LP) {
+          const float4 wq = wts[(lp0 + j) * istr + it];
+          const float wc[4] = {wq.x, wq.y, wq.z, wq.w};
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            float val[V];
+            Vec<T>::unpack(q[j][n], val);
+#pragma unroll
+            for (int k = 0; k < V; ++k) acc[k] = fmaf(wc[n], val[k], acc[k]);
+          }
+        }
+      }
+    }
+    *reinterpret_cast<uint4*>(out + (gi * dv + v) * V) = Vec<T>::pack(acc);
+  }
 }
 
 template <typename T>
 int launch(const void* value, const float* locs, const void* attw,
            int attw_bf16, void* out, int B, int L, int H, int W, int M, int D,
            int Lq, int P, int mode, cudaStream_t s) {
-  const long long total = (long long)B * Lq * M * (D / Vec<T>::N);
-  const long long blocks = (total + THREADS - 1) / THREADS;
+  const long long nitems = (long long)B * Lq * M;
+  const int dv = D / Vec<T>::N;
+  const int tpi = dv < THREADS ? dv : THREADS;
+  const int LP = L * P;
+  // as many items as the threads hold, and phase 1's table fits
+  int items = THREADS / tpi;
+  const int fit = SMEM_MAX / (LP * 32) - 1;
+  if (fit < items) items = fit;
+  if (items <= 0 || (long long)B * L * H * W > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (nitems + items - 1) / items;
   if (blocks <= 0 || blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)LP * (items + 1) * 32;
   const T* v = static_cast<const T*>(value);
   T* o = static_cast<T*>(out);
   if (mode == MODE_FACTORED)
-    msda_kernel<T, MODE_FACTORED><<<(unsigned)blocks, THREADS, 0, s>>>(
-        v, locs, attw, attw_bf16, o, total, L, H, W, M, D, Lq, P);
+    msda_kernel<T, MODE_FACTORED><<<(unsigned)blocks, items * tpi, smem, s>>>(
+        v, locs, attw, attw_bf16, o, nitems, L, H, W, M, D, Lq, P, items,
+        tpi);
   else
-    msda_kernel<T, MODE_DIRECT><<<(unsigned)blocks, THREADS, 0, s>>>(
-        v, locs, attw, attw_bf16, o, total, L, H, W, M, D, Lq, P);
+    msda_kernel<T, MODE_DIRECT><<<(unsigned)blocks, items * tpi, smem, s>>>(
+        v, locs, attw, attw_bf16, o, nitems, L, H, W, M, D, Lq, P, items,
+        tpi);
   return (int)cudaGetLastError();
 }
 

@@ -1,12 +1,19 @@
-"""Time breakdowns of four kernels on the card, from edited copies of their
+"""Time breakdowns of six kernels on the card, from edited copies of their
 sources.
 
-    python3 -m unicorn_torch.csrc.variants [bwd_i] [bwd_j] [fwd_lse] [correlation]
+    python3 -m unicorn_torch.csrc.variants [--csrc DIR] [bwd_i] [bwd_j]
+        [fwd_lse] [correlation] [dw7x7] [msda]
+    python3 -m unicorn_torch.csrc.variants --sass dwconv7x7 msda
+
+--sass prints the instruction mix of each named source's kernels as built
+(cuobjdump): the most frequent opcodes and the FFMA share of the main loop.
 
 Builds the copies, one nvcc each in parallel, and times each twice with
 CUDA-graph replays, in a process of its own. The cut copies give wrong results;
 their times bound what each part costs. Each copy's registers and spills
-come from `nvcc -Xptxas -v`.
+come from `nvcc -Xptxas -v`. `--csrc DIR` takes the sources (and headers)
+from another checkout's csrc/ directory, e.g. an unpacked parent commit, so
+that one call splits both designs; the C interfaces must be the same.
 
 bwd_i (csrc/correlation_train.cu) at (B, N, C, K) = (2, 16000, 128, 1):
     as_built   the source as it is (checked against the plain version)
@@ -33,6 +40,24 @@ correlation (csrc/correlation.cu, bf16 dots) at (1, 16000, 128, 1):
     no_loads   the ring filled by TMA once, then reused without loads
     no_softmax the softmax cut: the products and the ring alone
     no_mma     the products cut: the softmax and the ring alone
+
+dw7x7 (csrc/dwconv7x7.cu), bf16, B = 1, at each of the seven shapes of an
+800x1280 frame (ops/dwconv7x7.py PATH_SHAPES), and their sum over the 27
+launches of a frame:
+    as_built   the source as it is (checked against the plain version)
+    no_loads   the ring's first two groups of rows loaded, then reused
+               (first design: the tile filled from registers, no loads)
+    no_unpack  no bf16 -> fp32 shifts: the words taken as fp32 (inputs, and
+               the taps the compiler keeps packed)
+    no_fma     the sum cut to one tap
+
+msda (csrc/msda.cu), factored mode, at the served shape (1, 2, 50, 80, 8,
+32, 8000, 4) in bf16 and in fp32:
+    as_built          the source as it is (checked against the plain version)
+    no_weights        fixed weights and no location arithmetic: the four
+                      cells around the query's own cell, a quarter each
+    no_gather         every corner read from one fixed cell
+    one_thread_per_qm one thread walks all channel vectors of a (b, q, m)
 """
 from __future__ import annotations
 
@@ -118,14 +143,114 @@ def _correlation_variants(src: str) -> dict[str, str]:
             "no_mma": _edit(src, (a, *no_mma))}
 
 
+DW_KERNEL = "dw7x7_nhwc_kernel(const T*"
+DW_LOAD = "  auto load_group = [&](int i0, int h) {\n"
+DW_NO_LOADS = (DW_KERNEL, DW_LOAD,
+               DW_LOAD + "    if (i0 >= 2 * GROUP) { cp_commit(); return; }\n")
+DW_NO_UNPACK = ("struct Two<__nv_bfloat16> {",
+                "v[0] = __uint_as_float(w << 16);\n"
+                "    v[1] = __uint_as_float(w & 0xffff0000u);",
+                "v[0] = __uint_as_float(w);\n    v[1] = __uint_as_float(w);")
+DW_NO_FMA = ((DW_KERNEL, "for (int dy = 0; dy < KS; ++dy) {\n          const int s",
+              "for (int dy = 0; dy < 1; ++dy) {\n          const int s"),
+             ("input row i feeds", "for (int dx = 0; dx < KS; ++dx)",
+              "for (int dx = 0; dx < 1; ++dx)"))
+MS_KERNEL = "msda_kernel(const T*"
+MS_SLOT = "    const int slot = lp * istr + it;\n"
+MS_NO_WEIGHTS = ((MS_KERNEL, MS_SLOT, MS_SLOT + """\
+    if (N_FIXED) {
+      const int c0 = (int)(((g0 + it) / M) % Lq) % (H * W);
+      const int cl = (l * H + min(c0 / W, H - 2)) * W + min(c0 % W, W - 2);
+      cells[slot] = make_int4(cl, cl + 1, cl + W, cl + W + 1);
+      wts[slot] = make_float4(0.25f, 0.25f, 0.25f, 0.25f);
+      continue;
+    }
+"""),)
+MS_NO_GATHER = ((MS_KERNEL, "const int4 c = cells[(lp0 + j) * istr + it];",
+                 "const int4 c = make_int4(0, 0, 0, 0);"),)
+MS_ONE_THREAD = (("int launch(", "const int tpi = dv < THREADS ? dv : THREADS;",
+                  "const int tpi = 1;"),)
+
+
+# dw7x7 and msda in their first designs (one tile per block; one thread per
+# channel vector), so that an older checkout splits the same way
+DW_OLD = "tile[SH][SW][CV]"
+DW_OLD_LOAD = ("dw7x7_nhwc_kernel(const T*", "      q = __ldg(",
+               "      q = make_uint4(gx, gy, gcv, 0x3f803f80u); (void)(")
+DW_OLD_UNPACK = ("dw7x7_nhwc_kernel(const T*",
+                 "Vec<T>::unpack(tile[r0 + i][col + dx][cv], v);",
+                 "{ const uint4 q_ = tile[r0 + i][col + dx][cv];\n"
+                 "        const uint32_t w_[4] = {q_.x, q_.y, q_.z, q_.w};\n"
+                 "        for (int k = 0; k < V; ++k) v[k] = "
+                 "__uint_as_float(w_[k % 4]); }")
+DW_OLD_FMA = (("dw7x7_nhwc_kernel(const T*", "for (int dx = 0; dx < KS; ++dx)",
+               "for (int dx = 0; dx < 1; ++dx)"),
+              ("dw7x7_nhwc_kernel(const T*", "if (dy >= 0 && dy < KS)",
+               "if (dy == 0)"))
+
+
+def _dw7x7_variants(src: str) -> dict[str, str]:
+    if DW_OLD in src:
+        return {"as_built": src, "no_loads": _edit(src, DW_OLD_LOAD),
+                "no_unpack": _edit(src, DW_OLD_UNPACK),
+                "no_fma": _edit(src, *DW_OLD_FMA)}
+    return {"as_built": src, "no_loads": _edit(src, DW_NO_LOADS),
+            "no_unpack": _edit(src, DW_NO_UNPACK),
+            "no_fma": _edit(src, *DW_NO_FMA)}
+
+
+MS_OLD = "one thread per (b, q, m, channel vector)"
+MS_OLD_P = "    for (int p = 0; p < P; ++p) {\n"
+MS_OLD_NO_WEIGHTS = ("msda_kernel(const T*", MS_OLD_P, MS_OLD_P + """\
+      if (N_FIXED) {
+        const int c0 = (int)((g / M) % Lq) % (H * W);
+        const int cy = min(c0 / W, H - 2), cx = min(c0 % W, W - 2);
+#pragma unroll
+        for (int k4 = 0; k4 < 4; ++k4) {
+          float val[V];
+          Vec<T>::unpack(__ldg(reinterpret_cast<const uint4*>(
+              vb + ((long long)(cy + k4 / 2) * W + cx + k4 % 2) * cell)), val);
+#pragma unroll
+          for (int k = 0; k < V; ++k) acc[k] = fmaf(0.25f, val[k], acc[k]);
+        }
+        continue;
+      }
+""")
+MS_OLD_NO_GATHER = ("msda_kernel(const T*",
+                    "vb + ((long long)(iy + dy) * W + (ix + dx)) * cell)", "vb)")
+MS_OLD_ONE_THREAD = (
+    ("msda_kernel(const T*", "const int v = (int)(idx % dv);\n"
+     "  const long long g = idx / dv;",
+     "const long long g = idx;\n  for (int v = 0; v < dv; ++v) {"),
+    ("msda_kernel(const T*", "  *reinterpret_cast<uint4*>(out + idx * V) = "
+     "Vec<T>::pack(acc);\n",
+     "  *reinterpret_cast<uint4*>(out + (g * dv + v) * V) = "
+     "Vec<T>::pack(acc);\n  }\n"),
+    ("int launch(", "const long long total = (long long)B * Lq * M * "
+     "(D / Vec<T>::N);", "const long long total = (long long)B * Lq * M;"))
+
+
+def _msda_variants(src: str) -> dict[str, str]:
+    fixed = "#define N_FIXED 1\n"
+    if MS_OLD in src:
+        return {"as_built": src,
+                "no_weights": fixed + _edit(src, MS_OLD_NO_WEIGHTS),
+                "no_gather": _edit(src, MS_OLD_NO_GATHER),
+                "one_thread_per_qm": _edit(src, *MS_OLD_ONE_THREAD)}
+    return {"as_built": src,
+            "no_weights": fixed + _edit(src, *MS_NO_WEIGHTS),
+            "no_gather": _edit(src, *MS_NO_GATHER),
+            "one_thread_per_qm": _edit(src, *MS_ONE_THREAD)}
+
+
 def _compile(args):
-    name, text, tmp, fn_mark = args
+    name, text, tmp, fn_mark, csrc = args
     path = os.path.join(tmp, f"{name}.cu")
     with open(path, "w") as f:
         f.write(text)
     so = os.path.join(tmp, f"{name}.so")
     proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I",
-                           build.CSRC, "-o", so, path],
+                           csrc, "-o", so, path],
                           capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
@@ -159,9 +284,63 @@ def _graph_ms(fn, iters=3, reps=5):
     return start.elapsed_time(end) / (reps * iters)
 
 
+def _setup_dw7x7(g, stream, ptr, i32):
+    import torch
+
+    from ..ops import dwconv7x7 as dw
+
+    inputs = []
+    for (H, W, C), n in dw.PATH_SHAPES:
+        x = torch.randn(1, H, W, C, device="cuda", generator=g).bfloat16()
+        k = (0.1 * torch.randn(7, 7, C, device="cuda", generator=g)).bfloat16()
+        b = (0.1 * torch.randn(C, device="cuda", generator=g)).bfloat16()
+        inputs.append((f"{H}x{W}x{C}", n, (x, k, b, torch.empty_like(x)),
+                       dw.dwconv7x7_plain(x, k, b)))
+
+    def make(fn):
+        return [(label, n, (lambda a=args: fn(
+            *(t.data_ptr() for t in a), *a[0].shape, 1, stream())),
+            args[3], ref, 2.0 ** -6) for label, n, args, ref in inputs]
+    return ("dwconv7x7.cu", _dw7x7_variants, "dw7x7_nhwc_kernelI13__nv_bf",
+            "dwconv7x7_nhwc", [ptr] * 4 + [i32] * 5 + [ptr], make)
+
+
+def _setup_msda(g, stream, ptr, i32):
+    import torch
+
+    from ..ops import deform_attn as da
+
+    B, L, H, W, M, D, Lq, P = 1, 2, 50, 80, 8, 32, 8000, 4
+    ys = (torch.arange(H, device="cuda") + 0.5) / H
+    xs = (torch.arange(W, device="cuda") + 0.5) / W
+    ref_pts = torch.stack([xs[None].expand(H, W), ys[:, None].expand(H, W)],
+                          -1).reshape(H * W, 2).repeat(L, 1)
+    off = 3.0 * torch.randn(B, Lq, M, L, P, 2, device="cuda", generator=g)
+    locs = (ref_pts[None, :, None, None, None] + off / torch.tensor(
+        [W, H], device="cuda")).contiguous()
+    attw = torch.softmax(torch.randn(B, Lq, M, L * P, device="cuda",
+                                     generator=g), -1).reshape(B, Lq, M, L, P)
+    value = torch.randn(B, L, H, W, M, D, device="cuda", generator=g)
+    inputs = []
+    for dt, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+        v, a = value.to(dt), attw.to(dt)
+        out = torch.empty((B, Lq, M * D), dtype=dt, device="cuda")
+        inputs.append((str(dt)[6:], code, (v, locs, a, out),
+                       da.ms_deform_attn_plain(v, locs, a, "factored")))
+
+    def make(fn):
+        return [(label, 1, (lambda a=args, c=code: fn(
+            *(t.data_ptr() for t in a), B, L, H, W, M, D, Lq, P, c, c, 0,
+            stream())), args[3], ref, 2.0 ** -6)
+            for label, code, args, ref in inputs]
+    return ("msda.cu", _msda_variants, "msda_kernelI13__nv_bfloat16Li0E",
+            "msda_forward", [ptr] * 4 + [i32] * 11 + [ptr], make)
+
+
 def _setup(kernel):
     """(source file, variants, ptxas mark, C function name, its argument
-    types, make(fn) -> (call, result, reference))."""
+    types, make(fn) -> [(label, launches a frame, call, result, reference,
+    relative tolerance of the source as built)])."""
     import torch
 
     from ..ops import correlation_kernel as ck
@@ -169,6 +348,10 @@ def _setup(kernel):
     g = torch.Generator(device="cuda").manual_seed(5)
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    if kernel == "dw7x7":
+        return _setup_dw7x7(g, stream, ptr, i32)
+    if kernel == "msda":
+        return _setup_msda(g, stream, ptr, i32)
     if kernel in ("bwd_i", "bwd_j", "fwd_lse"):
         B, N, C, K = 2, 16000, 128, 1
         e0, e1 = (0.3 * torch.randn(B, N, C, device="cuda", generator=g)
@@ -193,8 +376,8 @@ def _setup(kernel):
             variants_of, mark = _bwd_j_variants, "bwd_j_kernelILi1ELi2E"
 
         def make(fn):     # args are kept alive by this closure
-            return (lambda: fn(*(t.data_ptr() for t in args), B, N, C, K,
-                               stream())), res, ref
+            return [("", 1, lambda: fn(*(t.data_ptr() for t in args), B, N,
+                                       C, K, stream()), res, ref, 1e-4)]
         return ("correlation_train.cu", variants_of, mark,
                 f"correlation_{kernel}", [ptr] * len(args) + [i32] * 4 + [ptr],
                 make)
@@ -209,8 +392,8 @@ def _setup(kernel):
     args = (e0, e1, v, out, ws)
 
     def make(fn):
-        return (lambda: fn(*(t.data_ptr() for t in args), B, N, C, K, 1,
-                           stream())), out, ref
+        return [("", 1, lambda: fn(*(t.data_ptr() for t in args), B, N, C, K,
+                                   1, stream()), out, ref, 1e-4)]
     return ("correlation.cu", _correlation_variants,
             "corr_tc_kernelILi2ELi1E", "correlation_forward",
             [ptr] * 5 + [i32] * 5 + [ptr], make)
@@ -218,33 +401,44 @@ def _setup(kernel):
 
 def time_one(kernel: str, name: str, so: str) -> None:
     """Check and time one built copy (in a process of its own, so that a
-    cut copy that faults takes no other copy's numbers with it)."""
+    cut copy that faults takes no other copy's numbers with it). A kernel
+    with several cases prints each and, where launches a frame are given,
+    their sum over a frame."""
     import torch
 
     _, _, _, cname, argtypes, make = _setup(kernel)
     fn = getattr(ctypes.CDLL(so), cname)
     fn.argtypes = argtypes
-    call, res, ref = make(fn)
-    if call():
-        raise RuntimeError(f"{kernel} {name}: launch failed")
-    torch.cuda.synchronize()
-    rel = ((res - ref).abs().max() / ref.abs().max()).item()
-    if name == "as_built" and rel > 1e-4:
-        raise AssertionError("the source as built disagrees with plain")
-    ts = [_graph_ms(call) for _ in range(2)]
-    print(f"{kernel} {name:12s} vs plain {rel:.1e}  "
-          + " ".join(f"{t:.4f}" for t in ts) + " ms", flush=True)
+    cases = make(fn)
+    frame = [0.0, 0.0]
+    for label, n, call, res, ref, tol in cases:
+        if call():
+            raise RuntimeError(f"{kernel} {name} {label}: launch failed")
+        torch.cuda.synchronize()
+        rel = ((res.float() - ref.float()).abs().max()
+               / ref.float().abs().max()).item()
+        if name == "as_built" and rel > tol:
+            raise AssertionError(f"{label}: the source as built disagrees "
+                                 "with plain")
+        ts = [_graph_ms(call) for _ in range(2)]
+        frame = [f + n * t for f, t in zip(frame, ts)]
+        print(f"{kernel} {name:12s} {label:12s} vs plain {rel:.1e}  "
+              + " ".join(f"{t:.4f}" for t in ts) + " ms", flush=True)
+    if len(cases) > 1 and kernel == "dw7x7":
+        print(f"{kernel} {name:12s} {'per frame':12s} "
+              + " ".join(f"{t:.4f}" for t in frame) + " ms", flush=True)
 
 
-def run(kernel: str) -> None:
+def run(kernel: str, csrc: str = build.CSRC) -> None:
     fname, variants_of, mark, *_ = _setup(kernel)
-    with open(os.path.join(build.CSRC, fname)) as f:
+    with open(os.path.join(csrc, fname)) as f:
         variants = variants_of(f.read())
     os.makedirs(build.BUILD_DIR, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=f"{kernel}_variants_", dir=build.BUILD_DIR)
     with ThreadPoolExecutor(len(variants)) as ex:
-        built = list(ex.map(_compile, [(n, t, tmp, mark) for n, t in
+        built = list(ex.map(_compile, [(n, t, tmp, mark, csrc) for n, t in
                                        variants.items()]))
+    print(f"{kernel}: sources from {os.path.relpath(csrc)}", flush=True)
     for name, so, info in built:
         print(f"{kernel} {name:12s} {info}", flush=True)
     for name, so, _ in built:
@@ -256,22 +450,53 @@ def run(kernel: str) -> None:
               flush=True)
 
 
+def sass(name: str) -> None:
+    """The instruction mix of each kernel of csrc/<name>.cu as built: static
+    counts of the most frequent opcodes of each function, and the share of
+    FFMAs between its first and last FFMA (the unrolled main loop)."""
+    import collections
+    import re
+
+    lib = build._compile(name)
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    for fn in re.split(r"\n\s*Function : ", text)[1:]:
+        ops = [m.group(1).split(".")[0] for m in re.finditer(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", fn)]
+        ffma = [i for i, op in enumerate(ops) if op == "FFMA"]
+        loop = ops[ffma[0]:ffma[-1] + 1] if ffma else []
+        top = collections.Counter(ops).most_common(8)
+        print(f"{name} {fn.splitlines()[0][:100]}\n  {len(ops)} instructions, "
+              + ", ".join(f"{op} {n}" for op, n in top)
+              + (f"; main loop {len(loop)}, FFMA {len(ffma)} "
+                 f"({len(ffma) / len(loop):.0%})" if loop else ""), flush=True)
+
+
 def main(argv=None) -> int:
     import torch
 
-    args = argv if argv is not None else sys.argv[1:]
+    args = list(argv if argv is not None else sys.argv[1:])
     if not torch.cuda.is_available():
         print("variants: needs an NVIDIA card", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     if args[:1] == ["--time"]:
         time_one(*args[1:4])
         return 0
+    if args[:1] == ["--sass"]:
+        for name in args[1:]:
+            sass(name)
+        return 0
+    csrc = build.CSRC
+    if args[:1] == ["--csrc"]:
+        csrc, args = os.path.abspath(args[1]), args[2:]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     for k in args or ["bwd_i"]:
-        run(k)
+        run(k, csrc)
     return 0
 
 

@@ -42,6 +42,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from .dwconv7x7 import plain_backward
@@ -171,9 +172,11 @@ def launch(value, locs, attw, out, mode: str) -> None:
 
 def ms_deform_attn_cuda(value, locs, attw, mode: str = "factored"):
     """The CUDA kernel on PyTorch's current stream. value: contiguous
-    (B,L,H,W,M,D) CUDA tensor, float32 or bfloat16, D a multiple of the
-    16-byte vector (4 fp32, 8 bf16 channels); locs: contiguous float32;
-    attw: contiguous float32 or bfloat16. Autograd does not see this launch;
+    (B,L,H,W,M,D) CUDA tensor, float32 or bfloat16; locs: contiguous
+    float32; attw: contiguous float32 or bfloat16. The kernel reads 16-byte
+    channel vectors (4 fp32, 8 bf16 channels): any other D is zero-padded
+    to that multiple and sliced back (`pad_head_width`); a D that is a
+    multiple launches on value as it is. Autograd does not see this launch;
     `ms_deform_attn` wraps it in a Function."""
     if mode not in _MODE_CODE:
         raise ValueError(f"ms_deform_attn_cuda: unknown mode {mode!r}")
@@ -188,11 +191,27 @@ def ms_deform_attn_cuda(value, locs, attw, mode: str = "factored"):
     if value.dtype not in _DTYPE_CODE or attw.dtype not in _DTYPE_CODE:
         raise TypeError(f"ms_deform_attn_cuda: value {value.dtype} / weights "
                         f"{attw.dtype} must be float32 or bfloat16")
+    return pad_head_width(lambda v, l, a: _kernel(v, l, a, mode), value, locs,
+                          attw, _VEC[value.dtype])
+
+
+def pad_head_width(op, value, locs, attw, multiple: int):
+    """op(value, locs, attw) -> (B, Lq, M*D) with the head width D
+    zero-padded to a multiple of `multiple` and the padded channels sliced
+    off the output; op itself when D is a multiple already. Each channel
+    is sampled on its own, so the result is the unpadded op's."""
     D = value.shape[-1]
-    if D % _VEC[value.dtype]:
-        raise ValueError(f"ms_deform_attn_cuda: D={D} is not a multiple of "
-                         f"{_VEC[value.dtype]} for {value.dtype}")
+    pad = -D % multiple
+    if not pad:
+        return op(value, locs, attw)
+    out = op(F.pad(value, (0, pad)), locs, attw)
+    B, Lq = out.shape[:2]
+    return out.reshape(B, Lq, -1, D + pad)[..., :D].reshape(B, Lq, -1)
+
+
+def _kernel(value, locs, attw, mode):
     B, Lq, M = locs.shape[:3]
+    D = value.shape[-1]
     out = torch.empty((B, Lq, M * D), dtype=value.dtype, device=value.device)
     if value.data_ptr() % 16 or out.data_ptr() % 16 or locs.data_ptr() % 8:
         raise ValueError("ms_deform_attn_cuda: value and output rows are read "

@@ -73,11 +73,38 @@ def dwconv7x7_plain(x: torch.Tensor, kdw: torch.Tensor,
     return y.to(dt).permute(0, 2, 3, 1)
 
 
+def pad_channels(op, x: torch.Tensor, kdw: torch.Tensor, bias: torch.Tensor,
+                 multiple: int) -> torch.Tensor:
+    """op(x, kdw, bias) with C zero-padded to a multiple of `multiple` (zero
+    inputs, taps and bias in the padded channels) and the padded channels
+    sliced off the output; op itself when C is a multiple already. A
+    depthwise convolution keeps its channels apart, so the result is the
+    unpadded op's. (The JAX kernel pads C to 128, pallas_convnext.py:223.)"""
+    C = x.shape[-1]
+    pad = -C % multiple
+    if not pad:
+        return op(x, kdw, bias)
+    if kdw.dim() == 4:
+        kdw = kdw[:, :, 0, :]
+    y = op(F.pad(x, (0, pad)), F.pad(kdw, (0, pad)), F.pad(bias, (0, pad)))
+    return y[..., :C].contiguous()
+
+
+def _kernel(x: torch.Tensor, taps: torch.Tensor,
+            bias: torch.Tensor) -> torch.Tensor:
+    y = torch.empty_like(x)
+    launch(x, taps.to(x.device).contiguous(), bias.to(x.device).contiguous(),
+           y)
+    return y
+
+
 def dwconv7x7_cuda(x: torch.Tensor, kdw: torch.Tensor,
                    bias: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel on PyTorch's current stream. x must be a contiguous
-    (B,H,W,C) CUDA tensor of float32 or bfloat16 with C a multiple of the
-    16-byte vector (4 fp32, 8 bf16 channels)."""
+    (B,H,W,C) CUDA tensor of float32 or bfloat16. The kernel reads 16-byte
+    channel vectors (4 fp32, 8 bf16 channels): any other C is zero-padded
+    to that multiple and sliced back (one copy each way); a C that is a
+    multiple launches on x as it is."""
     if not x.is_cuda:
         raise ValueError("dwconv7x7_cuda: x is not a CUDA tensor")
     if x.dtype not in _DTYPE_CODE:
@@ -86,14 +113,8 @@ def dwconv7x7_cuda(x: torch.Tensor, kdw: torch.Tensor,
         raise ValueError("dwconv7x7_cuda: x must be a contiguous (B,H,W,C) "
                          f"tensor, got shape {tuple(x.shape)} strides "
                          f"{x.stride()}")
-    C = x.shape[-1]
-    if C % _VEC[x.dtype]:
-        raise ValueError(f"dwconv7x7_cuda: C={C} is not a multiple of "
-                         f"{_VEC[x.dtype]} for {x.dtype}")
-    kdw, bias = _taps_bias(kdw, bias, C, x.dtype)
-    y = torch.empty_like(x)
-    launch(x, kdw.to(x.device).contiguous(), bias.to(x.device).contiguous(), y)
-    return y
+    kdw, bias = _taps_bias(kdw, bias, x.shape[-1], x.dtype)
+    return pad_channels(_kernel, x, kdw, bias, _VEC[x.dtype])
 
 
 @functools.cache
@@ -105,9 +126,24 @@ def _lib() -> ctypes.CDLL:
     lib.dwconv7x7_nhwc.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                                    + [ctypes.c_void_p])
     lib.dwconv7x7_nhwc.restype = ctypes.c_int
+    lib.dwconv7x7_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.dwconv7x7_plan.restype = ctypes.c_int
     lib.dwconv7x7_error_string.argtypes = [ctypes.c_int]
     lib.dwconv7x7_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def plan(B: int, H: int, W: int, C: int) -> dict:
+    """The tiling the kernel's launcher picks for a (B,H,W,C) map on the
+    current card: channel pairs and columns per block, rows per strip,
+    strips per image and the grid."""
+    out = (ctypes.c_int * 7)()
+    err = _lib().dwconv7x7_plan(B, H, W, C, out)
+    if err:
+        raise ValueError(f"dwconv7x7 plan: no tiling for {(B, H, W, C)}")
+    keys = ("pairs", "columns", "rows", "strips", "grid_x", "grid_y",
+            "grid_z")
+    return dict(zip(keys, list(out)))
 
 
 def launch(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor,
