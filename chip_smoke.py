@@ -12,7 +12,9 @@ Phases (each must pass, else the exit code is 1):
              at K = 17 and 33 label maps, one launch a group of 16; dw7x7
              and MSDA also at widths the wrapper zero-pads: C = 12, 20 and
              D = 6), in bf16 and fp32, with times (dw7x7 per shape, with
-             the tiling its launcher picks)
+             the tiling its launcher picks; the fused block per shape, with
+             its plan, each kernel's time per launch and, at C <= 256, the
+             other route)
              of kernel, plain version and the PyTorch library call that
              computes the same function, and the bound; the gradients of
              the dw7x7, fused-block and MSDA autograd Functions against
@@ -62,6 +64,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -398,7 +401,9 @@ def kernels_convnext_block(report) -> bool:
     kernel, the plain version, the composition on library calls
     (F.conv2d(groups=C) + F.layer_norm + F.linear) and the ConvNeXtBlock
     module as served (dw7x7 kernel + F.layer_norm + F.linear), with erf GELU
-    as the model runs it."""
+    as the model runs it. Per served shape: the plan (`plan`), each
+    kernel's device time per launch (torch.profiler), and in bf16 at C <=
+    FUSED_MAX_C the route the plan did not pick, checked and timed."""
     import torch
     import torch.nn.functional as F
 
@@ -415,6 +420,8 @@ def kernels_convnext_block(report) -> bool:
     tot = {dt: dict.fromkeys(keys, 0.0)
            for dt in (torch.bfloat16, torch.float32)}
     max_err = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    per_shape = []
     print("block  B x H x W x C    dtype    n  max|err|  differ   kernel_ms "
           "plain_ms  library_ms served_ms bound_ms bound_by")
     shapes = [((1, H, W, C), n) for (H, W, C), n in dw.PATH_SHAPES]
@@ -457,10 +464,29 @@ def kernels_convnext_block(report) -> bool:
             t_ops = (16 * P * C * C / mm_peak + 98 * P * C / fp32_peak) * 1e3
             bound = max(t_bytes, t_ops)
             bound_by = "bytes" if t_bytes >= t_ops else "operations"
-            prepared, buffers = cb.prepare(x, p), cb.scratch(x)
+            pl = cb.device_plan(x)
+            prepared, buffers = cb.prepare(x, p), cb.scratch(x, pl)
             y = torch.empty_like(x)
             t_k = graph_time_ms(
-                lambda: cb.launch(x, prepared, buffers, y, True), iters=10)
+                lambda: cb.launch(x, prepared, buffers, y, True, pl), iters=10)
+            # the other route where the shape has one, checked and timed
+            other = {}
+            if dtype == torch.bfloat16 and C <= cb.FUSED_MAX_C:
+                alt = cb.device_plan(
+                    x, "split" if pl["route"] == "fused" else "fused")
+                buf_alt = cb.scratch(x, alt)
+                cb.launch(x, prepared, buf_alt, y, True, alt)
+                nbad, share, _ = cb_disagreement(
+                    x, p, True, y, cb.convnext_block_plain(x, p, True))
+                alt_ok = (nbad == 0 and share <= 0.02
+                          and bool(torch.isfinite(y.float()).all().item()))
+                ok &= alt_ok
+                good &= alt_ok
+                other[alt["route"]] = graph_time_ms(
+                    lambda: cb.launch(x, prepared, buf_alt, y, True, alt),
+                    iters=10)
+            split = kernel_split(
+                lambda: cb.launch(x, prepared, buffers, y, True, pl))
             t_p = graph_time_ms(
                 lambda: cb.convnext_block_plain(x, p, True), iters=3, reps=3)
             # the composition on library calls, in x.dtype
@@ -492,6 +518,23 @@ def kernels_convnext_block(report) -> bool:
                   f"{err:.2e}  {differ:.2e}  {t_k:.4f}    {t_p:.4f}   "
                   f"{t_l:.4f}     {t_s:.4f}    {bound:.4f}   {bound_by}"
                   f"{'' if good else '  FAIL'}")
+            blocks = [g[0] * g[1] for g in (pl["grid1"], pl["grid2"]) if g]
+            print(f"         plan: {pl['route']}, m1 {pl['m1']} n1 "
+                  f"{pl['n1']} stages {pl['stages1']}"
+                  + (f", p2 {pl['m2']} x {pl['n2']} stages {pl['stages2']}"
+                     if pl["route"] == "split" else "")
+                  + f", blocks {blocks} on {n_sm} SMs, smem "
+                  f"{pl['smem1']}/{pl['smem2']} B; per launch (profiler, "
+                  "ms): " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+                  + "".join(f"; {r} route {t:.4f} ms" for r, t in
+                            other.items()))
+            if dtype == torch.bfloat16:
+                per_shape.append(dict(
+                    shape=[B, H, W, C], launches=n, ms=t_k, plain_ms=t_p,
+                    library_ms=t_l, served_module_ms=t_s, bound_ms=bound,
+                    route=pl["route"], plan=list(pl["ints"]),
+                    kernel_ms=split,
+                    **{f"{r}_route_ms": t for r, t in other.items()}))
             for key, val in zip(keys, (t_k, t_p, t_l, t_s, bound, t_bytes,
                                        t_ops)):
                 tot[dtype][key] += n * val
@@ -508,8 +551,34 @@ def kernels_convnext_block(report) -> bool:
         launches=None, max_abs_err=max_err[torch.bfloat16], ms=t["ms"],
         plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
         bound_by="bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
-        library_ms=t["library_ms"], served_module_ms=t["served_ms"])
+        library_ms=t["library_ms"], served_module_ms=t["served_ms"],
+        fp32_ms=tot[torch.float32]["ms"],
+        fp32_served_module_ms=tot[torch.float32]["served_ms"],
+        fp32_bound_ms=tot[torch.float32]["bound_ms"], per_shape=per_shape)
     return ok
+
+
+def kernel_split(fn, calls: int = 10) -> dict:
+    """Device ms of each kernel one call of fn launches, by kernel name
+    (torch.profiler over `calls` eager calls)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            m = re.search(r"\w*kernel\w*", e.key)
+            name = m.group(0) if m else e.key[:40]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / (
+                calls * 1e3)
+    return out
 
 
 def _msda_inputs(shape, dtype, g, served):
@@ -1793,6 +1862,7 @@ def phase_train_model(report):
         return total.item(), {k: v.item() for k, v in loss_dict.items()}, grads
 
     assigned, beyond = [], []
+    dw_differ = [0, 0]         # dw7x7 outputs unequal to plain, of all
     simota = det_mod.simota_assign
 
     def record(*args, **kwargs):
@@ -1807,6 +1877,8 @@ def phase_train_model(report):
                 nbad = dw_beyond_tolerance_bf16(x, k, b, y, yp)
             else:
                 nbad = int(((y - yp).abs() > 1e-4).sum())
+            dw_differ[0] += int((y != yp).sum())
+            dw_differ[1] += y.numel()
         beyond.append(("dw7x7", tuple(x.shape), nbad))
         return y
 
@@ -1868,8 +1940,9 @@ def phase_train_model(report):
           f"{d_loss:.2e}, bound 0.02); {len(shares)} gradient leaves, worst "
           f"{shares[worst]:.3e} of its max at {worst} (bound 0.1), median "
           f"{median:.3e} (bound 0.02); {len(beyond)} dw7x7 / MSDA calls "
-          f"against their plain versions, {nbad} elements beyond tolerance; "
-          f"launches {counts}")
+          f"against their plain versions, {nbad} elements beyond tolerance "
+          f"(dw7x7: {dw_differ[0]} of {dw_differ[1]} outputs differ from "
+          f"the plain version at all); launches {counts}")
     print(f"  kernels' run with its own assignment: total_loss "
           f"{loss_free:.5f} (rel {abs(loss_free - loss_p) / abs(loss_p):.2e}"
           f"), fg per sample {dict_free.get('num_fg_sot')} / "
@@ -2051,7 +2124,8 @@ def phase_profile(report):
     _profile("mot", driver.update, frames[2:])
 
     # the streaming path, and the detector with its 27 blocks run as
-    # convnext_block calls (the fused block's four kernels by name)
+    # convnext_block calls (the block's kernels by name: the dw sums, the
+    # first product, and on the split route the second)
     import torch
     from unittest import mock
 
@@ -2072,7 +2146,8 @@ def phase_profile(report):
                            _fused_block_forward), torch.inference_mode():
         for f in on_card[:2]:
             pipe.detect(f)
-        _profile("detector with fused blocks", pipe.detect, on_card[2:])
+        _profile("detector with fused blocks", pipe.detect, on_card[2:],
+                 show=("dw7x7_nhwc_kernel", "mlp_kernel", "p2_kernel"))
 
     exp, model = _sot_model(report)
     sot = SOTDriver(model, input_size=exp.test_size, conf_thre=0.0,

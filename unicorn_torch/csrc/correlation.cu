@@ -71,24 +71,19 @@
 // tiles of 128 rows, each thread an 8 x 4 register tile of scores; four
 // threads per column run the online softmax over 32 rows each.
 
-#include <cuda.h>          // CUtensorMap and its enums; no driver call is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "tma_wgmma.cuh"   // mbarriers, TMA loads, wgmma, tensor maps
+
 namespace {
 
 constexpr int KMAX = 16;               // label maps per call
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int MAX_SMEM = 232448;       // 227 KB, the most a block may ask for
-constexpr int ENCODE_ERR = 10000;      // + CUresult: the tensor map was refused
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -171,87 +166,6 @@ __global__ void prep_kernel(const float* __restrict__ e0,
       vp[i] = n < N ? __ldg(v + bk * N + n) : 0.f;
     }
   }
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// returns once the phase of the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  }
-}
-
-// 2-D TMA load of one box (x = channel, y = row) into shared memory
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int x, int y, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x),
-         "r"(y), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// wgmma descriptor of a K-major tile with the 128-byte swizzle: rows of 128
-// bytes, 8-row groups 1024 bytes apart (SBO), the leading offset unused
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) |
-         (64ull << 32) | (1ull << 62);
-}
-
-// keep the compiler from moving accumulator reads across the async product
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// d (+)= A . B^T for A 64 x 16 and B 128 x 16, both K-major in shared memory
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // grid: x = tiles of BJT target rows, y = batch. NCH = Cp / 64 column
@@ -417,49 +331,6 @@ corr_tc_kernel(const __grid_constant__ CUtensorMap emb_map,
       }
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a row-major 2-D map of `rows` x `cols` elements, boxes of box_rows x
-// box_cols
-int make_map(CUtensorMap* map, CUtensorMapDataType type, size_t elem,
-             void* base, uint64_t rows, uint64_t cols, uint32_t box_rows,
-             uint32_t box_cols, CUtensorMapSwizzle swizzle) {
-  EncodeTiled enc = encode_tiled();
-  if (!enc) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * elem};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult r = enc(map, type, 2, base, dims, strides, box, step,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ENCODE_ERR + (int)r;
 }
 
 template <int NCH, int KT>

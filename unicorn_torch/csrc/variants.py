@@ -1,9 +1,16 @@
-"""Time breakdowns of six kernels on the card, from edited copies of their
+"""Time breakdowns of seven kernels on the card, from edited copies of their
 sources.
 
     python3 -m unicorn_torch.csrc.variants [--csrc DIR] [bwd_i] [bwd_j]
-        [fwd_lse] [correlation] [dw7x7] [msda]
-    python3 -m unicorn_torch.csrc.variants --sass dwconv7x7 msda
+        [fwd_lse] [correlation] [dw7x7] [msda] [convnext_block]
+    python3 -m unicorn_torch.csrc.variants --sass dwconv7x7 msda convnext_block
+    python3 -m unicorn_torch.csrc.variants --same DIR
+
+--same builds dwconv7x7_nhwc from DIR (another checkout's csrc/, e.g. a
+parent) and from this one and runs both on the same inputs: the seven
+shapes of a frame at B = 1 and 4, bf16 and fp32, taps drawn in fp32. It
+prints, per case, the outputs where the two differ and where this one
+differs from the plain version (cuDNN, TF32 off).
 
 --sass prints the instruction mix of each named source's kernels as built
 (cuobjdump): the most frequent opcodes and the FFMA share of the main loop.
@@ -50,6 +57,22 @@ launches of a frame:
     no_unpack  no bf16 -> fp32 shifts: the words taken as fp32 (inputs, and
                the taps the compiler keeps packed)
     no_fma     the sum cut to one tap
+
+convnext_block (csrc/convnext_block.cu), bf16, erf GELU, B = 1, at each of
+the seven shapes of a frame on the route its plan picks, and their sum over
+the 27 calls of a frame:
+    as_built    the source as it is (checked against the plain version)
+    no_ln       the A tile left as it is: no LayerNorm prologue
+    no_gelu     the GELU cut to the identity (b1 still added)
+    no_product2 the second product's wgmmas cut (its pieces still loaded)
+    no_loads    the ring filled by TMA once, then reused without loads
+    no_s        the first product's wgmmas cut
+    no_epilogue the second product's epilogue (and its stores) cut
+    ln_only     the first product's kernel ends after its LayerNorm
+    one_chunk   each block of the first product walks one hidden chunk
+The four-launch design before it (--csrc on an older checkout) splits as
+as_built, no_ln (the LayerNorm launch cut), no_gelu, no_product2 (the
+second product's launch cut).
 
 msda (csrc/msda.cu), factored mode, at the served shape (1, 2, 50, 80, 8,
 32, 8000, 4) in bf16 and in fp32:
@@ -243,6 +266,78 @@ def _msda_variants(src: str) -> dict[str, str]:
             "one_thread_per_qm": _edit(src, *MS_ONE_THREAD)}
 
 
+# convnext_block (csrc/convnext_block.cu): the redesign (plan, mlp_kernel,
+# p2_kernel) and the four-launch design before it
+CB_GELU = "__device__ __forceinline__ float gelu(float x) {\n"
+CB_NO_GELU = ("template <bool EXACT>\n", CB_GELU,
+              CB_GELU + "  if (x == x) return x;\n")
+CB_NO_LN = ("mlp_kernel(const __grid_constant__",
+            "  ln_tile<M, NV, R>(sums, ln_s, ln_b, As, m0, P, C, eps, tid / 32, "
+            "lane);\n", "")
+CB_NO_P2 = (("mlp_kernel(const __grid_constant__",
+             "          wgmma_m64n64k16_rs<32 * I>(",
+             "          if (C < 0) wgmma_m64n64k16_rs<32 * I>("),
+            ("mlp_kernel(const __grid_constant__",
+             "          wgmma_m64n32k16_rs<32 * (NJ / 2)>(",
+             "          if (C < 0) wgmma_m64n32k16_rs<32 * (NJ / 2)>("),
+            ("p2_kernel(const __grid_constant__",
+             "          wgmma_m64n64k16_ss<32 * I>(Y,",
+             "          if (C < 0) wgmma_m64n64k16_ss<32 * I>(Y,"))
+CB_PUT = "        const int s = t % stages;\n        mbar_wait(&empty[s]"
+CB_P2_PUT = "        mbar_expect_tx(&full[s], STAGE);\n"
+CB_NO_LOADS = (("mlp_kernel(const __grid_constant__", CB_PUT,
+                "        if (t >= stages) { mbar_wait(&empty[t % stages], "
+                "((t / stages) & 1) ^ 1); mbar_arrive(&full[t % stages]); ++t;"
+                " return; }\n" + CB_PUT),
+               ("p2_kernel(const __grid_constant__", CB_P2_PUT,
+                "        if (p >= stages) { mbar_arrive(&full[s]); continue; }"
+                "\n" + CB_P2_PUT))
+CB_MLP = "mlp_kernel(const __grid_constant__"
+CB_NO_S = ((CB_MLP, "        wgmma_m64n64k16_ss<0>(S,",
+            "        if (C < 0) wgmma_m64n64k16_ss<0>(S,"),)
+CB_NO_EPI = ((CB_MLP, "    residual_epilogue<NJ>(Y, Xs",
+              "    if (C < 0) residual_epilogue<NJ>(Y, Xs"),
+             ("p2_kernel(const __grid_constant__", "  residual_epilogue<2 * NB>(Y,",
+              "  if (C < 0) residual_epilogue<2 * NB>(Y,"))
+CB_LN_ONLY = ((CB_MLP, "    if (tid == CONS * WG) {", "    if (tid == CONS * WG && C < 0) {"),
+              (CB_MLP, "  wg_sync(1 + wg);\n", "  wg_sync(1 + wg);\n  if (C > 0) return;\n"))
+CB_ONE_CHUNK = ((CB_MLP, "  const int j1 = min(nch, j0 + chunks);",
+                 "  const int j1 = min(nch, j0 + 1);"),)
+CB_OLD = "layernorm_kernel<T><<<"
+CB_OLD_NO_LN = ("int launch_dw_ln(", "  layernorm_kernel<T><<<",
+                "  if (C < 0) layernorm_kernel<T><<<")
+CB_OLD_NO_P2 = ("int launch_products(", "    return launch_product_bf16<1, EXACT>(",
+                "    if (C > 0) return 0;\n    return launch_product_bf16<1, EXACT>(")
+
+
+def _convnext_block_variants(src: str) -> dict[str, str]:
+    if CB_OLD in src:
+        return {"as_built": src, "no_ln": _edit(src, CB_OLD_NO_LN),
+                "no_gelu": _edit(src, CB_NO_GELU),
+                "no_product2": _edit(src, CB_OLD_NO_P2)}
+    return {"as_built": src, "no_ln": _edit(src, CB_NO_LN),
+            "no_gelu": _edit(src, CB_NO_GELU),
+            "no_product2": _edit(src, *CB_NO_P2),
+            "no_loads": _edit(src, *CB_NO_LOADS),
+            "no_s": _edit(src, *CB_NO_S),
+            "no_epilogue": _edit(src, *CB_NO_EPI),
+            "ln_only": _edit(src, *CB_LN_ONLY),
+            "one_chunk": _edit(src, *CB_ONE_CHUNK)}
+
+
+def _inline_headers(src: str, csrc: str, names) -> str:
+    """src with each `#include "<name>"` replaced by that header of csrc,
+    so that edits reach a kernel kept in a header."""
+    for name in names:
+        path = os.path.join(csrc, name)
+        mark = f'#include "{name}"'
+        if mark in src and os.path.exists(path):
+            line = next(x for x in src.splitlines() if x.startswith(mark))
+            with open(path) as f:
+                src = src.replace(line, f.read())
+    return src
+
+
 def _compile(args):
     name, text, tmp, fn_mark, csrc = args
     path = os.path.join(tmp, f"{name}.cu")
@@ -337,7 +432,58 @@ def _setup_msda(g, stream, ptr, i32):
             "msda_forward", [ptr] * 4 + [i32] * 11 + [ptr], make)
 
 
-def _setup(kernel):
+def _setup_convnext_block(g, stream, ptr, i32, csrc):
+    import torch
+
+    from ..ops import convnext_block as cb
+    from ..ops import dwconv7x7 as dw
+
+    old = CB_OLD in open(os.path.join(csrc, "convnext_block.cu")).read()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    inputs = []
+    for (H, W, C), n in dw.PATH_SHAPES:
+        x = torch.randn(1, H, W, C, device="cuda", generator=g).bfloat16()
+        p = {"dwconv": {"weight": 0.1 * torch.randn(C, 1, 7, 7, device="cuda",
+                                                    generator=g),
+                        "bias": 0.1 * torch.randn(C, device="cuda", generator=g)},
+             "norm": {"weight": 1 + 0.1 * torch.randn(C, device="cuda",
+                                                      generator=g),
+                      "bias": 0.1 * torch.randn(C, device="cuda", generator=g)},
+             "pwconv1": {"weight": C ** -0.5 * torch.randn(
+                 4 * C, C, device="cuda", generator=g),
+                 "bias": 0.1 * torch.randn(4 * C, device="cuda", generator=g)},
+             "pwconv2": {"weight": (4 * C) ** -0.5 * torch.randn(
+                 C, 4 * C, device="cuda", generator=g),
+                 "bias": 0.1 * torch.randn(C, device="cuda", generator=g)},
+             "gamma": 0.5 + 0.1 * torch.randn(C, device="cuda", generator=g)}
+        prepared = cb.prepare(x, p)
+        y = torch.empty_like(x)
+        sums = torch.empty(x.shape, device="cuda", dtype=torch.float32)
+        hid = torch.empty(1, H, W, 4 * C, device="cuda", dtype=x.dtype)
+        if old:       # scratch acc, yn, h; no plan
+            args = (x, *prepared, sums, torch.empty_like(x), hid, y)
+            extra = ()
+        else:
+            pl = cb.plan(1, H, W, C, x.dtype, n_sm)
+            args = (x, *prepared, sums, hid, y)
+            extra = ((ctypes.c_int * len(cb.PLAN_KEYS))(*pl["ints"]),)
+        inputs.append((f"{H}x{W}x{C}", n, args, extra,
+                       cb.convnext_block_plain(x, p, True)))
+
+    def make(fn):
+        return [(label, n, (lambda a=args, e=extra: fn(
+            *(t.data_ptr() for t in a), *a[0].shape, 1, 1, 1e-6, *e,
+            stream())), args[-1], ref, 2.0 ** -6)
+            for label, n, args, extra, ref in inputs]
+    n_ptr = 14 if old else 13
+    return ("convnext_block.cu", _convnext_block_variants,
+            "mlp_kernelILi2ELi3ELb1E" if not old else "product_bf16_kernelILi1ELb1E",
+            "convnext_block_forward",
+            [ptr] * n_ptr + [i32] * 6 + [ctypes.c_float]
+            + ([] if old else [ptr]) + [ptr], make)
+
+
+def _setup(kernel, csrc=build.CSRC):
     """(source file, variants, ptxas mark, C function name, its argument
     types, make(fn) -> [(label, launches a frame, call, result, reference,
     relative tolerance of the source as built)])."""
@@ -352,6 +498,8 @@ def _setup(kernel):
         return _setup_dw7x7(g, stream, ptr, i32)
     if kernel == "msda":
         return _setup_msda(g, stream, ptr, i32)
+    if kernel == "convnext_block":
+        return _setup_convnext_block(g, stream, ptr, i32, csrc)
     if kernel in ("bwd_i", "bwd_j", "fwd_lse"):
         B, N, C, K = 2, 16000, 128, 1
         e0, e1 = (0.3 * torch.randn(B, N, C, device="cuda", generator=g)
@@ -399,14 +547,14 @@ def _setup(kernel):
             [ptr] * 5 + [i32] * 5 + [ptr], make)
 
 
-def time_one(kernel: str, name: str, so: str) -> None:
+def time_one(kernel: str, name: str, so: str, csrc: str = build.CSRC) -> None:
     """Check and time one built copy (in a process of its own, so that a
     cut copy that faults takes no other copy's numbers with it). A kernel
     with several cases prints each and, where launches a frame are given,
     their sum over a frame."""
     import torch
 
-    _, _, _, cname, argtypes, make = _setup(kernel)
+    _, _, _, cname, argtypes, make = _setup(kernel, csrc)
     fn = getattr(ctypes.CDLL(so), cname)
     fn.argtypes = argtypes
     cases = make(fn)
@@ -424,15 +572,16 @@ def time_one(kernel: str, name: str, so: str) -> None:
         frame = [f + n * t for f, t in zip(frame, ts)]
         print(f"{kernel} {name:12s} {label:12s} vs plain {rel:.1e}  "
               + " ".join(f"{t:.4f}" for t in ts) + " ms", flush=True)
-    if len(cases) > 1 and kernel == "dw7x7":
+    if len(cases) > 1 and kernel in ("dw7x7", "convnext_block"):
         print(f"{kernel} {name:12s} {'per frame':12s} "
               + " ".join(f"{t:.4f}" for t in frame) + " ms", flush=True)
 
 
 def run(kernel: str, csrc: str = build.CSRC) -> None:
-    fname, variants_of, mark, *_ = _setup(kernel)
+    fname, variants_of, mark, *_ = _setup(kernel, csrc)
     with open(os.path.join(csrc, fname)) as f:
-        variants = variants_of(f.read())
+        variants = variants_of(_inline_headers(f.read(), csrc,
+                                               ["dw7x7_strip.cuh"]))
     os.makedirs(build.BUILD_DIR, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=f"{kernel}_variants_", dir=build.BUILD_DIR)
     with ThreadPoolExecutor(len(variants)) as ex:
@@ -442,8 +591,9 @@ def run(kernel: str, csrc: str = build.CSRC) -> None:
     for name, so, info in built:
         print(f"{kernel} {name:12s} {info}", flush=True)
     for name, so, _ in built:
-        proc = subprocess.run([sys.executable, "-m", "unicorn_torch.csrc.variants", "--time",
-                               kernel, name, so], capture_output=True,
+        proc = subprocess.run([sys.executable, "-m",
+                               "unicorn_torch.csrc.variants", "--time",
+                               kernel, name, so, csrc], capture_output=True,
                               text=True)
         print(proc.stdout.strip() or
               f"{kernel} {name:12s} failed: {proc.stderr.strip()[-300:]}",
@@ -473,6 +623,57 @@ def sass(name: str) -> None:
                  f"({len(ffma) / len(loop):.0%})" if loop else ""), flush=True)
 
 
+def same(other: str) -> None:
+    """dwconv7x7_nhwc from the sources in `other` against this checkout's
+    (module docstring, --same)."""
+    import torch
+
+    from ..ops import dwconv7x7 as dw
+
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="dw7x7_same_", dir=build.BUILD_DIR)
+    jobs = []
+    for name, csrc in (("other", other), ("this", build.CSRC)):
+        with open(os.path.join(csrc, "dwconv7x7.cu")) as f:
+            jobs.append((name, f.read(), tmp, "dw7x7_nhwc_kernel", csrc))
+    with ThreadPoolExecutor(2) as ex:
+        fns = {}
+        for name, so, _ in ex.map(_compile, jobs):
+            fns[name] = ctypes.CDLL(so).dwconv7x7_nhwc
+            fns[name].argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                                  + [ctypes.c_void_p])
+    print(f"dw7x7 --same: {os.path.relpath(other)} against "
+          f"{os.path.relpath(build.CSRC)}", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    stream = torch.cuda.current_stream().cuda_stream
+    total = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for B in (1, 4):
+            for (H, W, C), _ in dw.PATH_SHAPES:
+                x = torch.randn(B, H, W, C, device="cuda",
+                                generator=g).to(dtype)
+                k = 0.1 * torch.randn(7, 7, C, device="cuda", generator=g)
+                b = 0.1 * torch.randn(C, device="cuda", generator=g)
+                kt, bt = k.to(dtype), b.to(dtype)
+                ys = {}
+                for name, fn in fns.items():
+                    ys[name] = torch.empty_like(x)
+                    if fn(x.data_ptr(), kt.data_ptr(), bt.data_ptr(),
+                          ys[name].data_ptr(), B, H, W, C,
+                          dw._DTYPE_CODE[dtype], stream):
+                        raise RuntimeError(f"dw7x7 {name}: launch failed")
+                yp = dw.dwconv7x7_plain(x, k, b)
+                n = int((ys["this"] != ys["other"]).sum())
+                total += n
+                print(f"dw7x7 {str(dtype)[6:]:8s} {B}x{H}x{W}x{C}: "
+                      f"{n} of {x.numel()} outputs differ from the other "
+                      f"sources; {int((ys['this'] != yp).sum())} differ "
+                      f"from plain, by at most "
+                      f"{(ys['this'].float() - yp.float()).abs().max():.3e}",
+                      flush=True)
+    print(f"dw7x7 --same: {total} outputs differ in all", flush=True)
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -483,11 +684,14 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args[:1] == ["--time"]:
-        time_one(*args[1:4])
+        time_one(*args[1:5])
         return 0
     if args[:1] == ["--sass"]:
         for name in args[1:]:
             sass(name)
+        return 0
+    if args[:1] == ["--same"]:
+        same(os.path.abspath(args[1]))
         return 0
     csrc = build.CSRC
     if args[:1] == ["--csrc"]:

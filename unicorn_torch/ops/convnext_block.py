@@ -65,7 +65,8 @@ LEAVES = (("dwconv", "weight"), ("dwconv", "bias"), ("norm", "weight"),
           ("pwconv2", "weight"), ("pwconv2", "bias"), ("gamma",))
 
 # op calls that launched the kernels since the count was last set to 0 (read
-# by chip_smoke.py); one call launches the four kernels of one block
+# by chip_smoke.py); one call launches the two (fused route) or three
+# (split route) kernels of one block
 launches = 0
 
 
@@ -174,6 +175,156 @@ def convnext_block_plain(x: torch.Tensor, p: dict, exact_gelu: bool = False,
     return (x.float() + y * gamma).to(dt)
 
 
+MAX_SMEM = 232448        # shared memory a block may take on the card
+PIECE_BYTES = 64 * 128   # a 64 x 64 bf16 weight piece (one TMA box)
+F_STAGES = 3             # fp32: cp.async slots of K chunks of 32
+# the plan's choices, in the order the C entry reads them
+PLAN_KEYS = ("route", "m1", "n1", "stages1", "m2", "n2", "stages2")
+# bf16, chosen from plan sweeps on the card (PERF.md §6): the widest C
+# the fused route takes (at C = 256 its 128 accumulator registers a thread
+# spill, and the split route is faster), the most ring stages of the first
+# product (4 to 16 time the same), and the ring stages of the split
+# route's second product (small blocks, several an SM)
+FUSED_MAX_C = 192
+MAX_STAGES = 8
+P2_STAGES = 4
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# Shared memory of a block, as the C entry sizes each launch from the plan
+# (csrc/convnext_block.cu mlp_smem, p2_smem, f32_smem): shown here so that
+# the plan can choose stages that fit and the CPU tests can hold it.
+def _mlp_smem(m: int, C: int, stages: int, fused: bool) -> int:
+    """bf16 first product: the A tile (ceil(C/64) chunks of m rows x 128
+    bytes) and on the fused route the residual tile beside it, the ring of
+    weight pieces and its two barriers a stage, the residual's barrier, and
+    the 1024-byte alignment of the swizzled tiles."""
+    return (1024 + (2 if fused else 1) * _cdiv(C, 64) * m * 128
+            + stages * (PIECE_BYTES + 16) + 16)
+
+
+def _p2_smem(m: int, n: int, stages: int) -> int:
+    """bf16 second product (split route): stages of m rows of h and n rows
+    of W2 (64 K columns each), two barriers a stage, the residual tile that
+    stages the output (m x n bf16) and its barrier."""
+    return (1024 + stages * ((m + n) * 128 + 16) + (m // 64) * n * 128
+            + 16)
+
+
+def _f32_smem(m: int, n: int, ln: bool) -> int:
+    """fp32 products: F_STAGES slots of (m + n) rows x 36 floats, and the
+    rows' mean and rstd for the first product."""
+    return F_STAGES * (m + n) * 36 * 4 + (2 * m * 4 if ln else 0)
+
+
+def plan(B: int, H: int, W: int, C: int, dtype, n_sm: int,
+         route: str | None = None, *, m1: int | None = None,
+         n1: int | None = None, m2: int | None = None,
+         n2: int | None = None, stages2: int | None = None,
+         waves: int = 1) -> dict:
+    """How the kernels run one block on x (B,H,W,C) of `dtype` on a card of
+    n_sm SMs, as the C entry takes it (`ints`, in the order PLAN_KEYS).
+
+    bf16: the "fused" route (C <= FUSED_MAX_C) keeps h on the chip: one
+    kernel of 128-pixel tiles walks all 4C hidden units, product 2's
+    accumulator (C/2 fp32 registers a thread) in registers. It is taken
+    where its ceil(P/128) blocks give every SM at least half a block's work;
+    else, and for wider C, the "split" route: product 1 writes h, on tiles
+    of m1 = 128 pixels (64 where 128 rows of A do not fit beside two ring
+    stages) x groups of hidden chunks of 64, as many groups as keep the grid
+    to `waves` waves of blocks (each group normalises its rows again), then
+    product 2 on blocks of 128 x 128 outputs where they fill the card, else
+    64 x 64. fp32 is always split: product 1's column tile n1 (128 or 64) is
+    the one that pads 4C least, 128 on a tie, with 128 rows where that
+    fills the card, else 64; product 2 takes 64 columns (8 x 4 register
+    tiles, two blocks an SM) and 128 rows where that gives every SM two
+    blocks, else 64.
+
+    `route` forces a route; m1, n1 (fp32), m2, n2 (fp32; bf16 blocks are
+    m2 x m2), stages2 (bf16) and waves override the plan's own choices (the
+    plan sweeps use them). Raises ValueError for a shape or plan no kernel
+    takes."""
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"convnext_block plan: dtype {dtype} not supported")
+    if min(B, H, W, C) <= 0 or C % _VEC[dtype]:
+        raise ValueError(f"convnext_block plan: no kernel for "
+                         f"{(B, H, W, C)} {dtype}")
+    if route not in (None, "fused", "split"):
+        raise ValueError(f"convnext_block plan: unknown route {route!r}")
+    P = B * H * W
+    nch = _cdiv(4 * C, 64)
+    if dtype == torch.float32:
+        if route == "fused":
+            raise ValueError("convnext_block plan: fp32 has no fused route")
+        if n1 is None:
+            n1 = 64 if _cdiv(4 * C, 64) * 64 < _cdiv(4 * C, 128) * 128 else 128
+        if m1 is None:
+            m1 = 128 if _cdiv(P, 128) * _cdiv(4 * C, n1) >= n_sm else 64
+        n2 = n2 or 64
+        if m2 is None:
+            m2 = 128 if _cdiv(P, 128) * _cdiv(C, n2) >= 2 * n_sm else 64
+        p = dict(route="split", m1=m1, n1=n1, stages1=F_STAGES, m2=m2,
+                 n2=n2, stages2=F_STAGES, smem1=_f32_smem(m1, n1, True),
+                 smem2=_f32_smem(m2, n2, False),
+                 grid1=(_cdiv(P, m1), _cdiv(4 * C, n1)),
+                 grid2=(_cdiv(P, m2), _cdiv(C, n2)), acc_regs=n2 // 2)
+    else:
+        if route is None:
+            route = ("fused" if C <= FUSED_MAX_C and 2 * _cdiv(P, 128) >= n_sm
+                     else "split")
+        if route == "fused":
+            if C > FUSED_MAX_C:
+                raise ValueError(f"convnext_block plan: the fused route "
+                                 f"takes C <= {FUSED_MAX_C}, got {C}")
+            stages = MAX_STAGES
+            while _mlp_smem(128, C, stages, True) > MAX_SMEM:
+                stages -= 1
+            p = dict(route="fused", m1=128, n1=64 * nch, stages1=stages,
+                     m2=0, n2=0, stages2=0,
+                     smem1=_mlp_smem(128, C, stages, True), smem2=0,
+                     grid1=(_cdiv(P, 128), 1), grid2=None,
+                     acc_regs=16 * _cdiv(C, 32) + 32 + 16)
+        else:
+            if m1 is None:
+                fits = [m for m in (128, 64)
+                        if _mlp_smem(m, C, 2, False) <= MAX_SMEM]
+                if not fits:
+                    raise ValueError(f"convnext_block plan: C={C} is too "
+                                     "wide for a 64-row A tile in shared "
+                                     "memory")
+                m1 = fits[0]
+            stages1 = MAX_STAGES
+            while stages1 > 2 and _mlp_smem(m1, C, stages1, False) > MAX_SMEM:
+                stages1 -= 1
+            # the most groups of hidden chunks that keep the first product
+            # to `waves` waves of blocks (each group normalises its rows
+            # again)
+            tiles = _cdiv(P, m1)
+            chunks = next((c for c in range(1, nch + 1)
+                           if tiles * _cdiv(nch, c) <= waves * n_sm), nch)
+            # 128 x 128 blocks where they fill the card, else 64 x 64
+            if m2 is None:
+                m2 = 128 if _cdiv(P, 128) * _cdiv(C, 128) >= n_sm else 64
+            stages2 = stages2 or P2_STAGES
+            p = dict(route="split", m1=m1, n1=64 * chunks, stages1=stages1,
+                     m2=m2, n2=m2, stages2=stages2,
+                     smem1=_mlp_smem(m1, C, stages1, False),
+                     smem2=_p2_smem(m2, m2, stages2),
+                     grid1=(tiles, _cdiv(nch, chunks)),
+                     grid2=(_cdiv(P, m2), _cdiv(C, m2)),
+                     acc_regs=max(32 + 16, m2 // 2))
+    if max(p["smem1"], p["smem2"]) > MAX_SMEM:
+        raise ValueError(f"convnext_block plan: {p['smem1']} / {p['smem2']} "
+                         f"bytes of shared memory exceed {MAX_SMEM}")
+    p["launches"] = 2 if p["route"] == "fused" else 3
+    p["ints"] = tuple(1 if k == "route" and p[k] == "split" else
+                      0 if k == "route" else p[k] for k in PLAN_KEYS)
+    return p
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
@@ -181,12 +332,23 @@ def _lib() -> ctypes.CDLL:
 
     lib = build.load("convnext_block")
     lib.convnext_block_forward.argtypes = (
-        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_float,
-                                                       ctypes.c_void_p])
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
     lib.convnext_block_forward.restype = ctypes.c_int
     lib.convnext_block_error_string.argtypes = [ctypes.c_int]
     lib.convnext_block_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _n_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_plan(x: torch.Tensor, route: str | None = None, **kw) -> dict:
+    """`plan` for x on its card."""
+    B, H, W, C = x.shape
+    return plan(B, H, W, C, x.dtype, _n_sm(x.device.index or 0), route, **kw)
 
 
 def prepare(x: torch.Tensor, p: dict):
@@ -207,44 +369,50 @@ def prepare(x: torch.Tensor, p: dict):
             f32(b1), rounded(w2), f32(b2), f32(gamma))
 
 
-def scratch(x: torch.Tensor):
-    """The kernel's scratch for x (B,H,W,C): the fp32 dw sums, yn and the 4C
-    wide hidden map."""
+def scratch(x: torch.Tensor, pl: dict):
+    """The kernels' scratch for x (B,H,W,C) under the plan pl: the fp32 dw
+    sums, and on the split route the 4C-wide hidden map (None on the fused
+    route, which keeps it on the chip)."""
     B, H, W, C = x.shape
-    return (torch.empty(B, H, W, C, device=x.device, dtype=torch.float32),
-            torch.empty_like(x),
-            torch.empty(B, H, W, 4 * C, device=x.device, dtype=x.dtype))
+    sums = torch.empty(B, H, W, C, device=x.device, dtype=torch.float32)
+    if pl["route"] == "fused":
+        return sums, None
+    return sums, torch.empty(B, H, W, 4 * C, device=x.device, dtype=x.dtype)
 
 
 def launch(x: torch.Tensor, prepared, buffers, y: torch.Tensor,
-           exact_gelu: bool, eps: float = 1e-6) -> None:
+           exact_gelu: bool, pl: dict, eps: float = 1e-6) -> None:
     """One block into y on PyTorch's current stream, on arguments from
-    `prepare` and `scratch`: x, y (B,H,W,C) contiguous CUDA tensors."""
+    `prepare` and `scratch` and the plan pl: x, y (B,H,W,C) contiguous CUDA
+    tensors. Raises if the C entry refuses the plan or a launch fails."""
     global launches
     tensors = (x, *prepared, *buffers, y)
     for t in tensors:
-        if t.data_ptr() % 16:
+        if t is not None and t.data_ptr() % 16:
             raise ValueError("convnext_block_cuda: tensors must be 16-byte "
                              "aligned")
     B, H, W, C = x.shape
     lib = _lib()
+    ints = (ctypes.c_int * len(PLAN_KEYS))(*pl["ints"])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.convnext_block_forward(
-        *(t.data_ptr() for t in tensors), B, H, W, C, _DTYPE_CODE[x.dtype],
-        int(bool(exact_gelu)), float(eps), stream)
+        *(None if t is None else t.data_ptr() for t in tensors), B, H, W, C,
+        _DTYPE_CODE[x.dtype], int(bool(exact_gelu)), float(eps), ints,
+        stream)
     if err:
         raise RuntimeError(
             f"convnext_block launch failed: {err} "
             f"({lib.convnext_block_error_string(err).decode()}) at "
-            f"{(B, H, W, C)} {x.dtype}")
+            f"{(B, H, W, C)} {x.dtype}, plan {pl['ints']}")
     launches += 1
 
 
 def convnext_block_cuda(x: torch.Tensor, p: dict, exact_gelu: bool = False,
                         eps: float = 1e-6) -> torch.Tensor:
-    """The CUDA kernels on PyTorch's current stream. x must be a contiguous
-    (B,H,W,C) CUDA tensor of float32 or bfloat16 with C a multiple of the
-    16-byte vector (4 fp32, 8 bf16 channels)."""
+    """The CUDA kernels on PyTorch's current stream, on the route `plan`
+    picks. x must be a contiguous (B,H,W,C) CUDA tensor of
+    float32 or bfloat16 with C a multiple of the 16-byte vector (4 fp32, 8
+    bf16 channels); a shape no plan takes raises."""
     if not x.is_cuda:
         raise ValueError("convnext_block_cuda: x is not a CUDA tensor")
     if x.dtype not in _DTYPE_CODE:
@@ -256,8 +424,9 @@ def convnext_block_cuda(x: torch.Tensor, p: dict, exact_gelu: bool = False,
     if x.shape[-1] % _VEC[x.dtype]:
         raise ValueError(f"convnext_block_cuda: C={x.shape[-1]} is not a "
                          f"multiple of {_VEC[x.dtype]} for {x.dtype}")
+    pl = device_plan(x)
     y = torch.empty_like(x)
-    launch(x, prepare(x, p), scratch(x), y, exact_gelu, eps)
+    launch(x, prepare(x, p), scratch(x, pl), y, exact_gelu, pl, eps)
     return y
 
 
