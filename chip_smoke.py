@@ -42,6 +42,15 @@ Phases (each must pass, else the exit code is 1):
              track_window of 8 frames (window 4), then 4 track calls with
              the MSDA kernel's direct mode; frames/s, per-stage ms, launch
              counts (27 dw7x7, 1 msda, 1 correlation per frame or chunk)
+  inst       instance segmentation (ExpDetMask.get_inst_forward on the
+             unicorn_inst_convnext_tiny_800x1280 YOLOXDet, bf16, 80
+             classes): one image through the dw7x7 kernel vs its plain
+             version (raw logits, controllers, mask features, masks); 3
+             warm-up and 16 timed 1080x1920 uint8 frames (device letterbox,
+             forward, decode + NMS, CondInst mask decode): frames/s,
+             per-stage ms, detections per frame, peak memory, 27 dw7x7
+             launches a frame; one frame of the unicorn_track_tiny_mask
+             Unicorn through forward_whole and forward_mask_branch
   train_model  the model as trained (bf16 trunk, fp32 interaction): one
              uni_loss_fn forward + backward on a mixed SOT/MOT batch through
              the kernels vs through their plain versions; loss and every
@@ -1736,6 +1745,204 @@ def phase_sot(report):
             and y + h <= H / r + 1e-3, (x, y, w, h)
 
 
+# ---------------------------------------------- instance segmentation
+INST_FRAMES = 16          # timed frames of the inst path
+INST_WARMUP = 3
+
+
+def _inst_model(report):
+    """The unicorn_inst_convnext_tiny_800x1280 YOLOXDet (ConvNeXt-Tiny, three
+    head attention blocks a level, 80 classes, bf16, the CondInst
+    controllers and mask branch) on the card, seeded random weights, with
+    the obj/cls prediction biases raised by 6 as _model raises them, so
+    that the NMS keeps rows and the mask decode has slots to fill."""
+    import torch
+
+    from unicorn_torch.exp.unicorn_inst_convnext_tiny_800x1280 import Exp
+
+    if "inst_model" not in report:
+        exp = Exp()
+        model = exp.get_model(torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            for name, p in model.head.named_parameters():
+                if name.startswith(("obj_preds.", "cls_preds.")) and \
+                        name.endswith(".bias"):
+                    p.add_(6.0)
+        report["inst_model"] = (exp, model.to(DEVICE).eval())
+    return report["inst_model"]
+
+
+def phase_inst(report):
+    """Instance segmentation: ExpDetMask.get_inst_forward on the inst
+    model. (1) One image through the dw7x7 kernel and through its plain
+    version. Tolerances, set before the first run: the raw outputs, the
+    controllers included, and the mask features within 5% of their largest
+    magnitude (phase model's bound); the masks (sigmoid scores) of the
+    slots whose anchor index agrees within 0.05, on at least half of the
+    slots. (2) INST_WARMUP + INST_FRAMES frames of 1080x1920 uint8:
+    letterbox on the card, forward, decode + NMS, mask decode; frames/s,
+    per-stage ms, detections per frame, peak memory, 27 dw7x7 launches a
+    frame. (3) One frame of the unicorn_track_tiny_mask Unicorn through
+    forward_whole and forward_mask_branch: shapes and finite values."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from unicorn_torch.exp.unicorn_track_tiny_mask import Exp as TrackMaskExp
+    from unicorn_torch.models import blocks
+    from unicorn_torch.ops import dwconv7x7 as dw
+
+    exp, model = _inst_model(report)
+    fwd = exp.get_inst_forward(model, device=DEVICE)
+    H, W = exp.test_size
+    rng = np.random.RandomState(0)
+    img = torch.from_numpy((rng.rand(1, H, W, 3) * 255).round().astype(
+        np.float32)).to(DEVICE).permute(0, 3, 1, 2)
+
+    def one(x):
+        raw, mask_out = fwd.forward(x)
+        flat, dets, valid, idx = fwd.detect(raw)
+        masks = fwd.masks(flat, idx, mask_out)
+        torch.cuda.synchronize()
+        return raw, mask_out[0], valid[0], idx[0], masks
+
+    n0 = dw.launches
+    out_k = one(img)
+    n_k = dw.launches - n0
+    with mock.patch.object(blocks, "dwconv7x7", dw.dwconv7x7_plain):
+        out_p = one(img)
+    assert dw.launches == n0 + n_k, "the plain version launched a kernel"
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+
+    d_raw = max(rel(lk[key], lp[key]) for lk, lp in zip(out_k[0], out_p[0])
+                for key in ("_cls_packed", "_reg_packed"))
+    d_ctrl = max(rel(lk["ctrl"], lp["ctrl"])
+                 for lk, lp in zip(out_k[0], out_p[0]))
+    d_feats = rel(out_k[1], out_p[1])
+    same = (out_k[3] == out_p[3]) & out_k[2] & out_p[2]
+    n_same = int(same.sum())
+    d_masks = ((out_k[4] - out_p[4]).abs()[same].max().item()
+               if n_same else float("inf"))
+    K = fwd.max_out
+    assert tuple(out_k[4].shape) == (K, H // 4, W // 4), out_k[4].shape
+    assert tuple(out_k[1].shape) == (1, 8, H // 8, W // 8)
+    assert all(lv["ctrl"].shape[1] == 169 for lv in out_k[0])
+    assert bool(torch.isfinite(out_k[4]).all())
+    print(f"inst image {H}x{W} bf16, 80 classes, kernel vs plain: raw logits"
+          f" max |d| / max|plain| {d_raw:.3e}, controllers {d_ctrl:.3e}, "
+          f"mask features {d_feats:.3e} (tol 0.05 each); masks of the "
+          f"{n_same} of {K} slots whose anchor agrees: max |d| "
+          f"{d_masks:.3e} (tol 0.05); valid slots {int(out_k[2].sum())}; "
+          f"dw7x7 launches {n_k}")
+    assert n_k == 27, n_k
+    assert max(d_raw, d_ctrl, d_feats) <= 0.05
+    assert n_same >= K // 2 and d_masks <= 0.05
+    del out_k, out_p
+
+    # the inst path over synthetic frames
+    frames = _sot_frames(INST_WARMUP + INST_FRAMES - 1, seed=5)
+
+    def path(f):
+        x, _ = fwd.preprocess(f, exp.test_size)
+        return fwd(x)
+
+    for f in frames[:INST_WARMUP]:
+        path(f)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
+    timed = frames[INST_WARMUP:]
+    dw.launches = 0
+    # a server holds one frame's outputs at a time: keep, per frame, only
+    # its detection count, a finiteness flag and the masks' range, reduced
+    # on the card, so that the peak counts no earlier frame's masks
+    kept = []
+    t0 = time.perf_counter()
+    for f in timed:
+        dets, valid, masks = path(f)
+        kept.append(torch.stack([
+            valid.sum().float(),
+            (torch.isfinite(dets).all() & torch.isfinite(masks).all()).float(),
+            masks.min(), masks.max()]))
+        del dets, valid, masks
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dw.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fh, fw = FRAME_HW
+    fps = INST_FRAMES / wall
+    print(f"inst path: {INST_FRAMES} frames {fh}x{fw} -> {exp.test_size}, "
+          f"{fps:.2f} frames/s ({wall / INST_FRAMES * 1e3:.2f} ms/frame); "
+          f"dw7x7 launches {launches} (27 x {INST_FRAMES} = "
+          f"{27 * INST_FRAMES}); peak memory {peak:.2f} GiB ({resident:.2f}"
+          f" GiB held before the first timed frame: the inst model and the "
+          f"earlier phases' models)")
+    report["inst_fps"] = fps
+    dwk = report.setdefault("kernels", {}).setdefault("dwconv7x7", {})
+    dwk.setdefault("launches_by_path", {})["inst"] = launches
+    dwk["launches"] = (dwk.get("launches") or 0) + launches
+
+    # per-stage times: the stages of one call, synchronised apart
+    stages = {"letterbox": [], "forward": [], "decode+nms": [],
+              "mask decode": []}
+    for f in timed:
+        t = [time.perf_counter()]
+
+        def lap():
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+
+        x, _ = fwd.preprocess(f, exp.test_size)
+        lap()
+        raw, mask_out = fwd.forward(x)
+        lap()
+        flat, dets, valid, idx = fwd.detect(raw)
+        lap()
+        fwd.masks(flat, idx, mask_out)
+        lap()
+        for k, name in enumerate(stages):
+            stages[name].append((t[k + 1] - t[k]) * 1e3)
+    kept = torch.stack(kept).cpu().numpy()
+    n_dets = kept[:, 0].astype(int)
+    print("inst per-stage ms (median of %d, synchronised): " % INST_FRAMES
+          + ", ".join(f"{k} {np.median(v):.3f}" for k, v in stages.items()))
+    print(f"inst dets/frame mean {np.mean(n_dets):.1f} (min {min(n_dets)}, "
+          f"max {max(n_dets)}); masks ({K}, {H // 4}, {W // 4}) in "
+          f"[{kept[:, 2].min():.3f}, {kept[:, 3].max():.3f}]")
+    assert launches == 27 * INST_FRAMES, launches
+    assert min(n_dets) > 0, "the inst path kept no detection"
+    assert kept[:, 1].all(), "the inst path gave a value that is not finite"
+    report.pop("inst_model")
+
+    # the mask stage's unified model: one frame through its mask branch
+    texp = TrackMaskExp()
+    uni = texp.get_model(torch.Generator().manual_seed(0), serve=True)
+    uni = uni.to(DEVICE).eval()
+    x, _ = fwd.preprocess(frames[0], texp.test_size)
+    n0 = dw.launches
+    with torch.inference_mode():
+        raw, feat_s16 = uni.forward_whole(x)
+        feats, up_mask, _ = uni.forward_mask_branch(
+            uni.forward_backbone(x)[0])
+        torch.cuda.synchronize()
+    n_u = dw.launches - n0
+    h8, w8 = texp.test_size[0] // 8, texp.test_size[1] // 8
+    print(f"unicorn_track_tiny_mask frame (forward_whole, then "
+          f"forward_mask_branch on the FPN maps): mask features "
+          f"{tuple(feats.shape)}, up-mask {tuple(up_mask.shape)}, "
+          f"controllers {tuple(raw[0]['ctrl'].shape)}; dw7x7 launches {n_u}")
+    assert tuple(feats.shape) == (1, 8, h8, w8), feats.shape
+    assert tuple(up_mask.shape) == (1, 9 * texp.up_rate ** 2, h8, w8)
+    assert tuple(raw[0]["ctrl"].shape) == (1, 169, h8, w8)
+    assert n_u == 27 + 18, n_u      # forward_whole, then the trunk again
+    for t in (feats, up_mask, raw[0]["ctrl"], feat_s16):
+        assert bool(torch.isfinite(t.float()).all())
+
+
 # -------------------------------------------------------- training phases
 TRAIN_B = 2               # image pairs per training batch
 TRAIN_LABELS = 100        # padded gt slots per frame (the JAX exp's max_labels)
@@ -2105,8 +2312,8 @@ def _profile(label, step, frames, show=()):
 
 def phase_profile(report):
     """torch.profiler over 4 frames each of the MOT path, the streaming path,
-    the detector with fused blocks and the SOT path, and 4 training steps.
-    Opt-in: --only profile."""
+    the detector with fused blocks, the SOT path, the inst path and its
+    mask decode alone, and 4 training steps. Opt-in: --only profile."""
     import numpy as np
 
     from unicorn_torch.drivers.mot import MOTDriver
@@ -2162,6 +2369,24 @@ def phase_profile(report):
           f"{counts['corr_tc_kernel']:.0f} corr_tc_kernel launches a frame, "
           "one op call")
 
+    # the inst path, and its mask decode alone (the stages after the NMS)
+    exp, model = _inst_model(report)
+    fwd = exp.get_inst_forward(model, device=DEVICE)
+
+    def inst(f):
+        return fwd(fwd.preprocess(f, exp.test_size)[0])
+
+    for f in frames[:2]:
+        inst(f)
+    _profile("inst", inst, frames[2:], show=("dw7x7",))
+    decoded = []
+    for f in frames[2:]:
+        raw, mask_out = fwd.forward(fwd.preprocess(f, exp.test_size)[0])
+        flat, _, _, idx = fwd.detect(raw)
+        decoded.append((flat, idx, mask_out))
+    _profile("inst mask decode", lambda d: fwd.masks(*d), decoded)
+    report.pop("inst_model")
+
     from unicorn_torch.core.train_state import TrainState
 
     exp, model = _train_model(report)
@@ -2187,12 +2412,14 @@ PHASES = {
     "stream": phase_stream,
     "sot_model": phase_sot_model,
     "sot": phase_sot,
+    "inst": phase_inst,
     "train_model": phase_train_model,
     "train": phase_train,
     "profile": phase_profile,
 }
 DEFAULT_PHASES = ("build", "kernels", "model", "main", "block_model",
-                  "stream", "sot_model", "sot", "train_model", "train")
+                  "stream", "sot_model", "sot", "inst", "train_model",
+                  "train")
 
 
 def main(argv=None) -> int:

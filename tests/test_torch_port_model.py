@@ -206,7 +206,8 @@ def test_postprocess_device_matches_jax(kw):
 
 def test_from_flax_reports_only_the_mask_branch():
     """A tree with the mask stack (shapes only, zeros for values): every
-    leaf converts except those under mask_branch, which are listed."""
+    leaf converts now, the mask branch and the controllers included, and
+    the port's model with the mask stack holds exactly those names."""
     jm = JUnicorn(**CFG, use_mask=True)
     shapes = jax.eval_shape(
         functools.partial(jm.init, method=JUnicorn.init_all),
@@ -214,20 +215,27 @@ def test_from_flax_reports_only_the_mask_branch():
     params = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
                                     shapes)
     state, not_ported = from_flax(params)
-    assert not_ported and all(p.startswith("mask_branch/")
-                              for p in not_ported)
-    assert len(state) + len(not_ported) == len(_flax_leaves(params))
+    assert not_ported == []
+    assert len(state) == len(_flax_leaves(params))
     assert "transformer.level_embed" in state
     assert "upsample_layer.3.bias" in state
+    assert "head.mask_branch.tower.4.weight" in state
+    assert "head.controllers.2.weight" in state
+    assert set(TUnicorn(**CFG, use_mask=True).state_dict()) == set(state)
 
 
 def test_constructor_fields_not_ported_raise():
-    for kw in (dict(use_mask=True), dict(interact_mode="conv"),
-               dict(interact_mode="full"), dict(use_raft=True),
-               dict(up_rate=4), dict(remat=True),
-               dict(backbone_name="csp_darknet")):
+    for kw in (dict(remat=True), dict(remat="dw"),
+               dict(backbone_name="swin_tiny"),
+               dict(backbone_name="resnet50")):
         with pytest.raises(NotImplementedError):
             TUnicorn(**{**CFG, **kw})
+    # the mask stack, the other interaction modes and CSPDarknet are
+    # ported now
+    m = TUnicorn(**CFG, use_mask=True, use_raft=True, up_rate=4,
+                 interact_mode="full")
+    assert m.head.mask_branch.up_mask_layer[2].out_channels == 9 * 16
+    assert type(m.transformer).__name__ == "FullAttentionInteraction"
     with pytest.raises(ValueError):
         TUnicorn(**CFG, interact_dtype=torch.float16)
     # the fields of this slice are taken

@@ -6,20 +6,27 @@ Plain tensor code is PyTorch; every Pallas kernel of the ported path is a
 hand-written CUDA kernel under `csrc/`, built with nvcc on first use.
 
 Ported so far (slice 1, MOT detect-and-track; slice 2, SOT; slice 3, the
-uni-stage training step):
-  models/   ConvNeXt-Tiny trunk, YOLO PAFPN, unified head, the deformable
-            interaction with its bottleneck, position embedding and
-            embedding upsample, `Unicorn`
-  ops/      kernel wrappers (dw7x7, deformable-attention sampling,
-            correlation label propagation for serving and for training),
-            correlation helpers, fixed-shape NMS, device letterbox
+uni-stage training step; slice 4, the fused block op and streaming MOT;
+slice 10, the JAX tests' CSPDarknet model and instance segmentation):
+  models/   ConvNeXt-Tiny and CSPDarknet trunks, YOLO PAFPN, unified head
+            (with the CondInst controllers), the "deform", "full" and
+            "conv" interactions with the bottleneck, position embedding and
+            embedding upsample, the CondInst mask branch, `Unicorn`,
+            `YOLOXDet`
+  ops/      kernel wrappers (dw7x7, fused ConvNeXt block,
+            deformable-attention sampling, correlation label propagation
+            for serving and for training), correlation helpers, the
+            dynamic mask convolution and its upsamplers, fixed-shape NMS,
+            device letterbox
   losses/   SimOTA + YOLOX losses, the unified SOT+MOT loss
   core/     schedules, TrainState (AdamW/SGD, accumulation, EMA), the det
             and uni train steps
-  tracker/  host ByteTrack (Kalman, Hungarian matching)
-  drivers/  `MOTDriver` (ByteTrack path), `SOTDriver`
-  exp/      `ExpTrack` model/training/test fields and training factories,
-            `unicorn_track_tiny`
+  tracker/  host ByteTrack (Kalman, Hungarian matching), device ByteTrack
+  drivers/  `MOTDriver` (ByteTrack path), `SOTDriver`,
+            `StreamingMOTPipeline`, `make_inst_forward`
+  exp/      `ExpTrack`, `ExpTrackMask`, `ExpDet`, `ExpDetMask` and the
+            copies of unicorn_track_tiny, unicorn_track_tiny_mask and
+            unicorn_inst_convnext_tiny_800x1280
   convert   flax param tree <-> reference-named state_dict
 """
 

@@ -12,8 +12,13 @@ its torch regex a template, and each transform is undone:
   flax Dense       (I, O)         -> torch (O, I)
   head beta        (C,)           -> torch (1, C, 1, 1)
 
-Leaves of modules the port does not have yet (the mask branch) are returned
-in a list, never dropped.
+The tool has no rules for the CSPDarknet backbone or for the "conv" and
+"full" interaction modes; this table adds them under the reference's torch
+names (YOLOX darknet.py `stem`, `dark2`...`dark5`; Conv_Inter `conv1`,
+`norm`, `conv2`; the DETR-style encoder's nn.MultiheadAttention). That
+attention keeps the query, key and value projections in one tensor
+(`in_proj_weight`, rows [q; k; v]) where flax keeps three leaves, so those
+leaves are joined and split outside the one-leaf rules.
 """
 from __future__ import annotations
 
@@ -22,8 +27,13 @@ import re
 import numpy as np
 import torch
 
-# leaves under these top-level flax modules belong to modules not yet ported
-NOT_PORTED = ("mask_branch",)
+# heads of the "full" interaction's attention (FullAttentionInteraction)
+FULL_NHEAD = 8
+_QKV = ("query", "key", "value")
+_QKV_FLAX = re.compile(r"interaction/layer(\d+)/MultiHeadDotProductAttention_0"
+                       r"/(query|key|value)/(kernel|bias)$")
+_QKV_TORCH = re.compile(r"transformer\.encoder\.layers\.(\d+)\.self_attn"
+                        r"\.in_proj_(weight|bias)$")
 
 
 def t_conv(w):
@@ -38,11 +48,18 @@ def t_beta(w):
     return w.reshape(-1)
 
 
+def t_attn_out(w):
+    """nn.MultiheadAttention out_proj (C, H*D) -> flax out kernel (H, D,
+    C)."""
+    return np.transpose(w, (1, 0)).reshape(FULL_NHEAD, -1, w.shape[0])
+
+
 # the inverse of each torch -> flax transform
 INVERSE = {
     t_conv: lambda w: np.transpose(w, (3, 2, 0, 1)),
     t_linear: lambda w: np.transpose(w, (1, 0)),
     t_beta: lambda w: w.reshape(1, -1, 1, 1),
+    t_attn_out: lambda w: np.transpose(w.reshape(-1, w.shape[-1]), (1, 0)),
     None: lambda w: w,
 }
 
@@ -56,16 +73,18 @@ def map_base_conv(dst, prefix):
     }
 
 
-def map_csp(dst, n_bottleneck=3):
+def map_csp(dst):
+    """Reference CSPLayer: conv1..conv3 and the bottlenecks m.<i>, for any
+    number of them (the index is a regex group)."""
     out = {}
     for src_c, dst_c in (("conv1", "BaseConv_0"), ("conv2", "BaseConv_1"),
                          ("conv3", "BaseConv_2")):
         for k, v in map_base_conv(f"{dst}/{dst_c}", "").items():
             out[f"{src_c}.{k}"] = v
-    for b in range(n_bottleneck):
-        for src_c, dst_c in (("conv1", "BaseConv_0"), ("conv2", "BaseConv_1")):
-            for k, v in map_base_conv(f"{dst}/Bottleneck_{b}/{dst_c}", "").items():
-                out[f"m.{b}.{src_c}.{k}"] = v
+    for src_c, dst_c in (("conv1", "BaseConv_0"), ("conv2", "BaseConv_1")):
+        for k, v in map_base_conv(f"{dst}/Bottleneck_\\1/{dst_c}",
+                                  "").items():
+            out[f"m.(\\d+).{src_c}.{k}"] = v
     return out
 
 
@@ -118,7 +137,7 @@ def convnext_block_params_to_flax(p) -> dict:
     return tree
 
 
-def build_rules(depth=1.0, n_layer_att=3, n_levels=3):
+def build_rules():
     """Returns list of (regex, dst_template, transform) rules."""
     rules = []
 
@@ -152,14 +171,29 @@ def build_rules(depth=1.0, n_layer_att=3, n_levels=3):
     add(r"backbone\.backbone\.norm(\d+)\.weight", f"{bb}/out_norm\\1/scale")
     add(r"backbone\.backbone\.norm(\d+)\.bias", f"{bb}/out_norm\\1/bias")
 
+    # --- CSPDarknet backbone (flax names its stages' modules in order) ---
+    cd, tb = "backbone/CSPDarknet_0", r"backbone\.backbone\."
+
+    def add_module(src, mapping):
+        for s_, (d_, tf) in mapping.items():
+            add(tb + src + r"\." + s_.replace(".", r"\."), d_, tf)
+
+    add_module(r"stem\.conv", map_base_conv(f"{cd}/stem/BaseConv_0", ""))
+    for j in range(4):
+        add_module(rf"dark{j + 2}\.0", map_base_conv(f"{cd}/BaseConv_{j}", ""))
+        add_module(rf"dark{j + 2}\.{2 if j == 3 else 1}",
+                   map_csp(f"{cd}/CSPLayer_{j}"))
+    for src_c, dst_c in (("conv1", "BaseConv_0"), ("conv2", "BaseConv_1")):
+        add_module(rf"dark5\.1\.{src_c}",
+                   map_base_conv(f"{cd}/SPPBottleneck_0/{dst_c}", ""))
+
     # --- PAFPN ---
     for name in ("lateral_conv0", "reduce_conv1", "bu_conv1", "bu_conv2",
                  "adjust0", "adjust1", "adjust2"):
         for src, (dst, tf) in map_base_conv(f"backbone/{name}", "").items():
             add(rf"backbone\.{name}\." + src.replace(".", r"\."), dst, tf)
     for csp in ("C3_p4", "C3_p3", "C3_n3", "C3_n4"):
-        for src, (dst, tf) in map_csp(f"backbone/{csp}",
-                                      n_bottleneck=round(3 * depth)).items():
+        for src, (dst, tf) in map_csp(f"backbone/{csp}").items():
             add(rf"backbone\.{csp}\." + src.replace(".", r"\."), dst, tf)
 
     # --- head ---
@@ -219,6 +253,19 @@ def build_rules(depth=1.0, n_layer_att=3, n_levels=3):
         "interaction/layer\\1/LayerNorm_1/scale")
     add(r"transformer\.encoder\.layers\.(\d+)\.norm2\.bias",
         "interaction/layer\\1/LayerNorm_1/bias")
+    # "full": the attention's output projection (in_proj: see _QKV_FLAX)
+    add(r"transformer\.encoder\.layers\.(\d+)\.self_attn\.out_proj\.weight",
+        "interaction/layer\\1/MultiHeadDotProductAttention_0/out/kernel",
+        t_attn_out)
+    add(r"transformer\.encoder\.layers\.(\d+)\.self_attn\.out_proj\.bias",
+        "interaction/layer\\1/MultiHeadDotProductAttention_0/out/bias")
+    # "conv"
+    add(r"transformer\.conv1\.weight", "interaction/conv1/kernel", t_conv)
+    add(r"transformer\.norm\.weight",
+        "interaction/norm/GroupNorm_0/scale")
+    add(r"transformer\.norm\.bias", "interaction/norm/GroupNorm_0/bias")
+    add(r"transformer\.conv2\.weight", "interaction/conv2/kernel", t_conv)
+    add(r"transformer\.conv2\.bias", "interaction/conv2/bias")
 
     # --- CondInst mask branch ---
     for name, dst_name, n in (("refine", "refine", 3), ("tower", "tower", 4)):
@@ -240,13 +287,23 @@ def build_rules(depth=1.0, n_layer_att=3, n_levels=3):
         "mask_branch/up_mask_conv2/kernel", t_conv)
     add(r"head\.mask_branch\.up_mask_layer\.2\.bias",
         "mask_branch/up_mask_conv2/bias")
+    for i in range(2):
+        add(rf"head\.mask_branch\.seg_head\.{i}\.0\.weight",
+            f"mask_branch/seg_head{i}/Conv_0/kernel", t_conv)
+        add(rf"head\.mask_branch\.seg_head\.{i}\.1\.weight",
+            f"mask_branch/seg_head{i}/GroupNorm32_0/GroupNorm_0/scale")
+        add(rf"head\.mask_branch\.seg_head\.{i}\.1\.bias",
+            f"mask_branch/seg_head{i}/GroupNorm32_0/GroupNorm_0/bias")
+    add(r"head\.mask_branch\.logits\.weight", "mask_branch/seg_logits/kernel",
+        t_conv)
+    add(r"head\.mask_branch\.logits\.bias", "mask_branch/seg_logits/bias")
     return rules
 
 
-def _inverse_rules(depth):
+def _inverse_rules():
     """(flax path regex, torch name template, inverse transform) per rule."""
     inv = []
-    for pat, dst, tf in build_rules(depth=depth):
+    for pat, dst, tf in build_rules():
         flax_re = re.compile(re.escape(dst).replace(r"\\1", r"(\d+)")
                              .replace(r"\\2", r"(\d+)") + "$")
         groups = iter(range(1, 10))
@@ -264,49 +321,73 @@ def _flatten(tree, prefix=()):
             yield "/".join(prefix + (str(k),)), v
 
 
-def from_flax(params, depth: float = 1.0):
+def from_flax(params):
     """flax params tree (the variables dict or its "params") -> (state_dict
-    of fp32 torch tensors under the reference's names, sorted list of the
-    flax paths of modules not yet ported). A leaf that no rule names
-    raises."""
+    of fp32 torch tensors under the reference's names, []); the list is
+    always empty. A leaf that no rule names raises."""
     if set(params) == {"params"}:
         params = params["params"]
-    rules = _inverse_rules(depth)
-    state, not_ported = {}, []
+    rules = _inverse_rules()
+    state, qkv = {}, {}
     for path, leaf in _flatten(params):
-        if path.split("/")[0] in NOT_PORTED:
-            not_ported.append(path)
+        w = np.asarray(leaf, np.float32)
+        m = _QKV_FLAX.match(path)
+        if m:
+            # kernel (C, H, D) -> rows (H*D, C); bias (H, D) -> (H*D,)
+            part = (np.transpose(w.reshape(w.shape[0], -1), (1, 0))
+                    if m.group(3) == "kernel" else w.reshape(-1))
+            kind = "weight" if m.group(3) == "kernel" else "bias"
+            name = (f"transformer.encoder.layers.{m.group(1)}.self_attn."
+                    f"in_proj_{kind}")
+            qkv.setdefault(name, {})[_QKV.index(m.group(2))] = part
             continue
         for flax_re, torch_t, inv in rules:
             m = flax_re.match(path)
             if m:
-                name = m.expand(torch_t)
-                w = inv(np.asarray(leaf, np.float32))
-                state[name] = torch.tensor(w)
+                state[m.expand(torch_t)] = torch.tensor(inv(w))
                 break
         else:
             raise KeyError(f"from_flax: no rule names the flax leaf {path!r}")
-    return state, sorted(not_ported)
+    for name, parts in qkv.items():
+        state[name] = torch.tensor(np.concatenate([parts[i]
+                                                   for i in range(3)]))
+    return state, []
 
 
-def to_flax(named_tensors, depth: float = 1.0):
+def to_flax(named_tensors):
     """The inverse of from_flax: a dict of tensors under the state_dict's
     names (parameters, or their gradients) -> a nested dict of fp32 numpy
     arrays under the flax paths and in the flax layouts, so that a gradient
     can be compared with the JAX package's leaf by leaf. A name that no rule
     matches raises."""
-    rules = build_rules(depth=depth)
+    rules = build_rules()
     tree = {}
+
+    def put(path, w):
+        node = tree
+        *parents, leaf = path.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = w
+
     for name, t in named_tensors.items():
+        w = t.detach().float().cpu().numpy()
+        m = _QKV_TORCH.match(name)
+        if m:
+            att = (f"interaction/layer{m.group(1)}/"
+                   "MultiHeadDotProductAttention_0")
+            for which, part in zip(_QKV, np.split(w, 3)):
+                if m.group(2) == "weight":   # rows (H*D, C) -> (C, H, D)
+                    part = np.transpose(part, (1, 0)).reshape(
+                        part.shape[1], FULL_NHEAD, -1)
+                    put(f"{att}/{which}/kernel", part)
+                else:
+                    put(f"{att}/{which}/bias", part.reshape(FULL_NHEAD, -1))
+            continue
         for pat, dst, tf in rules:
             m = pat.match(name)
             if m:
-                w = t.detach().float().cpu().numpy()
-                node = tree
-                *parents, leaf = m.expand(dst).split("/")
-                for part in parents:
-                    node = node.setdefault(part, {})
-                node[leaf] = tf(w) if tf is not None else w
+                put(m.expand(dst), tf(w) if tf is not None else w)
                 break
         else:
             raise KeyError(f"to_flax: no rule names the tensor {name!r}")

@@ -1,7 +1,8 @@
 """Unified SOT+MOT experiment: the model, training and test fields of
-unicorn_tpu/exp/track.py ExpTrack, get_model() building the port's Unicorn,
-and the training factories get_lr_fn / get_optimizer / get_train_step. The
-loader, the trainer, checkpoints and `load_pretrained` are not ported yet."""
+unicorn_tpu/exp/track.py ExpTrack, get_model() building the port's Unicorn
+(any of its interaction modes, `interact_mode`), and the training factories
+get_lr_fn / get_optimizer / get_train_step. The loader, the evaluators, the
+trainer, checkpoints and `load_pretrained` are not ported yet."""
 from __future__ import annotations
 
 import torch
@@ -79,7 +80,12 @@ class ExpTrack:
             fuse_method=self.fuse_method, learnable_fuse=self.learnable_fuse,
             remat=self.remat,
             dtype=torch.bfloat16 if self.bf16 else torch.float32,
-            interact_dtype=idt, msda_method=msda_method, generator=generator)
+            interact_dtype=idt, msda_method=msda_method, generator=generator,
+            **self._mask_fields())
+
+    def _mask_fields(self) -> dict:
+        """Unicorn's mask-stack fields; the mask stage sets them."""
+        return {}
 
     # ---- training factories ----
 

@@ -202,6 +202,41 @@ class CSPLayer(nn.Module):
         return self.conv3(torch.cat([x1, x2], dim=1))
 
 
+class SPPBottleneck(nn.Module):
+    """Spatial pyramid pooling: 1x1 conv to half width, the map beside its
+    stride-1 max pools (5, 9, 13; padding -inf), 1x1 conv out."""
+
+    def __init__(self, in_ch, out_ch, kernel_sizes=(5, 9, 13), act="silu",
+                 dtype=torch.float32):
+        super().__init__()
+        hidden = in_ch // 2
+        self.conv1 = BaseConv(in_ch, hidden, 1, 1, act=act, dtype=dtype)
+        self.m = nn.ModuleList([nn.MaxPool2d(ks, 1, ks // 2)
+                                for ks in kernel_sizes])
+        self.conv2 = BaseConv(hidden * (len(kernel_sizes) + 1), out_ch, 1, 1,
+                              act=act, dtype=dtype)
+
+    def forward(self, x):
+        x = self.conv1(x)
+        return self.conv2(torch.cat([x] + [m(x) for m in self.m], 1))
+
+
+class Focus(nn.Module):
+    """Space-to-depth stem: (B, C, H, W) -> (B, 4C, H/2, W/2) in the order
+    top-left, bottom-left, top-right, bottom-right, then a BaseConv."""
+
+    def __init__(self, in_ch, out_ch, ksize=1, stride=1, act="silu",
+                 dtype=torch.float32):
+        super().__init__()
+        self.conv = BaseConv(4 * in_ch, out_ch, ksize, stride, act=act,
+                             dtype=dtype)
+
+    def forward(self, x):
+        x = torch.cat([x[..., ::2, ::2], x[..., 1::2, ::2],
+                       x[..., ::2, 1::2], x[..., 1::2, 1::2]], 1)
+        return self.conv(x.contiguous(memory_format=CL))
+
+
 class DepthwiseConv7x7(nn.Module):
     """Depthwise 7x7 SAME conv + bias through ops.dwconv7x7: the CUDA kernel
     on the card, the plain version on the CPU. weight (C,1,7,7), bias (C,)

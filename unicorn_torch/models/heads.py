@@ -4,7 +4,11 @@ of unicorn_tpu/models/heads.py).
 The head returns, per level, a dict of raw logits as NCHW (channels_last)
 tensors: `_cls_packed` / `_reg_packed` (each tower's 1x1 predictions
 computed as one matmul) and their channel slices cls, cls_sot, reg, obj,
-reg_sot, obj_sot. Module names follow the reference torch UnicornHead.
+reg_sot, obj_sot; with_mask adds `ctrl`, the CondInst controller's 169
+dynamic parameters per anchor (a 3x3 conv over the reg tower, not a packed
+lane). Module names follow the reference torch UnicornHead; a model with
+the mask stack keeps its MaskBranch here too (`mask_branch`), where the
+reference keeps it, and calls it itself: the head's forward does not.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.dynamic_conv import NUM_GEN_PARAMS
 from .blocks import BaseConv, ConvNeXtBlock, Conv2d, DWConv
 
 PRIOR_BIAS = -math.log((1 - 1e-2) / 1e-2)
@@ -30,11 +35,8 @@ class UnicornHead(nn.Module):
                  unshared_reg: bool = True, fuse_method: str = "sum",
                  learnable_fuse: bool = True, exact_gelu: bool = True,
                  num_classes_sot: int = 1, with_mask: bool = False,
-                 dtype=torch.float32):
+                 mask_branch: nn.Module | None = None, dtype=torch.float32):
         super().__init__()
-        if with_mask:
-            raise NotImplementedError("UnicornHead(with_mask=True): the mask "
-                                      "controllers are not yet ported")
         if fuse_method not in ("sum", "mul"):
             raise ValueError(fuse_method)
         self.num_classes = num_classes
@@ -78,6 +80,12 @@ class UnicornHead(nn.Module):
             if unshared_obj:
                 self.obj_preds_sot = preds(1)
                 self.reg_specs.append(("obj_sot", "obj_preds_sot", 1))
+        # CondInst controllers: 3x3 convs over the reg tower, 169 dynamic
+        # parameters per anchor
+        self.controllers = nn.ModuleList([
+            Conv2d(hidden, NUM_GEN_PARAMS, 3, padding=1, dtype=dtype)
+            for _ in range(n_lv)]) if with_mask else None
+        self.mask_branch = mask_branch
         if fuse_method == "sum" and learnable_fuse:
             for k in range(n_lv):
                 self.register_parameter(
@@ -92,6 +100,10 @@ class UnicornHead(nn.Module):
             for name, p in self.named_parameters(recurse=False):
                 if name.startswith("beta_"):
                     p.fill_(1.0)
+            # the reference trains the controllers from normal(std 0.01)
+            for m in self.controllers or ():
+                m.weight.normal_(0.0, 0.01, generator=generator)
+                m.bias.zero_()
 
     def _merged(self, feat, specs, k):
         """One matmul for all of a tower's 1x1 predictions at level k."""
@@ -118,9 +130,12 @@ class UnicornHead(nn.Module):
                 else:
                     x = x * m + x
             x = self.att_layers[k](x)
+            reg_feat = self.reg_convs[k](x)
             y_cls = self._merged(self.cls_convs[k](x), self.cls_specs, k)
-            y_reg = self._merged(self.reg_convs[k](x), self.reg_specs, k)
+            y_reg = self._merged(reg_feat, self.reg_specs, k)
             out = {"_cls_packed": y_cls, "_reg_packed": y_reg}
+            if self.controllers is not None:
+                out["ctrl"] = self.controllers[k](reg_feat)
             for y, specs in ((y_cls, self.cls_specs), (y_reg, self.reg_specs)):
                 off = 0
                 for key, _, c in specs:
@@ -151,9 +166,10 @@ def level_grids(hw_list, strides, device=None):
 def flatten_raw_outputs(outputs, mode: str, unshared_obj=True,
                         unshared_reg=True):
     """Per-level packed head outputs -> reg_raw (B,A,4), obj_logits (B,A,1),
-    cls_logits (B,A,C) in fp32, and hw (list of (H, W)). mode "mot" takes
-    the shared branches, "sot" the SOT ones."""
-    regs, objs, clss, hw = [], [], [], []
+    cls_logits (B,A,C) in fp32, and hw (list of (H, W)); with the mask
+    controllers also ctrl (B,A,169) in fp32. mode "mot" takes the shared
+    branches, "sot" the SOT ones."""
+    regs, objs, clss, ctrls, hw = [], [], [], [], []
     for out in outputs:
         b, _, h, w = out["_reg_packed"].shape
         hw.append((h, w))
@@ -174,12 +190,17 @@ def flatten_raw_outputs(outputs, mode: str, unshared_obj=True,
         regs.append(reg)
         objs.append(obj)
         clss.append(cls)
-    return {
+        if "ctrl" in out:
+            ctrls.append(out["ctrl"].permute(0, 2, 3, 1).reshape(b, h * w, -1))
+    flat = {
         "reg_raw": torch.cat(regs, 1).float(),
         "obj_logits": torch.cat(objs, 1).float(),
         "cls_logits": torch.cat(clss, 1).float(),
         "hw": hw,
     }
+    if ctrls:
+        flat["ctrl"] = torch.cat(ctrls, 1).float()
+    return flat
 
 
 def decode_boxes(reg_raw, hw_list, strides):

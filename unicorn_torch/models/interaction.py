@@ -1,17 +1,18 @@
 """Reference<->current frame feature interaction, PyTorch (port of
-unicorn_tpu/models/interaction.py, the "deform" mode and the modules around
-it). Module names follow the reference torch model, so its state_dict keys
-line up: `bottleneck.0/.1`, `upsample_layer.1/.3`, `pos_emb.{row,col}_embed`,
+unicorn_tpu/models/interaction.py: the "deform", "full" and "conv" modes
+and the modules around them). Module names follow the reference torch
+model, so its state_dict keys line up: `bottleneck.0/.1`,
+`upsample_layer.1/.3`, `pos_emb.{row,col}_embed`; "deform":
 `transformer.level_embed`, `transformer.encoder.layers.N.{self_attn.*,
-norm1, linear1, linear2, norm2}`.
+norm1, linear1, linear2, norm2}`; "full" (the DETR-style encoder of
+transformer_encoder.py): `transformer.encoder.layers.N.{self_attn.
+in_proj_weight, self_attn.in_proj_bias, self_attn.out_proj, norm1, linear1,
+linear2, norm2}`; "conv" (Conv_Inter): `transformer.{conv1, norm, conv2}`.
 
 Feature maps are NCHW (channels_last) at the modules' boundaries; inside the
-deformable encoder tokens are (B, L*h*w, C) with the two frames ("levels")
+two encoders tokens are (B, L*h*w, C) with the two frames ("levels")
 concatenated. Parameters are fp32 and are cast to the compute dtype at use;
 LayerNorm and GroupNorm run in fp32 and cast back.
-
-The "conv" and "full" interaction modes (ConvInteraction,
-FullAttentionInteraction) are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,8 +23,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.deform_attn import ms_deform_attn
-from .blocks import (CL, Conv2d, LayerNorm32, interpolate_bilinear,
-                     pixel_shuffle_2x)
+from .blocks import (CL, Conv2d, GroupNorm32, LayerNorm32,
+                     interpolate_bilinear, lecun_normal_, pixel_shuffle_2x)
 
 
 def _xavier_uniform_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -97,6 +98,120 @@ class UpsampleEmbed(nn.Sequential):
     def forward(self, x):
         x = pixel_shuffle_2x(x).contiguous(memory_format=CL)
         return self[3](F.relu(self[1](x)))
+
+
+class ConvInteraction(nn.Module):
+    """Per-frame conv interaction: 3x3 conv (no bias) -> GroupNorm -> ReLU
+    -> 1x1 conv, the same weights for both frames; no position input."""
+
+    def __init__(self, d_model: int = 256, dtype=torch.float32):
+        super().__init__()
+        self.conv1 = Conv2d(d_model, d_model, 3, padding=1, bias=False,
+                            dtype=dtype)
+        self.norm = GroupNorm32(d_model, dtype=dtype)
+        self.conv2 = Conv2d(d_model, d_model, 1, dtype=dtype)
+
+    def forward(self, feats):
+        return tuple(self.conv2(F.relu(self.norm(self.conv1(x))))
+                     for x in feats)
+
+
+class MultiheadAttention(nn.Module):
+    """The parameters of nn.MultiheadAttention (in_proj_weight = [q; k; v]
+    rows, out_proj), applied by FullAttentionLayer."""
+
+    def __init__(self, d_model: int, nhead: int):
+        super().__init__()
+        self.nhead = nhead
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
+        self.out_proj = nn.Linear(d_model, d_model)
+
+    def _init_extra(self, generator):
+        # flax lecun_normal on each of the query, key and value kernels:
+        # fan_in d_model, as for the joined (3 d_model, d_model) rows
+        lecun_normal_(self.in_proj_weight, generator)
+        with torch.no_grad():
+            self.in_proj_bias.zero_()
+
+
+class FullAttentionLayer(nn.Module):
+    """Post-norm transformer encoder layer: self-attention with the position
+    added to queries and keys, then the ReLU FFN. The projections, scores
+    and softmax give `dtype` outputs, as flax's do (in bf16 flax rounds each
+    step of its softmax, F.scaled_dot_product_attention only its output);
+    the norms run in fp32."""
+
+    def __init__(self, d_model: int = 256, nhead: int = 8,
+                 dim_feedforward: int = 2048, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.self_attn = MultiheadAttention(d_model, nhead)
+        self.norm1 = LayerNorm32(d_model, 1e-6, dtype=dtype)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.norm2 = LayerNorm32(d_model, 1e-6, dtype=dtype)
+
+    def attention(self, src, pos):
+        """src, pos (B, L, C) -> the attention's output projection (B, L,
+        C), in `dtype`."""
+        dt = self.dtype
+        att = self.self_attn
+        B, L, C = src.shape
+        M = att.nhead
+        w, b = att.in_proj_weight.to(dt), att.in_proj_bias.to(dt)
+        qk = src + pos
+
+        def heads(x, i):
+            y = F.linear(x, w[i * C:(i + 1) * C], b[i * C:(i + 1) * C])
+            return y.reshape(B, L, M, C // M).transpose(1, 2)
+
+        # flax scales the query before the product, in the compute dtype
+        q = heads(qk, 0) / math.sqrt(C // M)
+        out = F.scaled_dot_product_attention(q, heads(qk, 1), heads(src, 2),
+                                             scale=1.0)
+        out = out.transpose(1, 2).reshape(B, L, C)
+        return _linear(out, att.out_proj, dt)
+
+    def forward(self, src, pos):
+        dt = self.dtype
+        src = src.to(dt)
+        src = self.norm1(src + self.attention(src, pos.to(dt)))
+        ff = _linear(F.relu(_linear(src, self.linear1, dt)), self.linear2, dt)
+        return self.norm2(src + ff)
+
+
+class FullAttentionInteraction(nn.Module):
+    """Joint full attention over both frames' tokens (num_layers encoder
+    layers). feats, pos: two (B, C, h, w) maps each. Returns the refined
+    pair."""
+
+    def __init__(self, d_model: int = 256, nhead: int = 8,
+                 num_layers: int = 1, dtype=torch.float32):
+        super().__init__()
+        self.encoder = _Encoder([FullAttentionLayer(d_model, nhead,
+                                                    dtype=dtype)
+                                 for _ in range(num_layers)])
+
+    def forward(self, feats, pos):
+        b, c, h, w = feats[0].shape
+        src = torch.cat([_tokens(f) for f in feats], 1)
+        p = torch.cat([_tokens(x) for x in pos], 1)
+        for layer in self.encoder.layers:
+            src = layer(src, p)
+        return _untokens(src, b, c, h, w)
+
+
+def _tokens(x):
+    """(B, C, h, w) -> (B, h*w, C)."""
+    b, c, h, w = x.shape
+    return x.permute(0, 2, 3, 1).reshape(b, h * w, c)
+
+
+def _untokens(src, b, c, h, w):
+    """(B, 2*h*w, C) tokens of two frames -> the two (B, C, h, w) maps."""
+    return tuple(f.reshape(b, h, w, c).permute(0, 3, 1, 2)
+                 for f in (src[:, :h * w], src[:, h * w:]))
 
 
 def offset_bias_init(n_heads: int, n_levels: int, n_points: int):
@@ -216,15 +331,9 @@ class DeformableInteraction(nn.Module):
 
     def forward(self, feats, pos):
         b, c, h, w = feats[0].shape
-
-        def tokens(x):
-            return x.permute(0, 2, 3, 1).reshape(b, h * w, -1)
-
-        src = torch.cat([tokens(f) for f in feats], 1)
-        p = torch.cat([tokens(x) + self.level_embed[i].to(self.dtype)
+        src = torch.cat([_tokens(f) for f in feats], 1)
+        p = torch.cat([_tokens(x) + self.level_embed[i].to(self.dtype)
                        for i, x in enumerate(pos)], 1)
         for layer in self.encoder.layers:
             src = layer(src, p, h, w)
-        f1, f2 = src[:, :h * w], src[:, h * w:]
-        return tuple(f.reshape(b, h, w, c).permute(0, 3, 1, 2)
-                     for f in (f1, f2))
+        return _untokens(src, b, c, h, w)

@@ -1,4 +1,4 @@
-"""YOLO PAFPN neck over a ConvNeXt backbone, PyTorch (port of
+"""YOLO PAFPN neck over a ConvNeXt or CSPDarknet backbone, PyTorch (port of
 unicorn_tpu/models/pafpn.py). forward returns (pan_out2, pan_out1, pan_out0)
 at strides (8, 16, 32), and optionally the raw backbone features."""
 from __future__ import annotations
@@ -11,10 +11,13 @@ import torch.nn as nn
 from .blocks import BaseConv, CSPLayer, DWConv, upsample_nearest_2x
 from .convnext import (CONVNEXT_OUT_CHANNELS, convnext_base, convnext_large,
                        convnext_tiny)
+from .csp_darknet import CSPDarknet
 
 
-def build_backbone(name: str, dtype=torch.float32, exact_gelu: bool = True):
-    """(module, raw stride-8/16/32 channel counts). ConvNeXt only so far."""
+def build_backbone(name: str, depth: float = 1.0, width: float = 1.0,
+                   dtype=torch.float32, exact_gelu: bool = True):
+    """(module, raw stride-8/16/32 channel counts): ConvNeXt or CSPDarknet
+    (at the model's depth and width)."""
     if name.startswith("convnext"):
         fn = {
             "convnext": convnext_tiny,
@@ -23,7 +26,10 @@ def build_backbone(name: str, dtype=torch.float32, exact_gelu: bool = True):
             "convnext_large": convnext_large,
         }[name]
         return fn(dtype=dtype, exact_gelu=exact_gelu), CONVNEXT_OUT_CHANNELS[name]
-    if name.startswith("swin") or name in ("resnet50", "csp_darknet"):
+    if name == "csp_darknet":
+        ch = (int(256 * width), int(512 * width), int(1024 * width))
+        return CSPDarknet(dep_mul=depth, wid_mul=width, dtype=dtype), ch
+    if name.startswith("swin") or name == "resnet50":
         raise NotImplementedError(f"backbone {name!r} is not yet ported")
     raise ValueError(f"unsupported backbone: {name}")
 
@@ -38,7 +44,8 @@ class YOLOPAFPN(nn.Module):
         conv = DWConv if depthwise else BaseConv
         c0, c1, c2 = [int(c * width) for c in in_channels]
         kw = dict(act=act, dtype=dtype)
-        self.backbone, raw = build_backbone(backbone_name, dtype, exact_gelu)
+        self.backbone, raw = build_backbone(backbone_name, depth, width,
+                                            dtype, exact_gelu)
         self.raw_channels = raw   # of the backbone's stride-8/16/32 features
         self.adjust = raw != (c0, c1, c2)
         if self.adjust:

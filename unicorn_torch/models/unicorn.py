@@ -1,13 +1,15 @@
-"""The unified Unicorn model, PyTorch (port of unicorn_tpu/models/unicorn.py).
+"""The unified Unicorn model and the detection / instance-segmentation
+model YOLOXDet, PyTorch (port of unicorn_tpu/models/unicorn.py).
 
-Ported: the backbone + PAFPN stage (`forward_backbone`, both run_fpn modes),
-the deformable interaction of two frames' stride-16 features
-(`forward_interaction`), the embedding upsample (`forward_upsample`), the
-unified head (`forward_head`) and the MOT detection forward
-(`forward_whole`). The "conv" and "full" interaction modes and the mask
-branch are not ported yet: those constructor fields accept only their
-defaults, and convert.from_flax reports the mask branch's parameters as not
-ported.
+Unicorn: the backbone + PAFPN stage (`forward_backbone`, both run_fpn
+modes), the interaction of two frames' stride-16 features in the "deform",
+"full" or "conv" mode (`forward_interaction`; "conv" takes no position
+embedding), the embedding upsample (`forward_upsample`), the unified head
+(`forward_head`), the MOT detection forward (`forward_whole`) and, with
+use_mask, the CondInst mask branch (`forward_mask_branch`, with the RAFT
+up-mask under use_raft). YOLOXDet: PAFPN + detection head without the SOT
+branch or priors, and with use_mask the controllers and the mask branch.
+Backbone block remat (`remat`) is not ported: it accepts only False.
 """
 from __future__ import annotations
 
@@ -18,23 +20,28 @@ import torch.nn as nn
 
 from .blocks import init_weights
 from .heads import UnicornHead
-from .interaction import (Bottleneck1x1, DeformableInteraction,
+from .interaction import (Bottleneck1x1, ConvInteraction,
+                          DeformableInteraction, FullAttentionInteraction,
                           PositionEmbeddingLearned, UpsampleEmbed)
+from .mask_head import MaskBranch
 from .pafpn import YOLOPAFPN
 
+INTERACT_MODES = ("deform", "full", "conv")
 
-def _not_ported(field, value):
-    raise NotImplementedError(f"Unicorn({field}={value!r}) needs a module "
-                              "that is not yet ported")
+
+def _no_remat(remat):
+    if remat is not False:
+        raise NotImplementedError(f"remat={remat!r}: backbone block remat is "
+                                  "not yet ported")
 
 
 class Unicorn(nn.Module):
-    """Backbone + PAFPN + interaction + embedding + unified head. Parameters
-    are fp32, computed in `dtype` (the interaction and embedding stages in
-    `interact_dtype`), and drawn from `generator` (flax's init
-    distributions; a generator seeded with 0 when none is given).
-    `msda_method` is the `method` the deformable interaction hands to
-    ops.deform_attn.ms_deform_attn."""
+    """Backbone + PAFPN + interaction + embedding + unified head (+ the mask
+    branch with use_mask). Parameters are fp32, computed in `dtype` (the
+    interaction and embedding stages in `interact_dtype`), and drawn from
+    `generator` (flax's init distributions; a generator seeded with 0 when
+    none is given). `msda_method` is the `method` the deformable
+    interaction hands to ops.deform_attn.ms_deform_attn."""
 
     def __init__(self, num_classes: int = 8, depth: float = 1.0,
                  width: float = 1.0,
@@ -50,35 +57,43 @@ class Unicorn(nn.Module):
                  interact_dtype=torch.float32, msda_method: str = "auto",
                  generator: torch.Generator | None = None):
         super().__init__()
-        for field, value, default in (
-                ("interact_mode", interact_mode, "deform"),
-                ("use_mask", use_mask, False), ("use_raft", use_raft, False),
-                ("up_rate", up_rate, 8), ("remat", remat, False)):
-            if value != default:
-                _not_ported(field, value)
+        _no_remat(remat)
+        if interact_mode not in INTERACT_MODES:
+            raise ValueError(interact_mode)
         if interact_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"interact_dtype {interact_dtype} is neither "
                              "float32 nor bfloat16")
         self.dtype = dtype
         self.interact_dtype = interact_dtype
+        self.interact_mode = interact_mode
         self.backbone = YOLOPAFPN(
             depth=depth, width=width, in_channels=in_channels, act=act,
             backbone_name=backbone_name, dtype=dtype, exact_gelu=exact_gelu)
+        mask_branch = MaskBranch(
+            [int(c * width) for c in in_channels], use_raft=use_raft,
+            up_rate=up_rate, dtype=dtype) if use_mask else None
         self.head = UnicornHead(
             num_classes=num_classes, width=width, in_channels=in_channels,
             act=act, sot_branch=True, use_attention=use_attention,
             n_layer_att=n_layer_att, unshared_obj=unshared_obj,
             unshared_reg=unshared_reg, fuse_method=fuse_method,
             learnable_fuse=learnable_fuse, exact_gelu=exact_gelu,
-            dtype=dtype)
+            with_mask=use_mask, mask_branch=mask_branch, dtype=dtype)
         idt = interact_dtype
         self.bottleneck = Bottleneck1x1(self.backbone.raw_channels[1],
                                         hidden_dim, dtype=idt)
         self.upsample_layer = UpsampleEmbed(embed_dim, hidden_dim, dtype=idt)
-        self.pos_emb = PositionEmbeddingLearned(hidden_dim // 2, sz=40,
-                                                dtype=idt)
-        self.transformer = DeformableInteraction(hidden_dim, dtype=idt,
-                                                 msda_method=msda_method)
+        if interact_mode == "conv":
+            self.pos_emb = None
+            self.transformer = ConvInteraction(hidden_dim, dtype=idt)
+        else:
+            self.pos_emb = PositionEmbeddingLearned(hidden_dim // 2, sz=40,
+                                                    dtype=idt)
+            self.transformer = (
+                FullAttentionInteraction(hidden_dim, dtype=idt)
+                if interact_mode == "full" else
+                DeformableInteraction(hidden_dim, dtype=idt,
+                                      msda_method=msda_method))
         init_weights(self, generator if generator is not None
                      else torch.Generator().manual_seed(0))
 
@@ -96,6 +111,8 @@ class Unicorn(nn.Module):
         W16) -> the refined (B, hidden_dim, H16, W16) pair."""
         b, _, h, w = feat0.shape
         srcs = (self.bottleneck(feat0), self.bottleneck(feat1))
+        if self.pos_emb is None:
+            return self.transformer(srcs)
         pos = self.pos_emb(b, h, w)
         return self.transformer(srcs, (pos, pos))
 
@@ -108,6 +125,11 @@ class Unicorn(nn.Module):
         """The unified head. priors: per-level (B, 1, H, W) label maps."""
         return self.head(fpn_outs, priors)
 
+    def forward_mask_branch(self, fpn_outs):
+        """(mask_feats (B, 8, H8, W8), up_mask (B, 9*up_rate**2, H8, W8) or
+        None, None) of the CondInst mask branch (use_mask)."""
+        return self.head.mask_branch(fpn_outs)
+
     def forward_whole(self, imgs):
         """MOT detection forward: backbone + head with zero priors.
         Returns (raw_head_outputs, feat_s16)."""
@@ -118,3 +140,46 @@ class Unicorn(nn.Module):
 
     def forward(self, imgs):
         return self.forward_whole(imgs)
+
+
+class YOLOXDet(nn.Module):
+    """Detection / instance-segmentation model: PAFPN + detection head (no
+    SOT branch, no prior fusion). With use_mask the head has the CondInst
+    controllers and forward returns (head_raw, (mask_feats, up_mask,
+    sem_logits)); else head_raw. As in the JAX model, the head's GELU is
+    exact whatever exact_gelu says (that field reaches the backbone)."""
+
+    def __init__(self, num_classes: int = 80, depth: float = 1.0,
+                 width: float = 1.0,
+                 in_channels: Sequence[int] = (192, 384, 768),
+                 backbone_name: str = "convnext_tiny", act: str = "silu",
+                 use_attention: bool = False, n_layer_att: int = 0,
+                 use_mask: bool = False, sem_loss_on: bool = False,
+                 exact_gelu: bool = True, remat: Any = False,
+                 dtype=torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        _no_remat(remat)
+        self.dtype = dtype
+        self.backbone = YOLOPAFPN(
+            depth=depth, width=width, in_channels=in_channels, act=act,
+            backbone_name=backbone_name, dtype=dtype, exact_gelu=exact_gelu)
+        mask_branch = MaskBranch(
+            [int(c * width) for c in in_channels], sem_loss_on=sem_loss_on,
+            num_classes=num_classes, dtype=dtype) if use_mask else None
+        # no priors reach this head, so it has no fusion parameters (flax
+        # creates beta_k only when priors are passed)
+        self.head = UnicornHead(
+            num_classes=num_classes, width=width, in_channels=in_channels,
+            act=act, sot_branch=False, use_attention=use_attention,
+            n_layer_att=n_layer_att, learnable_fuse=False,
+            with_mask=use_mask, mask_branch=mask_branch, dtype=dtype)
+        init_weights(self, generator if generator is not None
+                     else torch.Generator().manual_seed(0))
+
+    def forward(self, imgs):
+        fpn_outs = self.backbone(imgs)
+        head_raw = self.head(fpn_outs, None)
+        if self.head.mask_branch is not None:
+            return head_raw, self.head.mask_branch(fpn_outs)
+        return head_raw

@@ -1,5 +1,6 @@
 """Ops of the port: the dw7x7 and fused ConvNeXt block kernel wrappers, MSDA,
-correlation, fixed-shape NMS, device letterbox.
+correlation, the CondInst dynamic convolution, fixed-shape NMS, device
+letterbox.
 
 Only names that do not shadow a sub-module are exported here: `dwconv7x7` and
 `convnext_block` are both a module and the function in it, and
