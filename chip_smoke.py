@@ -51,6 +51,19 @@ Phases (each must pass, else the exit code is 1):
              per-stage ms, detections per frame, peak memory, 27 dw7x7
              launches a frame; one frame of the unicorn_track_tiny_mask
              Unicorn through forward_whole and forward_mask_branch
+  vos        VOS serving (VOSDriver on the served unicorn_track_tiny_mask
+             Unicorn, bf16, RAFT up-mask at rate 4; 480x854 uint8 frames
+             letterboxed into 800x1280): one general-path frame at K = 4
+             through the dw7x7, MSDA and correlation kernels vs their plain
+             versions (priors, top detections, masks); initialize with 4
+             objects, 3 warm-up and 16 timed track calls on the
+             shared-reference path, add_objects with a fifth, 8 timed track
+             calls on the general path: frames/s, per-stage ms, the head
+             as K batch-1 calls beside the batched one, launches per frame
+             (27 dw7x7, 1 msda, 1 correlation), peak memory; one
+             shared-path frame at K = 17 (the correlation in 2 groups of
+             label maps) and one general-path frame at K = 17 (MSDA at
+             batch 17)
   train_model  the model as trained (bf16 trunk, fp32 interaction): one
              uni_loss_fn forward + backward on a mixed SOT/MOT batch through
              the kernels vs through their plain versions; loss and every
@@ -729,10 +742,21 @@ def kernels_correlation(report) -> bool:
     g = torch.Generator(device="cuda").manual_seed(2)
     dev = torch.device("cuda")
     # (B, N, C, K, scale, rtol); the first is the SOT path's shape, the
-    # second a track_window chunk's; K = 17 goes in two kernel calls
+    # second a track_window chunk's (and the VOS general path's at K = 4),
+    # the third the timed VOS general path's; the VOS shared path's at K = 5
+    # and 17; K = 17 goes in two kernel calls
+    vos_k = VOS_OBJECTS + 1
     cases = ((1, 16000, 128, 1, 0.3, 1e-4), (WINDOW, 16000, 128, 1, 0.3, 1e-4),
+             (vos_k, 16000, 128, 1, 0.3, 1e-4),
+             (1, 16000, 128, vos_k, 0.3, 1e-4),
+             (1, 16000, 128, VOS_K_WIDE, 0.3, 1e-4),
              (1, 1000, 128, 3, 0.3, 1e-4), (2, 77, 16, 16, 1.0, 1e-4),
              (1, 1000, 16, 3, 10.0, 1e-3), (2, 1000, 128, 17, 0.3, 1e-4))
+    paths = {(1, 1): "sot", (WINDOW, 1): f"sot window, vos general K = "
+             f"{WINDOW}", (vos_k, 1): f"vos general K = {vos_k}",
+             (1, vos_k): f"vos shared K = {vos_k}",
+             (1, VOS_K_WIDE): f"vos shared K = {VOS_K_WIDE}"}
+    per_shape = []
     ok = True
     print("corr   B N     C   K  scale bf16_dots max|err|  kernel_ms plain_ms "
           " sdpa_ms  bound_ms bound_by")
@@ -792,13 +816,19 @@ def kernels_correlation(report) -> bool:
                      else ""))
             if nbad:
                 print(f"       {nbad} elements beyond tolerance")
-            if (B, N) == (1, 16000) and bf16_dots:
+            if (B, N, K) == (1, 16000, 1) and bf16_dots:
                 report.setdefault("kernels", {})["correlation"] = dict(
                     name="correlation", route="cuda",
                     source="unicorn_torch/csrc/correlation.cu",
                     replaces="unicorn_tpu/ops/pallas_correlation.py:24",
                     launches=None, max_abs_err=err, ms=t_k, plain_ms=t_p,
-                    bound_ms=bound, bound_by=bound_by, library_ms=t_l)
+                    bound_ms=bound, bound_by=bound_by, library_ms=t_l,
+                    per_shape=per_shape)
+            elif N == 16000 and (B, K) in paths and bf16_dots:
+                per_shape.append(dict(
+                    shape=[B, N, C, K], path=paths[B, K], kernel_calls=calls,
+                    max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bound,
+                    bound_by=bound_by, library_ms=t_l))
     return ok
 
 
@@ -1522,12 +1552,13 @@ def _sot_model(report, msda_method="auto"):
     return report[key]
 
 
-def _sot_frames(n, seed):
-    """n + 1 synthetic 1080x1920 uint8 frames: a panning random texture."""
+def _sot_frames(n, seed, hw=None):
+    """n + 1 synthetic uint8 frames of FRAME_HW (or hw): a panning random
+    texture."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
-    fh, fw = FRAME_HW
+    fh, fw = hw or FRAME_HW
     base = (rng.rand(fh, fw + 4 * (n + 1), 3) * 255).astype(np.uint8)
     return [np.ascontiguousarray(base[:, 4 * t:4 * t + fw])
             for t in range(n + 1)]
@@ -1943,6 +1974,335 @@ def phase_inst(report):
         assert bool(torch.isfinite(t.float()).all())
 
 
+# ------------------------------------------------------------------ VOS
+VOS_FRAME_HW = (480, 854)  # DAVIS 480p: letterboxed into 800x1280 at r ~ 1.50
+VOS_OBJECTS = 4           # objects at initialize; one more enters later
+VOS_WARMUP = 3
+VOS_SHARED = 16           # timed track calls on the shared-reference path
+VOS_GENERAL = 8           # timed track calls on the general path
+VOS_K_WIDE = 17           # label maps of the frames that need two groups
+
+
+def _vos_model(report):
+    """The served unicorn_track_tiny_mask Unicorn (ConvNeXt-Tiny, bf16 trunk
+    and head, bf16 interaction, the CondInst controllers and mask branch,
+    RAFT up-mask at rate 4) on the card, seeded random weights, with the
+    obj/cls prediction biases of both branches raised by 6 as _model
+    raises them, so that every slot keeps detections over conf_thre."""
+    import torch
+
+    from unicorn_torch.exp.unicorn_track_tiny_mask import Exp
+
+    if "vos_model" not in report:
+        exp = Exp()
+        model = exp.get_model(torch.Generator().manual_seed(0), serve=True)
+        with torch.no_grad():
+            for name, p in model.head.named_parameters():
+                if name.startswith(("obj_preds", "cls_preds")) and \
+                        name.endswith(".bias"):
+                    p.add_(6.0)
+        report["vos_model"] = (exp, model.to(DEVICE).eval())
+    return report["vos_model"]
+
+
+def _vos_masks(ids, hw=None):
+    """An (H, W) label mask of rectangles, one per id, on a grid of cells."""
+    import numpy as np
+
+    fh, fw = hw or VOS_FRAME_HW
+    cols = int(np.ceil(np.sqrt(len(ids) * fw / fh)))
+    rows = -(-len(ids) // cols)
+    ch, cw = fh // rows, fw // cols
+    m = np.zeros((fh, fw), np.uint8)
+    for n, oid in enumerate(ids):
+        r, c = divmod(n, cols)
+        m[r * ch + ch // 6:(r + 1) * ch - ch // 6,
+          c * cw + cw // 6:(c + 1) * cw - cw // 6] = oid
+    return m
+
+
+def _vos_driver(report, K):
+    from unicorn_torch.drivers.vos import VOSDriver
+
+    exp, model = _vos_model(report)
+    return exp, VOSDriver(model, input_size=exp.test_size, max_objects=K,
+                          use_raft=exp.use_raft, up_rate=exp.up_rate,
+                          device=DEVICE)
+
+
+def _vos_stages(driver, f, shared, head_loop=None):
+    """One frame of the shared or the general path, its stages synchronised
+    apart -> ms per stage. head_loop: a list that receives the ms of the
+    head run as K batch-1 calls on the same priors (not part of the
+    path)."""
+    import torch
+
+    K = driver.K
+    t = [time.perf_counter()]
+
+    def lap():
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+
+    img, r = driver.preprocess(f)
+    lap()
+    fpn_outs, feat_cur = driver.backbone(img)
+    lap()
+    if shared:
+        emb = driver.embed(driver.feat_ref1, feat_cur)
+        lbs = driver.lbs_ref.reshape(1, K, -1)
+    else:
+        emb = driver.embed(driver.feat_ref, feat_cur.expand(K, -1, -1, -1))
+        lbs = driver.lbs_ref
+    lap()
+    priors = driver.propagate(*emb, lbs)
+    lap()
+    flat, dets, valid, idx = driver.head(fpn_outs, priors)
+    lap()
+    masks = driver.mask_decode(fpn_outs, flat, idx)
+    lap()
+    driver.postprocess_masks_host(dets, valid, masks, r)
+    lap()
+    if head_loop is not None:
+        t0 = time.perf_counter()
+        for k in range(K):
+            driver.head(fpn_outs, priors[k:k + 1])
+        torch.cuda.synchronize()
+        head_loop.append((time.perf_counter() - t0) * 1e3)
+    names = ("letterbox", "backbone", "interaction+upsample", "correlation",
+             f"head over {K} slots", "mask decode", "aggregation+fetch")
+    return {n: (t[k + 1] - t[k]) * 1e3 for k, n in enumerate(names)}
+
+
+def phase_vos(report):
+    """VOS serving on the served unicorn_track_tiny_mask model, 480x854
+    uint8 frames (DAVIS 480p) letterboxed into 800x1280.
+
+    (1) Kernel against plain: one general-path frame at K = 4 (three
+    objects at initialize, one entering on the next frame) through the
+    dw7x7, MSDA and correlation kernels and through their plain versions
+    (the three wrappers patched out). Tolerances, those of phases sot_model
+    and inst: the embeddings of both sides within 5% of their largest
+    magnitude; the priors (averages of labels in [0, 1]) within 0.05 and
+    within 2% of the largest prior; each slot's top score within 0.05 (a maximum over anchors,
+    so it moves no more than the scores, as phase model bounds them); at
+    the kernel run's top anchor of each slot, the plain run's box within
+    5% of the box's larger side + 2 px (a 5%-of-|max| move of the
+    regression logits, through exp) and its mask probabilities within
+    0.05 (phase inst's bound); every slot keeps a detection in both runs.
+    (2) initialize with VOS_OBJECTS objects, VOS_WARMUP + VOS_SHARED track
+    calls on the shared-reference path; add_objects with one more object,
+    VOS_GENERAL track calls on the general path; frames/s, per-stage ms,
+    the head as K batch-1 calls beside the batched one, launches of each
+    kernel a frame, peak memory with one frame's outputs held. (3) One
+    shared-path frame at K = 17 (the correlation in two groups of label
+    maps) and one general-path frame at K = 17 (MSDA at batch 17): shapes,
+    finite values, launches."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from unicorn_torch.drivers import vos as vos_mod
+    from unicorn_torch.models import blocks, interaction
+    from unicorn_torch.models.heads import decode_boxes
+    from unicorn_torch.ops import correlation_kernel as ck
+    from unicorn_torch.ops import deform_attn as da
+    from unicorn_torch.ops import dwconv7x7 as dw
+
+    frames = _sot_frames(VOS_WARMUP + VOS_SHARED + VOS_GENERAL + 2, seed=6,
+                         hw=VOS_FRAME_HW)
+    fh, fw = VOS_FRAME_HW
+
+    # (1) one general-path frame, kernels against plain versions
+    exp, drv = _vos_driver(report, 4)
+    H, W = exp.test_size
+    drv.initialize(frames[0], _vos_masks([1, 2, 3]))
+    entry = _vos_masks([1, 2, 3, 4])
+    drv.add_objects(frames[1], entry * (entry == 4))
+    assert not drv.shared_ref and drv.obj_ids == [1, 2, 3, 4]
+    img, _ = drv.preprocess(frames[2])
+
+    def one():
+        fpn_outs, feat_cur = drv.backbone(img)
+        emb = drv.embed(drv.feat_ref, feat_cur.expand(4, -1, -1, -1))
+        priors = drv.propagate(*emb, drv.lbs_ref)
+        flat, dets, valid, idx = drv.head(fpn_outs, priors)
+        torch.cuda.synchronize()
+        return fpn_outs, priors, flat, dets, valid, idx, emb
+
+    _reset_kernel_counts()
+    out_k = one()
+    counts = _kernel_counts()
+    with mock.patch.object(blocks, "dwconv7x7", dw.dwconv7x7_plain), \
+            mock.patch.object(
+                interaction, "ms_deform_attn",
+                lambda v, l, a, method: da.ms_deform_attn_plain(
+                    v, l, a, "factored")), \
+            mock.patch.object(
+                vos_mod, "correlation_propagate_auto",
+                lambda e0, e1, v: ck.correlation_propagate_plain(
+                    e0, e1, v, bf16_dots=True)):
+        out_p = one()
+        # the masks of the kernel run's top anchors, from each run's
+        # controllers (the mask branch runs the trunk's maps, no kernel)
+        masks_k = drv.mask_decode(out_k[0], out_k[2], out_k[5])
+        masks_p = drv.mask_decode(out_p[0], out_p[2], out_k[5])
+        torch.cuda.synchronize()
+    assert _kernel_counts() == counts, "a plain version launched a kernel"
+    d_emb = max(((ek.float() - ep.float()).abs().max()
+                 / ep.float().abs().max()).item()
+                for ek, ep in zip(out_k[6], out_p[6]))
+    d_prior = (out_k[1] - out_p[1]).abs().max().item()
+    prior_tol = min(0.05, 0.02 * out_p[1].max().item())
+    d_score = (out_k[3][:, 0, 4] * out_k[3][:, 0, 5]
+               - out_p[3][:, 0, 4] * out_p[3][:, 0, 5]).abs().max().item()
+    a = out_k[5][:, 0].long()
+    rows = torch.arange(4, device=a.device)
+    bk = decode_boxes(out_k[2]["reg_raw"], out_k[2]["hw"], (8, 16, 32))[
+        rows, a]
+    bp = decode_boxes(out_p[2]["reg_raw"], out_p[2]["hw"], (8, 16, 32))[
+        rows, a]
+    box_tol = 0.05 * bp[:, 2:].amax(1, keepdim=True) + 2.0
+    box_bad = int(((bk - bp).abs() > box_tol).sum())
+    d_box = (bk - bp).abs().max().item()
+    d_mask = (masks_k - masks_p).abs().max().item()
+    same_top = int((out_k[5][:, 0] == out_p[5][:, 0]).sum())
+    kept = (int(out_k[4][:, 0].sum()), int(out_p[4][:, 0].sum()))
+    assert tuple(out_k[1].shape) == (4, 1, H // 8, W // 8)
+    assert tuple(masks_k.shape) == (4, H, W) and masks_k.dtype == torch.float32
+    for t in (out_k[1], out_k[3], masks_k):
+        assert bool(torch.isfinite(t).all())
+    print(f"vos general-path frame {H}x{W}, K = 4, kernel vs plain: "
+          f"embeddings max |d| / max|plain| {d_emb:.3e} (tol 0.05), priors "
+          f"max |d| {d_prior:.3e} (tol {prior_tol:.3e}; priors in "
+          f"[{out_k[1].min().item():.3f}, {out_k[1].max().item():.3f}]), top "
+          f"score max |d| {d_score:.3e} (tol 0.05), top-anchor box max |d| "
+          f"{d_box:.3f} px ({box_bad} coordinates beyond 5% of the larger "
+          f"side + 2 px), masks max |d| {d_mask:.3e} (tol 0.05); top "
+          f"anchors agree in {same_top} of 4 slots; slots with a detection "
+          f"{kept}; launches {counts}")
+    assert counts == dict(dwconv7x7=27, msda_factored=1, msda_direct=0,
+                          correlation=1), counts
+    assert d_emb <= 0.05 and d_prior <= prior_tol
+    assert d_score <= 0.05 and box_bad == 0
+    assert d_mask <= 0.05 and kept == (4, 4)
+    del out_k, out_p, masks_k, masks_p, drv
+
+    # (2) the timed run: shared path, then the general path after an entry
+    K = VOS_OBJECTS + 1
+    _, drv = _vos_driver(report, K)
+    ids0 = list(range(1, VOS_OBJECTS + 1))
+    mask0 = _vos_masks(ids0)
+    mask_new = _vos_masks(ids0 + [K])
+    mask_new = mask_new * (mask_new == K)
+    drv.initialize(frames[0], mask0)
+    for f in frames[1:1 + VOS_WARMUP]:
+        drv.track(f)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    n0 = 1 + VOS_WARMUP + VOS_SHARED
+    shared_frames = frames[1 + VOS_WARMUP:n0]
+    general_frames = frames[n0 + 1:n0 + 1 + VOS_GENERAL]
+    res = {}
+    for path, fr in (("shared", shared_frames), ("general", general_frames)):
+        if path == "general":
+            drv.add_objects(frames[n0], mask_new)
+            assert not drv.shared_ref and len(drv.obj_ids) == K
+            drv.track(frames[n0])   # the entry frame (GT overlay), not timed
+            torch.cuda.synchronize()
+        labels = []
+        _reset_kernel_counts()
+        t0 = time.perf_counter()
+        for f in fr:
+            out, _ = drv.track(f)       # one frame's outputs held at a time
+            labels.append(np.bincount(out.ravel(), minlength=K + 1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _kernel_counts()
+        res[path] = dict(fps=len(fr) / wall, counts=counts, n=len(fr),
+                         labels=np.stack(labels))
+        print(f"vos {path} path: track x {len(fr)}, {fh}x{fw} -> "
+              f"{exp.test_size} (r {drv.scale:.4f}), K = {K} slots, "
+              f"{len(drv.obj_ids)} objects: {len(fr) / wall:.2f} frames/s "
+              f"({wall / len(fr) * 1e3:.2f} ms/frame); launches {counts} "
+              f"({ {k: v / len(fr) for k, v in counts.items()} } a frame)")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"vos peak memory {peak:.2f} GiB over both timed loops ("
+          f"{resident:.2f} GiB held before the first timed frame: the "
+          f"models of this and earlier phases and the driver's state)")
+    report["vos_fps"] = {p: r["fps"] for p, r in res.items()}
+
+    # per-stage times, each path again, synchronised apart
+    head_loop = {"general": [], "shared": []}
+    stage_ms = {"general": [_vos_stages(drv, f, False, head_loop["general"])
+                            for f in general_frames]}
+    drv.initialize(frames[0], mask0)
+    stage_ms["shared"] = [_vos_stages(drv, f, True, head_loop["shared"])
+                          for f in shared_frames]
+    for path in ("shared", "general"):
+        med = {k: np.median([s[k] for s in stage_ms[path]])
+               for k in stage_ms[path][0]}
+        print(f"vos {path} per-stage ms (median of {len(stage_ms[path])}, "
+              "synchronised): " + ", ".join(f"{k} {v:.3f}"
+                                            for k, v in med.items())
+              + f"; the head as {drv.K} batch-1 calls instead: "
+              f"{np.median(head_loop[path]):.3f}")
+
+    ker = report.setdefault("kernels", {})
+    for name in ("dwconv7x7", "msda_factored", "correlation"):
+        k = ker.setdefault(name, {})
+        by_path = k.setdefault("launches_by_path", {})
+        for path, r in res.items():
+            by_path[f"vos_{path}"] = r["counts"][name]
+            k["launches"] = (k.get("launches") or 0) + r["counts"][name]
+    for path, r in res.items():
+        n = r["n"]
+        assert r["counts"] == dict(dwconv7x7=27 * n, msda_factored=n,
+                                   msda_direct=0, correlation=n), r["counts"]
+        # every frame labels pixels of at least one object; no label beyond
+        # the slots in use
+        lab = r["labels"]
+        assert (lab[:, 1:].sum(1) > 0).all(), f"{path}: no object labelled"
+    assert res["shared"]["labels"][:, K:].sum() == 0
+
+    # (3) K = 17: the correlation in two groups, then MSDA at batch 17
+    del drv
+    ids = list(range(1, VOS_K_WIDE + 1))
+    _, drv = _vos_driver(report, VOS_K_WIDE)
+    drv.initialize(frames[0], _vos_masks(ids))
+    _reset_kernel_counts()
+    out_s, boxes_s = drv.track(frames[1])
+    counts_s = _kernel_counts()
+    drv.initialize(frames[0], _vos_masks(ids[:-1]))
+    wide = _vos_masks(ids)
+    drv.add_objects(frames[1], wide * (wide == ids[-1]))
+    img, r = drv.preprocess(frames[2])
+    _reset_kernel_counts()
+    dets, valid, masks = drv.track_fn(img)
+    torch.cuda.synchronize()
+    counts_g = _kernel_counts()
+    out_g, boxes_g = drv.postprocess_masks_host(dets, valid, masks, r)
+    groups = -(-VOS_K_WIDE // ck.K_MAX)
+    print(f"vos K = {VOS_K_WIDE}: shared-path frame launches {counts_s} "
+          f"(correlation in {groups} groups of label maps), objects with a "
+          f"box {len(boxes_s)}, labels {sorted(np.unique(out_s).tolist())}; "
+          f"general-path frame (MSDA at batch {VOS_K_WIDE}) launches "
+          f"{counts_g}, dets {tuple(dets.shape)}, masks {tuple(masks.shape)}"
+          f", objects with a box {len(boxes_g)}")
+    assert counts_s == dict(dwconv7x7=27, msda_factored=1, msda_direct=0,
+                            correlation=groups), counts_s
+    assert counts_g == dict(dwconv7x7=27, msda_factored=1, msda_direct=0,
+                            correlation=1), counts_g
+    assert tuple(dets.shape) == (VOS_K_WIDE, 8, 7)
+    assert tuple(masks.shape) == (VOS_K_WIDE, H, W)
+    assert bool(torch.isfinite(dets).all() & torch.isfinite(masks).all())
+    assert out_s.shape == out_g.shape == (fh, fw)
+    assert len(boxes_s) == len(boxes_g) == VOS_K_WIDE
+    report.pop("vos_model")
+
+
 # -------------------------------------------------------- training phases
 TRAIN_B = 2               # image pairs per training batch
 TRAIN_LABELS = 100        # padded gt slots per frame (the JAX exp's max_labels)
@@ -2313,7 +2673,8 @@ def _profile(label, step, frames, show=()):
 def phase_profile(report):
     """torch.profiler over 4 frames each of the MOT path, the streaming path,
     the detector with fused blocks, the SOT path, the inst path and its
-    mask decode alone, and 4 training steps. Opt-in: --only profile."""
+    mask decode alone, the VOS shared path, and 4 training
+    steps. Opt-in: --only profile."""
     import numpy as np
 
     from unicorn_torch.drivers.mot import MOTDriver
@@ -2387,6 +2748,16 @@ def phase_profile(report):
     _profile("inst mask decode", lambda d: fwd.masks(*d), decoded)
     report.pop("inst_model")
 
+    # the VOS shared-reference path at K = VOS_OBJECTS + 1 slots
+    _, vos = _vos_driver(report, VOS_OBJECTS + 1)
+    vos_frames = _sot_frames(6, seed=6, hw=VOS_FRAME_HW)
+    vos.initialize(vos_frames[0], _vos_masks(range(1, VOS_OBJECTS + 1)))
+    for f in vos_frames[1:3]:
+        vos.track(f)
+    _profile(f"vos shared path, K = {vos.K}", vos.track, vos_frames[3:],
+             show=("dw7x7", "corr_tc_kernel", "msda"))
+    report.pop("vos_model")
+
     from unicorn_torch.core.train_state import TrainState
 
     exp, model = _train_model(report)
@@ -2413,12 +2784,13 @@ PHASES = {
     "sot_model": phase_sot_model,
     "sot": phase_sot,
     "inst": phase_inst,
+    "vos": phase_vos,
     "train_model": phase_train_model,
     "train": phase_train,
     "profile": phase_profile,
 }
 DEFAULT_PHASES = ("build", "kernels", "model", "main", "block_model",
-                  "stream", "sot_model", "sot", "inst", "train_model",
+                  "stream", "sot_model", "sot", "inst", "vos", "train_model",
                   "train")
 
 

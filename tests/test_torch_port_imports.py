@@ -1,11 +1,11 @@
 """The PyTorch port imports neither JAX/flax/optax nor the JAX package or
-tools.
+tools, nor OpenCV (cv2): it needs only PyTorch and numpy.
 
 Runs in a subprocess, because this test process has already imported jax
 (tests/conftest.py): a meta-path finder there refuses jax, flax, optax,
-unicorn_tpu and tools, then every module of unicorn_torch is imported, the
-training sub-packages `losses` and `core`, the fused block op, the device
-tracker and the streaming driver among them.
+unicorn_tpu, tools and cv2, then every module of unicorn_torch is imported,
+the training sub-packages `losses` and `core`, the fused block op, the
+device tracker and the streaming, inst and VOS drivers among them.
 """
 import os
 import subprocess
@@ -16,7 +16,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = r"""
 import importlib, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "unicorn_tpu", "tools")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "unicorn_tpu", "tools", "cv2")
 
 class Blocker:
     def find_spec(self, name, path=None, target=None):
@@ -37,7 +37,7 @@ for n in ("ops.deform_attn", "ops.correlation", "ops.correlation_kernel",
           "models.interaction", "drivers.sot", "losses.det", "losses.vos",
           "losses.uni", "core.schedule", "core.train_state",
           "core.train_step", "ops.convnext_block", "tracker.device_tracker",
-          "drivers.stream"):
+          "drivers.stream", "drivers.inst", "drivers.vos"):
     assert "unicorn_torch." + n in names, n
 print(len(names))
 """

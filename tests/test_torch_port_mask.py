@@ -220,8 +220,8 @@ def test_yolox_det_tree_round_trip_and_forward_match_jax(det):
         k: v.shape for k, v in _leaves(shapes["params"]).items()}
     assert "head/controller2/Conv_0/kernel" in got
     assert not any("sot" in k or "beta" in k for k in got)
-    state, not_ported = from_flax(params)
-    assert not_ported == [] and set(state) == set(tm.state_dict())
+    state = from_flax(params)
+    assert set(state) == set(tm.state_dict())
     for k, v in tm.state_dict().items():
         assert torch.equal(state[k], v), k
     img = _image(0)

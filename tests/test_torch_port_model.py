@@ -50,8 +50,7 @@ def setup():
     jm = JUnicorn(**CFG)
     init = jax.jit(functools.partial(jm.init, method=JUnicorn.init_all))
     params = init(jax.random.PRNGKey(0), jnp.asarray(imgs))
-    state, not_ported = from_flax(params)
-    return imgs, params, state, not_ported
+    return imgs, params, from_flax(params)
 
 
 def _torch_model(state, **kw):
@@ -77,17 +76,14 @@ def _flax_leaves(params):
 
 
 def test_from_flax_round_trip_is_identity(setup):
-    _, params, state, not_ported = setup
+    _, params, state = setup
     leaves = _flax_leaves(params)
     mapped, missed = convert_state_dict(
         {k: v.numpy() for k, v in state.items()})
     assert not missed
-    assert set(mapped) | set(not_ported) == set(leaves)
-    assert not set(mapped) & set(not_ported)
+    assert set(mapped) == set(leaves)
     for path, w in mapped.items():
         np.testing.assert_array_equal(w, leaves[path], err_msg=path)
-    # only the mask branch is not ported, and this model has none
-    assert not_ported == []
     assert {p.split("/")[0] for p in mapped} >= {
         "bottleneck", "upsample", "pos_emb", "interaction"}
     # the port's names are the state_dict's names, one to one
@@ -96,7 +92,7 @@ def test_from_flax_round_trip_is_identity(setup):
 
 @pytest.mark.parametrize("exact_gelu", [True, False])
 def test_forward_backbone_matches_jax_fp32(setup, exact_gelu):
-    imgs, params, state, _ = setup
+    imgs, params, state = setup
     jm = JUnicorn(**CFG, exact_gelu=exact_gelu)
     fpn_j, f16_j = jax.jit(functools.partial(
         jm.apply, method=JUnicorn.forward_backbone))(params, jnp.asarray(imgs))
@@ -119,7 +115,7 @@ def _whole(params, imgs, dtype=jnp.float32, **kw):
 
 @pytest.mark.parametrize("exact_gelu", [True, False])
 def test_forward_whole_matches_jax_fp32(setup, exact_gelu):
-    imgs, params, state, _ = setup
+    imgs, params, state = setup
     raw_j, f16_j = _whole(params, imgs, exact_gelu=exact_gelu)
     tm = _torch_model(state, exact_gelu=exact_gelu)
     with torch.no_grad():
@@ -133,7 +129,7 @@ def test_forward_whole_matches_jax_fp32(setup, exact_gelu):
 
 
 def test_forward_whole_matches_jax_bf16(setup):
-    imgs, params, state, _ = setup
+    imgs, params, state = setup
     raw_j, _ = _whole(params, imgs, dtype=jnp.bfloat16)
     tm = _torch_model(state, dtype=torch.bfloat16)
     with torch.no_grad():
@@ -148,7 +144,7 @@ def test_forward_whole_matches_jax_bf16(setup):
 
 
 def test_decode_and_postprocess_match_jax(setup):
-    imgs, params, state, _ = setup
+    imgs, params, state = setup
     raw_j, _ = _whole(params, imgs)
     tm = _torch_model(state)
     with torch.no_grad():
@@ -214,8 +210,7 @@ def test_from_flax_reports_only_the_mask_branch():
         jax.random.PRNGKey(0), jnp.zeros((1, H, W, 3), jnp.float32))
     params = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
                                     shapes)
-    state, not_ported = from_flax(params)
-    assert not_ported == []
+    state = from_flax(params)
     assert len(state) == len(_flax_leaves(params))
     assert "transformer.level_embed" in state
     assert "upsample_layer.3.bias" in state

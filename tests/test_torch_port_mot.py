@@ -119,7 +119,7 @@ def test_mot_driver_matches_jax_driver():
         return v
 
     params = jax.tree_util.tree_map_with_path(raise_prior, params)
-    state, _ = from_flax(params)
+    state = from_flax(params)
     tm = TUnicorn(**CFG)
     tm.load_state_dict(state)
     kw = dict(input_size=(H, W), num_classes=8, conf_thre=0.3,

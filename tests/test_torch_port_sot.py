@@ -53,8 +53,7 @@ def setup():
     init = jax.jit(functools.partial(jm.init, method=JUnicorn.init_all))
     params = init(jax.random.PRNGKey(2),
                   jnp.asarray(frames[0][None], jnp.float32))
-    state, not_ported = from_flax(params)
-    assert not not_ported
+    state = from_flax(params)
     # the stride-16 features of two frames, from the port's own trunk
     tm = _torch_model(state)
     with torch.no_grad():

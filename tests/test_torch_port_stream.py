@@ -54,7 +54,7 @@ def models():
         return v
 
     params = jax.tree_util.tree_map_with_path(raise_prior, params)
-    state, _ = from_flax(params)
+    state = from_flax(params)
     tm = TUnicorn(**CFG)
     tm.load_state_dict(state)
     return jm, params, tm

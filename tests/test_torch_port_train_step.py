@@ -119,8 +119,7 @@ def setup():
         return loss_dict, grads
 
     jax_out = [loss_and_grads(params, *map(jnp.asarray, b)) for b in batches]
-    state, not_ported = from_flax(params)
-    assert not not_ported
+    state = from_flax(params)
     return dict(batches=batches, params=params, state=state, jax_out=jax_out)
 
 
@@ -204,7 +203,7 @@ def _torch_state(setup, kind, grad_accum):
 
 
 def _set_grads(model, jax_grads):
-    state, _ = from_flax(jax_grads)
+    state = from_flax(jax_grads)
     for n, p in model.named_parameters():
         p.grad = state[n].clone()
 

@@ -322,9 +322,9 @@ def _flatten(tree, prefix=()):
 
 
 def from_flax(params):
-    """flax params tree (the variables dict or its "params") -> (state_dict
-    of fp32 torch tensors under the reference's names, []); the list is
-    always empty. A leaf that no rule names raises."""
+    """flax params tree (the variables dict or its "params") -> state_dict
+    of fp32 torch tensors under the reference's names. A leaf that no rule
+    names raises."""
     if set(params) == {"params"}:
         params = params["params"]
     rules = _inverse_rules()
@@ -351,7 +351,7 @@ def from_flax(params):
     for name, parts in qkv.items():
         state[name] = torch.tensor(np.concatenate([parts[i]
                                                    for i in range(3)]))
-    return state, []
+    return state
 
 
 def to_flax(named_tensors):

@@ -5,7 +5,7 @@ make_inst_forward).
 Fixed max_out detection slots: the NMS returns each kept row's anchor
 index, so the controllers' dynamic parameters, the anchor's location and
 its FPN level are gathered in one shot and the 3-layer dynamic head runs
-for all slots at once (ops.dynamic_conv.dynamic_mask_logits), then the
+for all slots at once (models.mask_head.instance_mask_probs), then the
 stride-8 logits go to stride 4 (aligned_bilinear x2, or RAFT convex
 upsampling) and through a sigmoid. Rows past the valid ones carry slot 0's
 anchor and are to be ignored, as in JAX.
@@ -16,11 +16,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.heads import decode_boxes, flatten_raw_outputs
-from ..models.mask_head import anchor_locations_and_levels
-from ..ops.dynamic_conv import (aligned_bilinear, convex_upsample,
-                                dynamic_mask_logits)
-from ..ops.letterbox import letterbox_device
+from ..models.heads import decode_flat, flatten_raw_outputs
+from ..models.mask_head import instance_mask_probs
+from ..ops.letterbox import letterbox_image
 from ..ops.nms import postprocess_device
 
 
@@ -47,9 +45,7 @@ class InstForward:
     def preprocess(self, image: np.ndarray, input_size):
         """HWC uint8 frame -> ((1, 3, H, W) float32 letterboxed on the
         device to input_size, scale r). The frame goes up as uint8."""
-        frame = torch.from_numpy(np.ascontiguousarray(image, np.uint8))
-        img, r = letterbox_device(frame.to(self.device), input_size)
-        return img.permute(2, 0, 1)[None], r
+        return letterbox_image(image, input_size, self.device)
 
     @torch.inference_mode()
     def forward(self, images):
@@ -61,13 +57,10 @@ class InstForward:
         """Decode + NMS -> (flat head outputs, dets (1, K, 7), valid (1, K),
         the kept rows' anchor indices (1, K))."""
         flat = flatten_raw_outputs(raw, "mot")
-        boxes = decode_boxes(flat["reg_raw"], flat["hw"], self.strides)
-        dec = torch.cat([boxes, torch.sigmoid(flat["obj_logits"]),
-                         torch.sigmoid(flat["cls_logits"])], -1)
         dets, valid, idx = postprocess_device(
-            dec, num_classes=self.num_classes, conf_thre=self.conf_thre,
-            nms_thre=self.nms_thre, n_cand=self.n_cand,
-            max_out=self.max_out, return_idx=True)
+            decode_flat(flat, self.strides), num_classes=self.num_classes,
+            conf_thre=self.conf_thre, nms_thre=self.nms_thre,
+            n_cand=self.n_cand, max_out=self.max_out, return_idx=True)
         return flat, dets, valid, idx
 
     @torch.inference_mode()
@@ -75,16 +68,8 @@ class InstForward:
         """The K slots' mask scores (K, H/4, W/4) from the controllers of
         their anchors and the image's mask features."""
         mask_feats, up_mask, _ = mask_out
-        locs, lvls = anchor_locations_and_levels(flat["hw"], self.strides,
-                                                 idx.device)
-        k_idx = idx[0].long()
-        logits = dynamic_mask_logits(mask_feats[0], flat["ctrl"][0][k_idx],
-                                     locs[k_idx], lvls[k_idx])
-        if self.use_raft and up_mask is not None:
-            masks = convex_upsample(logits, up_mask[0], self.up_rate)
-        else:
-            masks = aligned_bilinear(logits, 2)     # stride 8 -> 4
-        return torch.sigmoid(masks)
+        return instance_mask_probs(mask_feats, up_mask, flat, 0, idx[0],
+                                   self.strides, self.use_raft, self.up_rate)
 
     def __call__(self, images):
         raw, mask_out = self.forward(images)

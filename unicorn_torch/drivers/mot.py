@@ -13,7 +13,7 @@ import torch
 from ..device import resolve_device
 from ..models.heads import decode_for_inference
 from ..models.unicorn import Unicorn
-from ..ops.letterbox import letterbox_device
+from ..ops.letterbox import letterbox_image
 from ..ops.nms import postprocess_device
 from ..tracker.byte_tracker import ByteTracker
 
@@ -44,9 +44,7 @@ class MOTDriver:
     def preprocess(self, image: np.ndarray):
         """HWC uint8 frame -> ((1, 3, H, W) float32 channels_last on the
         device, letterbox scale r)."""
-        frame = torch.from_numpy(np.ascontiguousarray(image, np.uint8))
-        img, r = letterbox_device(frame.to(self.device), self.input_size)
-        return img.permute(2, 0, 1)[None], r
+        return letterbox_image(image, self.input_size, self.device)
 
     @torch.inference_mode()
     def forward(self, img):

@@ -22,7 +22,7 @@ from ..models.heads import decode_for_inference
 from ..models.unicorn import Unicorn
 from ..ops.correlation import box_label_map, resize_bilinear_torch
 from ..ops.correlation_kernel import correlation_propagate_auto
-from ..ops.letterbox import letterbox_device
+from ..ops.letterbox import letterbox_image
 from ..ops.nms import postprocess_device
 
 
@@ -46,9 +46,7 @@ class SOTDriver:
     def preprocess(self, image: np.ndarray):
         """HWC uint8 frame -> ((1, 3, H, W) float32 channels_last on the
         device, letterbox scale r). The frame goes up as uint8."""
-        frame = torch.from_numpy(np.ascontiguousarray(image, np.uint8))
-        img, r = letterbox_device(frame.to(self.device), self.input_size)
-        return img.permute(2, 0, 1)[None], r
+        return letterbox_image(image, self.input_size, self.device)
 
     @torch.inference_mode()
     def initialize(self, image, init_bbox_xywh):

@@ -217,7 +217,13 @@ def decode_boxes(reg_raw, hw_list, strides):
 def decode_for_inference(outputs, strides, mode: str = "mot",
                          unshared_obj=True, unshared_reg=True):
     """Full inference decode -> (B, A, 5+C): [cxcywh, obj_sig, cls_sig]."""
-    flat = flatten_raw_outputs(outputs, mode, unshared_obj, unshared_reg)
+    return decode_flat(flatten_raw_outputs(outputs, mode, unshared_obj,
+                                           unshared_reg), strides)
+
+
+def decode_flat(flat, strides):
+    """flatten_raw_outputs' dict -> (B, A, 5+C): [cxcywh, obj_sig,
+    cls_sig]."""
     boxes = decode_boxes(flat["reg_raw"], flat["hw"], strides)
     return torch.cat([boxes, torch.sigmoid(flat["obj_logits"]),
                       torch.sigmoid(flat["cls_logits"])], -1)

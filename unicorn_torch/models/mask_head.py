@@ -16,7 +16,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.dynamic_conv import (MASK_CHANNELS, aligned_bilinear,
-                                compute_locations)
+                                compute_locations, convex_upsample,
+                                dynamic_mask_logits)
 from .blocks import Conv2d, GroupNorm32
 from .heads import PRIOR_BIAS
 
@@ -94,3 +95,22 @@ def anchor_locations_and_levels(hw_list, strides, device=None):
         lvls.append(torch.full((h * w,), lvl, dtype=torch.int32,
                                device=device))
     return torch.cat(locs), torch.cat(lvls)
+
+
+def instance_mask_probs(mask_feats, up_mask, flat, rows, anchors, strides,
+                        use_raft: bool, up_rate: int):
+    """The CondInst mask decode of N instances -> sigmoid scores
+    (N, H/4, W/4). Instance n runs the controllers of anchor anchors[n] in
+    head batch row rows[n] (an int: the same row for all) on the image's
+    mask features (1, 8, H/8, W/8); stride 8 -> 4 by RAFT convex
+    upsampling (use_raft, with the up-mask) or aligned_bilinear x2."""
+    locs, lvls = anchor_locations_and_levels(flat["hw"], strides,
+                                             anchors.device)
+    anchors = anchors.long()
+    logits = dynamic_mask_logits(mask_feats[0], flat["ctrl"][rows, anchors],
+                                 locs[anchors], lvls[anchors])
+    if use_raft and up_mask is not None:
+        m = convex_upsample(logits, up_mask[0], up_rate)
+    else:
+        m = aligned_bilinear(logits, 2)                 # stride 8 -> 4
+    return torch.sigmoid(m)

@@ -7,6 +7,7 @@ uint8 as cv2's output is, then padded with 114 at the bottom and right.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -29,3 +30,11 @@ def letterbox_device(frame_u8: torch.Tensor, dst_hw):
     out = torch.full((dh, dw, 3), 114.0, device=frame_u8.device)
     out[:rh, :rw] = x[0].permute(1, 2, 0)
     return out, r
+
+
+def letterbox_image(image: np.ndarray, dst_hw, device):
+    """HWC uint8 frame on the host -> ((1, 3, dst_h, dst_w) float32 on
+    `device`, a channels_last view, scale r). The frame goes up as uint8."""
+    frame = torch.from_numpy(np.ascontiguousarray(image, np.uint8))
+    img, r = letterbox_device(frame.to(device), dst_hw)
+    return img.permute(2, 0, 1)[None], r
