@@ -64,6 +64,18 @@ Phases (each must pass, else the exit code is 1):
              shared-path frame at K = 17 (the correlation in 2 groups of
              label maps) and one general-path frame at K = 17 (MSDA at
              batch 17)
+  omni       the omni path (MOTOmniDriver as tools/track_omni.py builds
+             it: test_conf 0.01, nms 0.65, max_out 128, biases raised by
+             6): one 720x1280 frame of the served unicorn_track_tiny_mask
+             model through the dw7x7 and MSDA kernels vs their plain
+             versions from the same previous frame (top score, box,
+             embeddings, mask; MSDA in bf16); unicorn_track_tiny on
+             1080x1920 frames (MOT17) and unicorn_track_tiny_mask with
+             masks on 720x1280 frames (BDD100K seg_track), each 3 warm-up
+             and 16 timed QDTrack updates, then 8 DeepSORT updates:
+             frames/s, per-stage ms, bytes fetched a frame, launches per
+             frame (27 dw7x7, 1 msda, 0 correlation), peak memory; one
+             frame each way at conf_thre 1.0 (the empty mask grid)
   train_model  the model as trained (bf16 trunk, fp32 interaction): one
              uni_loss_fn forward + backward on a mixed SOT/MOT batch through
              the kernels vs through their plain versions; loss and every
@@ -1983,26 +1995,33 @@ VOS_GENERAL = 8           # timed track calls on the general path
 VOS_K_WIDE = 17           # label maps of the frames that need two groups
 
 
-def _vos_model(report):
-    """The served unicorn_track_tiny_mask Unicorn (ConvNeXt-Tiny, bf16 trunk
-    and head, bf16 interaction, the CondInst controllers and mask branch,
-    RAFT up-mask at rate 4) on the card, seeded random weights, with the
-    obj/cls prediction biases of both branches raised by 6 as _model
-    raises them, so that every slot keeps detections over conf_thre."""
+def _served_model(report, key, exp_cls):
+    """A served Unicorn (bf16 trunk and head, bf16 interaction) of exp_cls
+    on the card, seeded random weights, with the obj/cls prediction biases
+    of both branches raised by 6 as _model raises them, so that the NMS
+    keeps detections over conf_thre and the trackers' thresholds; built
+    once under report[key]."""
     import torch
 
-    from unicorn_torch.exp.unicorn_track_tiny_mask import Exp
-
-    if "vos_model" not in report:
-        exp = Exp()
+    if key not in report:
+        exp = exp_cls()
         model = exp.get_model(torch.Generator().manual_seed(0), serve=True)
         with torch.no_grad():
             for name, p in model.head.named_parameters():
                 if name.startswith(("obj_preds", "cls_preds")) and \
                         name.endswith(".bias"):
                     p.add_(6.0)
-        report["vos_model"] = (exp, model.to(DEVICE).eval())
-    return report["vos_model"]
+        report[key] = (exp, model.to(DEVICE).eval())
+    return report[key]
+
+
+def _vos_model(report):
+    """The served unicorn_track_tiny_mask Unicorn (ConvNeXt-Tiny, the
+    CondInst controllers and mask branch, RAFT up-mask at rate 4), biases
+    raised, so that every slot keeps detections over conf_thre."""
+    from unicorn_torch.exp.unicorn_track_tiny_mask import Exp
+
+    return _served_model(report, "vos_model", Exp)
 
 
 def _vos_masks(ids, hw=None):
@@ -2301,6 +2320,298 @@ def phase_vos(report):
     assert out_s.shape == out_g.shape == (fh, fw)
     assert len(boxes_s) == len(boxes_g) == VOS_K_WIDE
     report.pop("vos_model")
+
+
+# ---------------------------------------------------------------- omni
+OMNI_WARMUP = 3           # update calls before each model's timed QDTrack run
+OMNI_QD = 16              # timed update calls of each QDTrack run
+OMNI_DEEPSORT = 8         # timed update calls of each DeepSORT run
+OMNI_MOTS_HW = (720, 1280)  # BDD100K seg_track frames (MOT17's: FRAME_HW)
+
+
+def _omni_driver(report, with_mask, tracker="qd", **kw):
+    """MOTOmniDriver as tools/track_omni.py builds it (the exp's test
+    size, classes, test_conf and nmsthre; max_out 128; use_raft left at
+    its default, False) on the served unicorn_track_tiny model or, with
+    with_mask, the served unicorn_track_tiny_mask model."""
+    from unicorn_torch.drivers.mot import MOTOmniDriver
+    from unicorn_torch.exp.unicorn_track_tiny import Exp
+
+    exp, model = (_vos_model(report) if with_mask else
+                  _served_model(report, "omni_model", Exp))
+    args = dict(num_classes=exp.num_classes, conf_thre=exp.test_conf,
+                nms_thre=exp.nmsthre, max_out=128, with_mask=with_mask,
+                tracker=tracker, device=DEVICE)
+    return exp, MOTOmniDriver(model, exp.test_size, **{**args, **kw})
+
+
+def _omni_stages(drv, f):
+    """One update, its stages synchronised apart -> (ms per stage, bytes of
+    the packed fetch, bytes of the mask fetch). The output is dropped, as a
+    caller that holds one frame's output at a time drops it, so that the
+    mask fetch reuses its page-locked block."""
+    import torch
+
+    t = [time.perf_counter()]
+
+    def lap():
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+
+    img, r = drv.preprocess(f)
+    lap()
+    fpn_outs, feat_cur = drv.backbone(img)
+    lap()
+    raw = drv.head(fpn_outs)
+    lap()
+    flat, dets, valid, idx = drv.detect(raw)
+    lap()
+    prev = feat_cur if drv.feat_prev is None else drv.feat_prev
+    embeds = drv.embed(prev, feat_cur, dets)
+    lap()
+    masks = drv.mask_decode(fpn_outs, flat, idx) if drv.with_mask else None
+    lap()
+    drv.feat_prev = feat_cur
+    drv.frame_id += 1
+    packed = drv.fetch(dets, valid, embeds)
+    lap()
+    _, rows = drv.associate(packed, r)
+    lap()
+    mask_bytes = 0
+    if drv.with_mask:
+        drv.fetch_masks(masks, rows)
+        mask_bytes = len(rows) * masks[0].numel() * 4    # float32 rows
+    lap()
+    names = ("letterbox", "backbone", "head", "decode+nms",
+             "interaction+upsample+sample", "mask decode", "fetch",
+             "tracker", "mask fetch")
+    return ({n: (t[k + 1] - t[k]) * 1e3 for k, n in enumerate(names)},
+            packed.nbytes, mask_bytes)
+
+
+def phase_omni(report):
+    """The omni path (MOTOmniDriver): MOT and MOTS with QDTrack or DeepSORT
+    association on the served models, 800x1280.
+
+    (1) Kernel against plain: on the unicorn_track_tiny_mask model, one
+    720x1280 frame after a first one (the same feat_prev) through the
+    dw7x7 and MSDA kernels and through their plain versions (the wrappers
+    patched out). Tolerances, phase vos's: the top score within 0.05; at
+    the kernel run's top anchor the plain run's box within 5% of its larger
+    side + 2 px and its mask within 0.05; the embeddings of both runs at
+    the kernel run's boxes within 5% of their largest magnitude. The MSDA
+    kernel must see bf16 values (the served interaction), once.
+    (2) unicorn_track_tiny, 1080x1920 uint8 frames (MOT17's size; a panning
+    texture): OMNI_WARMUP + OMNI_QD QDTrack updates, then OMNI_DEEPSORT
+    DeepSORT updates; unicorn_track_tiny_mask with masks, 720x1280 frames
+    (BDD100K seg_track's size): the same. Frames/s of the four runs,
+    launches a frame (27 dw7x7, 1 MSDA, 0 correlation), peak memory; then
+    every run again with its stages synchronised apart (medians) and the
+    bytes fetched a frame. (3) DeepSORT with masks on one frame repeated
+    (tracks confirm), then at conf_thre 1.0 (they coast with zero masks);
+    one frame each way at conf_thre 1.0 on fresh drivers: the empty mask
+    grid (0, H/4, W/4)."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from unicorn_torch.models import blocks, interaction
+    from unicorn_torch.models.heads import decode_boxes
+    from unicorn_torch.ops import deform_attn as da
+    from unicorn_torch.ops import dwconv7x7 as dw
+
+    mots_frames = _sot_frames(OMNI_WARMUP + OMNI_QD + OMNI_DEEPSORT, seed=7,
+                              hw=OMNI_MOTS_HW)
+    mot_frames = _sot_frames(OMNI_WARMUP + OMNI_QD + OMNI_DEEPSORT, seed=8)
+
+    # (1) one frame, kernels against plain versions, the same feat_prev
+    exp, drv = _omni_driver(report, True)
+    H, W = exp.test_size
+    drv.update(mots_frames[0])
+    img, _ = drv.preprocess(mots_frames[1])
+    msda_dtypes = []
+    msda = interaction.ms_deform_attn
+
+    def recording(value, *a, **k):
+        msda_dtypes.append(value.dtype)
+        return msda(value, *a, **k)
+
+    def one():
+        fpn_outs, feat_cur = drv.backbone(img)
+        flat, dets, valid, idx = drv.detect(drv.head(fpn_outs))
+        torch.cuda.synchronize()
+        return fpn_outs, feat_cur, flat, dets, valid, idx
+
+    _reset_kernel_counts()
+    with mock.patch.object(interaction, "ms_deform_attn", recording):
+        out_k = one()
+        emb_k = drv.embed(drv.feat_prev, out_k[1], out_k[3])
+        masks_k = drv.mask_decode(out_k[0], out_k[2], out_k[5])
+        torch.cuda.synchronize()
+    counts = _kernel_counts()
+    with mock.patch.object(blocks, "dwconv7x7", dw.dwconv7x7_plain), \
+            mock.patch.object(
+                interaction, "ms_deform_attn",
+                lambda v, l, a, method: da.ms_deform_attn_plain(
+                    v, l, a, "factored")):
+        out_p = one()
+        # the plain run's embeddings and masks at the kernel run's boxes
+        # and anchors
+        emb_p = drv.embed(drv.feat_prev, out_p[1], out_k[3])
+        masks_p = drv.mask_decode(out_p[0], out_p[2], out_k[5])
+        torch.cuda.synchronize()
+    assert _kernel_counts() == counts, "a plain version launched a kernel"
+    n_valid = int(out_k[4].sum())
+    d_emb = ((emb_k[:n_valid] - emb_p[:n_valid]).abs().max()
+             / emb_p[:n_valid].abs().max()).item()
+    d_score = abs((out_k[3][0, 0, 4] * out_k[3][0, 0, 5]
+                   - out_p[3][0, 0, 4] * out_p[3][0, 0, 5]).item())
+    a = out_k[5][0, 0].long()
+    bk = decode_boxes(out_k[2]["reg_raw"], out_k[2]["hw"], (8, 16, 32))[0, a]
+    bp = decode_boxes(out_p[2]["reg_raw"], out_p[2]["hw"], (8, 16, 32))[0, a]
+    box_bad = int(((bk - bp).abs() > 0.05 * bp[2:].max() + 2.0).sum())
+    d_box = (bk - bp).abs().max().item()
+    d_mask = (masks_k[0].float() - masks_p[0].float()).abs().max().item()
+    d_mask_all = (masks_k[:n_valid].float()
+                  - masks_p[:n_valid].float()).abs().max().item()
+    grid = (H // 4, W // 4)
+    assert tuple(masks_k.shape) == (128,) + grid, masks_k.shape
+    assert masks_k.dtype == torch.float16 and emb_k.dtype == torch.float32
+    for t in (out_k[3], emb_k, masks_k):
+        assert bool(torch.isfinite(t).all())
+    print(f"omni frame {H}x{W} (unicorn_track_tiny_mask), kernel vs plain "
+          f"from the same feat_prev: top score |d| {d_score:.3e} (tol "
+          f"0.05), top-anchor box max |d| {d_box:.3f} px ({box_bad} "
+          f"coordinates beyond 5% of the larger side + 2 px), embeddings "
+          f"of the {n_valid} kept rows max |d| / max|plain| {d_emb:.3e} "
+          f"(tol 0.05), top-anchor mask max |d| {d_mask:.3e} (tol 0.05; "
+          f"all {n_valid} kept rows {d_mask_all:.3e}); top anchors "
+          f"{'agree' if bool(out_k[5][0, 0] == out_p[5][0, 0]) else 'differ'}"
+          f"; MSDA value dtypes {msda_dtypes}; launches {counts}")
+    assert counts == dict(dwconv7x7=27, msda_factored=1, msda_direct=0,
+                          correlation=0), counts
+    assert msda_dtypes == [torch.bfloat16], msda_dtypes
+    assert d_score <= 0.05 and box_bad == 0
+    assert d_emb <= 0.05 and d_mask <= 0.05 and n_valid > 0
+    del out_k, out_p, emb_k, emb_p, masks_k, masks_p, drv
+
+    # (2) the four timed runs, then their stages
+    runs = {}
+    for with_mask, frames in ((False, mot_frames), (True, mots_frames)):
+        exp, drv = _omni_driver(report, with_mask)
+        for f in frames[:OMNI_WARMUP]:
+            drv.update(f)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        timed = frames[OMNI_WARMUP:]
+        for kind, fr in (("qd", timed[:OMNI_QD]),
+                         ("deepsort",
+                          timed[OMNI_QD:OMNI_QD + OMNI_DEEPSORT])):
+            if kind == "deepsort":
+                drv = _omni_driver(report, with_mask, "deepsort")[1]
+            else:
+                drv.reset()
+            name = f"{'mots' if with_mask else 'mot'} {kind}"
+            n_out = []
+            _reset_kernel_counts()
+            t0 = time.perf_counter()
+            for f in fr:
+                out = drv.update(f)     # one frame's outputs held at a time
+                n_out.append(len(out[0]))
+                assert all(np.isfinite(o).all() for o in out)
+                if with_mask:
+                    assert out[3].shape == (len(out[0]), H // 4, W // 4)
+                    assert 0.0 <= out[3].min(initial=0.0) and \
+                        out[3].max(initial=0.0) <= 1.0
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            table = len(drv.tracker.track_id if kind == "deepsort"
+                        else drv.tracker.tracklets)
+            runs[name] = dict(fps=len(fr) / wall, counts=_kernel_counts(),
+                              n=len(fr), rows=n_out, frames=fr,
+                              with_mask=with_mask, kind=kind, table=table)
+            print(f"omni {name}: update x {len(fr)}, {fr[0].shape[0]}x"
+                  f"{fr[0].shape[1]} -> {exp.test_size}: "
+                  f"{len(fr) / wall:.2f} frames/s ({wall / len(fr) * 1e3:.2f}"
+                  f" ms/frame); rows out a frame {n_out}; tracks in the "
+                  f"tracker's table {table}; launches {runs[name]['counts']}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"omni {'mots' if with_mask else 'mot'} peak memory "
+              f"{peak:.2f} GiB over its two timed runs ({resident:.2f} GiB "
+              f"held before them: the models of this and earlier phases "
+              f"and the driver's state); the path's own "
+              f"{peak - resident:.2f} GiB")
+    report["omni_fps"] = {k: r["fps"] for k, r in runs.items()}
+
+    for name, r in runs.items():
+        drv = _omni_driver(report, r["with_mask"], r["kind"])[1]
+        staged = [_omni_stages(drv, f) for f in r["frames"]]
+        med = {k: np.median([s[0][k] for s in staged]) for k in staged[0][0]}
+        packed_b = staged[0][1]
+        mask_b = [s[2] for s in staged]
+        line = ", ".join(f"{k} {v:.3f}" for k, v in med.items()
+                         if r["with_mask"] or k not in ("mask decode",
+                                                        "mask fetch"))
+        print(f"omni {name} per-stage ms (median of {len(staged)}, "
+              f"synchronised): {line}; fetched a frame: {packed_b} B packed"
+              + (f" + masks {int(np.median(mask_b))} B median (min "
+                 f"{min(mask_b)}, max {max(mask_b)}), where JAX's fetch of "
+                 f"all 128 rows in float16 is {128 * (H // 4) * (W // 4) * 2}"
+                 " B"
+                 if r["with_mask"] else ""))
+
+    ker = report.setdefault("kernels", {})
+    for kname in ("dwconv7x7", "msda_factored"):
+        k = ker.setdefault(kname, {})
+        by_path = k.setdefault("launches_by_path", {})
+        for name, r in runs.items():
+            by_path["omni_" + name.replace(" ", "_")] = r["counts"][kname]
+            k["launches"] = (k.get("launches") or 0) + r["counts"][kname]
+    for name, r in runs.items():
+        n = r["n"]
+        assert r["counts"] == dict(dwconv7x7=27 * n, msda_factored=n,
+                                   msda_direct=0, correlation=0), \
+            (name, r["counts"])
+        # QDTrack starts a track for every row over init_score_thr; the
+        # random-weight detections reshuffle among near-equal anchors as
+        # the texture pans, so DeepSORT may confirm none (3 hits in a row)
+        # but must hold tentative rows
+        assert r["table"] > 0, f"omni {name}: the tracker holds no track"
+        assert r["kind"] == "deepsort" or min(r["rows"]) > 0, name
+
+    # (3) DeepSORT's lifecycle with masks on a still scene (the same frame
+    # 4 times: the detections repeat, so tracks confirm on their third
+    # hit), then a frame where no detection passes (conf_thre 1.0): the
+    # confirmed tracks coast with zero masks; fresh drivers at conf_thre
+    # 1.0 return the empty shapes with the mask grid
+    grid = (H // 4, W // 4)
+    _, drv = _omni_driver(report, True, "deepsort")
+    for f in [mots_frames[0]] * 4:
+        out = drv.update(f)
+    rows = np.asarray(drv.tracker.last_det_indices)
+    n_conf = len(out[0])
+    drv.conf_thre = 1.0
+    coast = drv.update(mots_frames[0])
+    print(f"omni mots deepsort, one frame 4 times: {n_conf} confirmed "
+          f"tracks, detection rows {int((rows >= 0).sum())}, masks "
+          f"{out[3].shape} in [{out[3].min(initial=0):.3f}, "
+          f"{out[3].max(initial=0):.3f}]; then at conf_thre 1.0: "
+          f"{len(coast[0])} coasting tracks, masks {coast[3].shape}, "
+          f"max {coast[3].max(initial=0):.3f}")
+    assert n_conf > 0 and (rows >= 0).all() and out[3].shape[1:] == grid
+    assert out[3].max() > 0
+    assert len(coast[0]) == n_conf and not coast[3].any()
+    assert drv.tracker.last_det_indices == [-1] * n_conf
+    for kind in ("qd", "deepsort"):
+        _, drv = _omni_driver(report, True, kind, conf_thre=1.0)
+        out = drv.update(mots_frames[0])
+        print(f"omni mots {kind} at conf_thre 1.0: shapes "
+              f"{[o.shape for o in out]}")
+        assert [o.shape for o in out] == [(0, 5), (0,), (0,), (0,) + grid]
+    report.pop("vos_model")
+    report.pop("omni_model")
 
 
 # -------------------------------------------------------- training phases
@@ -2673,8 +2984,8 @@ def _profile(label, step, frames, show=()):
 def phase_profile(report):
     """torch.profiler over 4 frames each of the MOT path, the streaming path,
     the detector with fused blocks, the SOT path, the inst path and its
-    mask decode alone, the VOS shared path, and 4 training
-    steps. Opt-in: --only profile."""
+    mask decode alone, the VOS shared path, the omni MOTS path (QDTrack),
+    and 4 training steps. Opt-in: --only profile."""
     import numpy as np
 
     from unicorn_torch.drivers.mot import MOTDriver
@@ -2756,6 +3067,13 @@ def phase_profile(report):
         vos.track(f)
     _profile(f"vos shared path, K = {vos.K}", vos.track, vos_frames[3:],
              show=("dw7x7", "corr_tc_kernel", "msda"))
+
+    # the omni path: MOTS with QDTrack, 720x1280 frames
+    _, omni = _omni_driver(report, True)
+    mots = _sot_frames(5, seed=7, hw=OMNI_MOTS_HW)
+    for f in mots[:2]:
+        omni.update(f)
+    _profile("omni mots qd", omni.update, mots[2:], show=("dw7x7", "msda"))
     report.pop("vos_model")
 
     from unicorn_torch.core.train_state import TrainState
@@ -2785,13 +3103,14 @@ PHASES = {
     "sot": phase_sot,
     "inst": phase_inst,
     "vos": phase_vos,
+    "omni": phase_omni,
     "train_model": phase_train_model,
     "train": phase_train,
     "profile": phase_profile,
 }
 DEFAULT_PHASES = ("build", "kernels", "model", "main", "block_model",
-                  "stream", "sot_model", "sot", "inst", "vos", "train_model",
-                  "train")
+                  "stream", "sot_model", "sot", "inst", "vos", "omni",
+                  "train_model", "train")
 
 
 def main(argv=None) -> int:

@@ -5,7 +5,8 @@ Runs in a subprocess, because this test process has already imported jax
 (tests/conftest.py): a meta-path finder there refuses jax, flax, optax,
 unicorn_tpu, tools and cv2, then every module of unicorn_torch is imported,
 the training sub-packages `losses` and `core`, the fused block op, the
-device tracker and the streaming, inst and VOS drivers among them.
+device tracker, the streaming, inst and VOS drivers, the omni MOT driver,
+the QDTrack / SORT / DeepSORT / MOTDT trackers and utils.boxes among them.
 """
 import os
 import subprocess
@@ -37,7 +38,9 @@ for n in ("ops.deform_attn", "ops.correlation", "ops.correlation_kernel",
           "models.interaction", "drivers.sot", "losses.det", "losses.vos",
           "losses.uni", "core.schedule", "core.train_state",
           "core.train_step", "ops.convnext_block", "tracker.device_tracker",
-          "drivers.stream", "drivers.inst", "drivers.vos"):
+          "drivers.stream", "drivers.inst", "drivers.vos",
+          "tracker.qd_tracker", "tracker.legacy", "utils.boxes",
+          "drivers.mot"):
     assert "unicorn_torch." + n in names, n
 print(len(names))
 """

@@ -1,9 +1,13 @@
 """Online trackers of the port: numpy copies of the JAX package's host
-trackers, and the on-device ByteTrack (batched tensor code)."""
+trackers (ByteTrack, QDTrack, SORT, DeepSORT, MOTDT), and the on-device
+ByteTrack (batched tensor code)."""
 from .byte_tracker import ByteTracker, TrackView
 from .device_tracker import (TrackState, auction_assign, greedy_assign,
                              init_state, tracker_step)
 from .kalman import KalmanFilter
+from .legacy import DeepSort, OnlineTracker, Sort
+from .qd_tracker import QuasiDenseEmbedTracker
 
 __all__ = ["ByteTracker", "TrackView", "KalmanFilter", "TrackState",
-           "auction_assign", "greedy_assign", "init_state", "tracker_step"]
+           "auction_assign", "greedy_assign", "init_state", "tracker_step",
+           "QuasiDenseEmbedTracker", "Sort", "DeepSort", "OnlineTracker"]
