@@ -8,8 +8,10 @@ Phases (each must pass, else the exit code is 1):
              built with nvcc (dwconv7x7, convnext_block, msda, correlation,
              correlation_train), in parallel
   kernels    each kernel against its plain PyTorch version at the main
-             paths' shapes and at ragged ones (the correlation kernels also
-             at K = 17 and 33 label maps, one launch a group of 16; dw7x7
+             paths' shapes and at ragged ones (the training correlation at
+             K = 1 and at the VOS + MOTS step's K = 3, both timed; the
+             correlation kernels also at K = 17 and 33 label maps, one
+             launch a group of 16; dw7x7
              and MSDA also at widths the wrapper zero-pads: C = 12, 20 and
              D = 6), in bf16 and fp32, with times (dw7x7 per shape, with
              the tiling its launcher picks; the fused block per shape, with
@@ -87,6 +89,25 @@ Phases (each must pass, else the exit code is 1):
              batch (the loss must fall), 2 steps with their stages timed
              apart; ms/step, peak memory, launch counts per step (36 dw7x7,
              1 msda, 2 each of the three correlation training kernels)
+  inst_train the inst stage's training step (ExpDetMask.get_optimizer:
+             SGD, mask-only, EMA; get_train_step) on the
+             unicorn_inst_convnext_tiny_800x1280 YOLOXDet at B = 2 images
+             of 800x1280 with 16 boxes and elliptic masks an image: one
+             step's loss and trainable gradients through the dw7x7 kernel
+             vs its plain version; 2 + 8 timed steps (ms/step, images/s,
+             peak memory, 27 dw7x7 launches a step); the frozen tensors
+             bit-identical after them; two BoxInst steps (projection and
+             pairwise terms finite and > 0)
+  mask_train the VOS + MOTS stage's training step (ExpTrackMask:
+             AdamW, accumulation over 2, mask-only) on the
+             unicorn_track_tiny_mask Unicorn at B = 2 pairs of 800x1280,
+             one VOS and one MOTS pair, masks at d_rate 2: one step
+             through the dw7x7, MSDA and training-correlation kernels vs
+             their plain versions; 2 + 8 timed steps (ms/step, pairs/s,
+             peak memory; 36 dw7x7, 1 MSDA, 1 fwd_lse at K = 3 label maps
+             a step); the frozen tensors bit-identical; with every tensor
+             training, one step kernels vs plain (the embedding layers'
+             gradients) and two timed steps, bwd_i and bwd_j once a step
 `--only profile` adds a torch.profiler breakdown of the paths.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the rest of the
@@ -863,6 +884,8 @@ def event_time_ms(fn, iters: int = 3) -> float:
 
 
 TRAIN_SHAPE = (2, 16000, 128, 1)   # B, N, C, K of one 800x1280 training step
+# the VOS + MOTS step's: its three VOS slots propagate as K = 3 label maps
+TRAIN_SHAPE_K3 = (2, 16000, 128, 3)
 
 
 def kernels_correlation_train(report) -> bool:
@@ -893,7 +916,8 @@ def kernels_correlation_train(report) -> bool:
     # (B, N, C, K, scale, rtol): the training step's shape, a ragged one, a
     # sharp one, a width that fills only part of the channel tile, and two
     # or three groups of label maps
-    cases = (TRAIN_SHAPE + (0.3, 1e-4), (2, 77, 16, 16, 1.0, 1e-4),
+    cases = (TRAIN_SHAPE + (0.3, 1e-4), TRAIN_SHAPE_K3 + (0.3, 1e-4),
+             (2, 77, 16, 16, 1.0, 1e-4),
              (2, 1000, 16, 3, 10.0, 1e-3), (1, 300, 96, 2, 1.0, 1e-4),
              (2, 300, 128, 17, 1.0, 1e-4), (1, 257, 128, 33, 1.0, 1e-4))
     ok = True
@@ -946,10 +970,10 @@ def kernels_correlation_train(report) -> bool:
               f"{d_out.max().item():.2e} {d_lse.max().item():.2e} "
               f"{rels[0]:.2e}  {rels[1]:.2e}  {rels[2]:.2e}  {vjp}"
               f"{'' if good else '  FAIL'}")
-        if (B, N, C, K) != TRAIN_SHAPE:
+        if (B, N, C, K) not in (TRAIN_SHAPE, TRAIN_SHAPE_K3):
             continue
 
-        # times, bounds and the library yardstick at the training shape
+        # times, bounds and the library yardstick at the training shapes
         nb_in = (e0.numel() + e1.numel() + v.numel()) * 4
         nb_bwd = nb_in + (lse.numel() + dout.numel() + c.numel()) * 4
         work = {   # name: (bytes, operations, launch, plain)
@@ -994,7 +1018,7 @@ def kernels_correlation_train(report) -> bool:
                 q, kk, vv, scale=1.0), iters=3)
         t_lib_b = event_time_ms(lambda: torch.autograd.grad(
             lib, (q, kk, vv), gg, retain_graph=True))
-        print(f"           sdpa fp32 at {TRAIN_SHAPE}: forward {t_lib_f:.3f} "
+        print(f"           sdpa fp32 at {(B, N, C, K)}: forward {t_lib_f:.3f} "
               f"ms (vs plain {lib_err:.1e}), backward {t_lib_b:.3f} ms (dq, "
               f"dk vs plain, share of max {lib_gerr:.1e})")
         errs = {"fwd_lse": d_out.max().item(),
@@ -1018,7 +1042,16 @@ def kernels_correlation_train(report) -> bool:
                 library_ms=t_lib_f if name == "fwd_lse" else t_lib_b)
             if name != "fwd_lse":
                 entry["library_covers"] = "sdpa backward: bwd_i and bwd_j"
-            report.setdefault("kernels", {})[f"correlation_{name}"] = entry
+            ker = report.setdefault("kernels", {})
+            if (B, N, C, K) == TRAIN_SHAPE:
+                entry["per_shape"] = ker.get(f"correlation_{name}", {}).get(
+                    "per_shape", [])
+                ker[f"correlation_{name}"] = entry
+            else:   # the K = 3 shape, after the K = 1 one
+                ker[f"correlation_{name}"]["per_shape"].append(dict(
+                    shape=[B, N, C, K], ms=t_k, plain_ms=t_p, bound_ms=bound,
+                    bound_by=bound_by, library_ms=entry["library_ms"],
+                    max_abs_err=errs[name]))
     return ok
 
 
@@ -2694,53 +2727,34 @@ def _uni_loss_kwargs(exp):
                 mhs=exp.mhs)
 
 
-def phase_train_model(report):
-    """One uni_loss_fn forward + backward of the full-width model on one
-    mixed batch (an SOT and a MOT sample) with every wrapper pointed at its
-    plain version, then through the kernels. Checked in the kernels' run:
-    each dw7x7 and MSDA call against its plain version on the same inputs,
-    at the kernels phase's tolerances. Compared: the total loss and the
-    gradient of every parameter, each leaf's largest difference as a share
-    of that leaf's largest magnitude. The kernels' run takes the SimOTA
-    assignment (which anchors are foreground, and their gt) that the plain
-    run made: the assignment is a discrete choice that a few fp32 ulps in
-    the interaction's output can flip for an anchor on its boundary (then
-    the fg count of a sample changes and leaves of a level with no other fg
-    anchor differ wholly), and no kernel tolerance bounds a flip. The
-    kernels' run without it is printed beside. Bounds, set before the first
-    run: the bf16 trunk turns the kernels' one-ulp differences into about
-    1e-2 of a gradient leaf, so the worst leaf may reach 0.1 and the loss
-    0.02 of its value; the median leaf stays under 0.02. TF32 is off for
-    every run: with it the fp32 plain dw7x7 is no reference (worst leaf
-    0.15, median 0.04)."""
+def _kernels_vs_plain(run, corr_modules):
+    """run() -> (total loss, loss dict, gradients) twice: once with every
+    wrapper pointed at its plain version (dw7x7, MSDA, and the training
+    correlation where each module of `corr_modules` imports it), recording
+    SimOTA's assignments, then through the kernels, replaying them, each
+    dw7x7, MSDA and training-correlation forward checked against its plain
+    version on the same inputs at the kernels phase's tolerances. The
+    assignment is a discrete choice that a few fp32 ulps in the
+    interaction's output can flip for an anchor on its boundary (then the
+    fg count of a sample changes and leaves of a level with no other fg
+    anchor differ wholly), and no kernel tolerance bounds a flip. TF32 is
+    off for every run. Returns (plain, kernels, beyond, dw_differ,
+    counts): beyond lists (kernel, shape, outputs beyond tolerance) per
+    call, dw_differ (dw7x7 outputs unequal to plain, of all), counts the
+    launches of the kernels' run."""
     from unittest import mock
 
-    import numpy as np
     import torch
 
-    from unicorn_torch.core.train_step import uni_loss_fn
     from unicorn_torch.losses import det as det_mod
-    from unicorn_torch.losses import uni as uni_mod
     from unicorn_torch.models import blocks, interaction
+    from unicorn_torch.ops import correlation_kernel as ck
     from unicorn_torch.ops import deform_attn as da
     from unicorn_torch.ops import dwconv7x7 as dw
     from unicorn_torch.ops.correlation import correlation_propagate
 
-    exp, model = _train_model(report)
-    images, targets, task_ids = _train_batch(exp, 2, seed=10, n_obj=8)
-    task_ids[0] = 1
-    kw = _uni_loss_kwargs(exp)
-
-    def run():
-        model.zero_grad(set_to_none=True)
-        total, loss_dict = uni_loss_fn(model, images, targets, task_ids, **kw)
-        total.backward()
-        torch.cuda.synchronize()
-        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
-        return total.item(), {k: v.item() for k, v in loss_dict.items()}, grads
-
     assigned, beyond = [], []
-    dw_differ = [0, 0]         # dw7x7 outputs unequal to plain, of all
+    dw_differ = [0, 0]
     simota = det_mod.simota_assign
 
     def record(*args, **kwargs):
@@ -2764,10 +2778,9 @@ def phase_train_model(report):
         y = da.ms_deform_attn(v, l, a, method)
         with torch.no_grad():
             yp = da.ms_deform_attn_plain(v, l, a, "factored")
-            B, L, H, W, M, D = v.shape
             mag = da.ms_deform_attn_plain(v.float().abs(), l, a.float(),
                                           "direct")
-            tol = L * l.shape[4] * 4 * 2.0 ** -24 * mag + 1e-7
+            tol = v.shape[1] * l.shape[4] * 4 * 2.0 ** -24 * mag + 1e-7
             if v.dtype == torch.bfloat16:
                 tol = tol + bf16_ulp(torch.maximum(y.float().abs(),
                                                    yp.float().abs()))
@@ -2775,40 +2788,109 @@ def phase_train_model(report):
         beyond.append(("msda", tuple(v.shape), nbad))
         return y
 
-    plain = (mock.patch.object(blocks, "dwconv7x7", dw.dwconv7x7_plain),
-             mock.patch.object(
-                 interaction, "ms_deform_attn",
-                 lambda v, l, a, method: da.ms_deform_attn_plain(
-                     v, l, a, "factored")),
-             mock.patch.object(uni_mod, "correlation_propagate_train",
-                               correlation_propagate))
+    def checked_corr(e0, e1, v):
+        y = ck.correlation_propagate_train(e0, e1, v)
+        with torch.no_grad():
+            yp = correlation_propagate(e0, e1, v)
+            nbad = int(((y - yp).abs() > 1e-5 + 1e-4 * yp.abs()).sum())
+        beyond.append(("correlation_train", tuple(v.shape), nbad))
+        return y
+
+    def patched(dw_fn, msda_fn, corr_fn, simota_fn):
+        return [mock.patch.object(blocks, "dwconv7x7", dw_fn),
+                mock.patch.object(interaction, "ms_deform_attn", msda_fn),
+                mock.patch.object(det_mod, "simota_assign", simota_fn)] + [
+            mock.patch.object(m, "correlation_propagate_train", corr_fn)
+            for m in corr_modules]
+
+    def under(patches):
+        with tf32_off(), contextlib.ExitStack() as stack:
+            for ptc in patches:
+                stack.enter_context(ptc)
+            return run()
+
     _reset_all_counts()
-    with tf32_off(), plain[0], plain[1], plain[2], \
-            mock.patch.object(det_mod, "simota_assign", record):
-        loss_p, dict_p, grads_p = run()
+    plain = under(patched(
+        dw.dwconv7x7_plain,
+        lambda v, l, a, method: da.ms_deform_attn_plain(v, l, a, "factored"),
+        correlation_propagate, record))
     assert all(n == 0 for n in _all_counts().values()), \
         "a plain version launched a kernel"
     replay = iter(assigned)
-    with tf32_off(), \
-            mock.patch.object(det_mod, "simota_assign",
-                              lambda *a, **k: next(replay)), \
-            mock.patch.object(blocks, "dwconv7x7", checked_dw), \
-            mock.patch.object(interaction, "ms_deform_attn", checked_msda):
-        loss_k, dict_k, grads_k = run()
+    kernels = under(patched(checked_dw, checked_msda, checked_corr,
+                            lambda *a, **k: next(replay)))
     counts = _all_counts()
     assert next(replay, None) is None, "the runs made other assignments"
-    with tf32_off():
-        loss_free, dict_free, _ = run()
-    model.zero_grad(set_to_none=True)
+    return plain, kernels, beyond, dw_differ, counts
+
+
+def _grad_shares(grads_p, grads_k, names=None):
+    """Each gradient leaf's largest difference as a share of its largest
+    magnitude -> (shares, worst name, median share)."""
+    import numpy as np
+    import torch
 
     shares = {}
     for name, gp in grads_p.items():
+        if names is not None and name not in names:
+            continue
         gk = grads_k[name]
         assert bool(torch.isfinite(gk).all()), name
         shares[name] = ((gk - gp).abs().max()
                         / gp.abs().max().clamp_min(1e-30)).item()
     worst = max(shares, key=shares.get)
-    median = float(np.median(list(shares.values())))
+    return shares, worst, float(np.median(list(shares.values())))
+
+
+def _loss_and_grads(model, loss):
+    """loss() -> (total, loss dict) forward + backward on model -> (total,
+    {name: value}, {name: gradient} of the tensors that require one)."""
+    import torch
+
+    model.zero_grad(set_to_none=True)
+    total, loss_dict = loss()
+    total.backward()
+    torch.cuda.synchronize()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return total.item(), {k: v.item() for k, v in loss_dict.items()}, grads
+
+
+def phase_train_model(report):
+    """One uni_loss_fn forward + backward of the full-width model on one
+    mixed batch (an SOT and a MOT sample) with every wrapper pointed at its
+    plain version, then through the kernels (`_kernels_vs_plain`: each
+    dw7x7, MSDA and correlation call against its plain version, at the
+    plain run's SimOTA assignment). Compared: the total loss and the
+    gradient of every parameter, each leaf's largest difference as a share
+    of that leaf's largest magnitude. The kernels' run without the plain
+    run's assignment is printed beside. Bounds, set before the first run:
+    the bf16 trunk turns the kernels' one-ulp differences into about 1e-2
+    of a gradient leaf, so the worst leaf may reach 0.1 and the loss 0.02
+    of its value; the median leaf stays under 0.02. TF32 is off for every
+    run: with it the fp32 plain dw7x7 is no reference (worst leaf 0.15,
+    median 0.04)."""
+    import numpy as np
+
+    from unicorn_torch.core.train_step import uni_loss_fn
+    from unicorn_torch.losses import uni as uni_mod
+
+    exp, model = _train_model(report)
+    images, targets, task_ids = _train_batch(exp, 2, seed=10, n_obj=8)
+    task_ids[0] = 1
+    kw = _uni_loss_kwargs(exp)
+
+    def run():
+        return _loss_and_grads(model, lambda: uni_loss_fn(
+            model, images, targets, task_ids, **kw))
+
+    ((loss_p, dict_p, grads_p), (loss_k, dict_k, grads_k), beyond,
+     dw_differ, counts) = _kernels_vs_plain(run, (uni_mod,))
+    with tf32_off():
+        loss_free, dict_free, _ = run()
+
+    shares, worst, median = _grad_shares(grads_p, grads_k)
     d_loss = abs(loss_k - loss_p) / abs(loss_p)
     nbad = sum(n for _, _, n in beyond)
     H, W = exp.input_size
@@ -2817,10 +2899,10 @@ def phase_train_model(report):
           f"assignment: total_loss {loss_k:.5f} vs {loss_p:.5f} (rel "
           f"{d_loss:.2e}, bound 0.02); {len(shares)} gradient leaves, worst "
           f"{shares[worst]:.3e} of its max at {worst} (bound 0.1), median "
-          f"{median:.3e} (bound 0.02); {len(beyond)} dw7x7 / MSDA calls "
-          f"against their plain versions, {nbad} elements beyond tolerance "
-          f"(dw7x7: {dw_differ[0]} of {dw_differ[1]} outputs differ from "
-          f"the plain version at all); launches {counts}")
+          f"{median:.3e} (bound 0.02); {len(beyond)} dw7x7 / MSDA / "
+          f"correlation calls against their plain versions, {nbad} elements "
+          f"beyond tolerance (dw7x7: {dw_differ[0]} of {dw_differ[1]} "
+          f"outputs differ from the plain version at all); launches {counts}")
     print(f"  kernels' run with its own assignment: total_loss "
           f"{loss_free:.5f} (rel {abs(loss_free - loss_p) / abs(loss_p):.2e}"
           f"), fg per sample {dict_free.get('num_fg_sot')} / "
@@ -2877,15 +2959,7 @@ def phase_train(report):
     for t, d in enumerate(dicts):
         print(f"  step {t} ({'SOT' if t % 2 == 0 else 'MOT'}): " + ", ".join(
             f"{k} {v.item():.4f}" for k, v in d.items()))
-    ker = report.setdefault("kernels", {})
-    for name in ("correlation_fwd_lse", "correlation_bwd_i",
-                 "correlation_bwd_j"):
-        ker.setdefault(name, {})["launches"] = counts[name]
-    for name in ("dwconv7x7", "msda_factored"):
-        k = ker.setdefault(name, {})
-        by_path = k.setdefault("launches_by_path", {})
-        by_path["train"] = counts[name]
-        k["launches"] = (k.get("launches") or 0) + counts[name]
+    _record_launches(report, "train", counts)
 
     finite = all(bool(torch.isfinite(v).all()) for d in dicts
                  for v in d.values())
@@ -2949,6 +3023,442 @@ def phase_train(report):
     assert np.isfinite(rep).all() and rep[-1] < rep[0], rep
 
 
+# ------------------------------------------------- mask-stage training
+MASK_TRAIN_WARMUP = 2     # steps before the timed ones, in each phase
+MASK_TRAIN_STEPS = 8      # timed steps
+INST_TRAIN_LABELS = 120   # padded gt slots per image (ExpDet.max_labels)
+INST_TRAIN_BOXES = 16     # boxes per image
+MASK_TRAIN_ITERS_PER_EPOCH = 4  # so that the warm-up ends within the run
+MOVED_CHECK_STEPS = 8     # untimed steps after the timed ones that watch
+#                           the gradients (at the schedule's peak rate)
+SMALL_BOXES = 4           # boxes of 10-30 px an image (inst) or a frame
+#                           (VOS + MOTS), so that stride-8 anchors get slots
+# kernel launches of one step. inst: 18 trunk + 9 head dw7x7 blocks.
+# VOS + MOTS: 18 trunk blocks (the 2B frames as one batch), 9 for the VOS
+# head at B*K and 9 for the MOTS head at B; one interaction; one
+# correlation at K = 3 label maps, whose backward kernels run only when the
+# embeddings train
+INST_TRAIN_LAUNCHES = dict(dwconv7x7=27, msda_factored=0, msda_direct=0,
+                           correlation=0, correlation_fwd_lse=0,
+                           correlation_bwd_i=0, correlation_bwd_j=0)
+MASK_TRAIN_LAUNCHES = dict(dwconv7x7=36, msda_factored=1, msda_direct=0,
+                           correlation=0, correlation_fwd_lse=1,
+                           correlation_bwd_i=0, correlation_bwd_j=0)
+MASK_TRAIN_FULL_LAUNCHES = dict(MASK_TRAIN_LAUNCHES, correlation_bwd_i=1,
+                                correlation_bwd_j=1)
+
+
+def _mask_stage_model(report, key, exp_cls):
+    """The training model of a mask-stage exp (bf16 trunk and head; the
+    Unicorn's interaction and embeddings fp32) on the card, seeded random
+    weights, built once under report[key]."""
+    import torch
+
+    if key not in report:
+        exp = exp_cls()
+        model = exp.get_model(torch.Generator().manual_seed(0))
+        report[key] = (exp, model.to(DEVICE).train())
+    return report[key]
+
+
+def _inst_train_model(report):
+    from unicorn_torch.exp.unicorn_inst_convnext_tiny_800x1280 import Exp
+
+    return _mask_stage_model(report, "inst_train_model", Exp)
+
+
+def _mask_train_model(report):
+    from unicorn_torch.exp.unicorn_track_tiny_mask import Exp
+
+    return _mask_stage_model(report, "mask_train_model", Exp)
+
+
+def _ellipse_masks(boxes, d_rate, Hm, Wm):
+    """Filled ellipses inscribed in boxes (..., 4) cxcywh at input scale ->
+    (..., Hm, Wm) float32 masks at the d_rate grid (zero boxes: empty)."""
+    import torch
+
+    ys = (torch.arange(Hm, device=boxes.device) + 0.5) * d_rate
+    xs = (torch.arange(Wm, device=boxes.device) + 0.5) * d_rate
+    cx, cy, w, h = (t[..., None, None] for t in boxes.unbind(-1))
+    inside = (((xs - cx) / (w / 2).clamp_min(1e-6)) ** 2
+              + ((ys[:, None] - cy) / (h / 2).clamp_min(1e-6)) ** 2) <= 1.0
+    return inside.float()
+
+
+def _inst_train_batch(exp, seed: int):
+    """images (B, 3, H, W) float32 in [0, 255] (a random texture), labels
+    (B, 120, 5) with INST_TRAIN_BOXES boxes of random classes an image
+    (SMALL_BOXES of them 10-30 px on a side), masks (B, 120, H / 4, W / 4) float32: ellipses inside the boxes."""
+    import numpy as np
+    import torch
+
+    H, W = exp.input_size
+    rng = np.random.RandomState(seed)
+    images = (rng.rand(TRAIN_B, 3, H, W) * 255).round().astype(np.float32)
+    labels = np.zeros((TRAIN_B, INST_TRAIN_LABELS, 5), np.float32)
+    n = INST_TRAIN_BOXES
+    labels[:, :n, 0] = rng.randint(0, exp.num_classes, (TRAIN_B, n))
+    labels[:, :n, 1:3] = rng.uniform(0.15, 0.85, (TRAIN_B, n, 2)) * [W, H]
+    labels[:, :n, 3:5] = rng.uniform(0.05, 0.3, (TRAIN_B, n, 2)) * [W, H]
+    labels[:, :SMALL_BOXES, 3:5] = rng.uniform(10, 30, (TRAIN_B, SMALL_BOXES,
+                                                        2))
+    labels = torch.from_numpy(labels).to(DEVICE)
+    masks = _ellipse_masks(labels[..., 1:5], exp.d_rate, H // exp.d_rate,
+                           W // exp.d_rate)
+    return torch.from_numpy(images).to(DEVICE), labels, masks
+
+
+def _mask_train_batch(exp, seed: int):
+    """One VOS and one MOTS pair (task ids 1, 2) as UniMaskLoader yields
+    them: images (B, 2, 3, H, W) float32 (a random texture, the second
+    frame shifted by 4 px), targets (B, 2, 100, 6) with 8-12 instances a
+    frame whose track ids carry across the pair (one leaves, one enters;
+    SMALL_BOXES in both frames 10-30 px on a side), masks (B, 2, 100, H / d_rate, W / d_rate) float32 ellipses inside the
+    boxes."""
+    import numpy as np
+    import torch
+
+    H, W = exp.input_size
+    rng = np.random.RandomState(seed)
+    base = (rng.rand(TRAIN_B, 3, H, W + 4) * 255).round().astype(np.float32)
+    images = np.stack([base[..., :W], base[..., 4:]], 1)
+    targets = np.zeros((TRAIN_B, 2, TRAIN_LABELS, 6), np.float32)
+    for b in range(TRAIN_B):
+        n = rng.randint(8, 12)
+        wh = rng.uniform(0.03, 0.19, (n + 1, 2)) * [W, H]
+        wh[1:1 + SMALL_BOXES] = rng.uniform(10, 30, (SMALL_BOXES, 2))
+        cxy = rng.uniform(0.15, 0.85, (n + 1, 2)) * [W, H]
+        cls = rng.randint(0, exp.num_classes, n + 1) if b else np.zeros(n + 1)
+        for f, rows in enumerate((np.arange(n), np.arange(1, n + 1))):
+            targets[b, f, :n, 0] = cls[rows]
+            targets[b, f, :n, 1:3] = cxy[rows] + f * rng.uniform(-6, 6, (n, 2))
+            targets[b, f, :n, 3:5] = wh[rows]
+            targets[b, f, :n, 5] = rows + 1
+    targets = torch.from_numpy(targets).to(DEVICE)
+    masks = _ellipse_masks(targets[..., 1:5], exp.d_rate, H // exp.d_rate,
+                           W // exp.d_rate)
+    return (torch.from_numpy(images).to(DEVICE), targets,
+            torch.tensor([1, 2], device=DEVICE), masks)
+
+
+def _record_launches(report, path, counts):
+    """Add a path's launch counts to the kernels JSON (by path and in
+    all)."""
+    ker = report.setdefault("kernels", {})
+    for name, n in counts.items():
+        if n:
+            k = ker.setdefault(name, {})
+            k.setdefault("launches_by_path", {})[path] = n
+            k["launches"] = (k.get("launches") or 0) + n
+
+
+def _timed_steps(step, state, batches, launches, label, unit):
+    """MASK_TRAIN_WARMUP steps, then MASK_TRAIN_STEPS timed ones over the
+    batches in turn: prints ms/step, units/s, peak memory and the launches;
+    returns (loss dicts, counts, ms/step)."""
+    import torch
+
+    for t in range(MASK_TRAIN_WARMUP):
+        step(state, *batches[t % len(batches)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    dicts = [step(state, *batches[t % len(batches)])[1]
+             for t in range(MASK_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _all_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = wall / MASK_TRAIN_STEPS * 1e3
+    print(f"{label}: {MASK_TRAIN_STEPS} steps, {ms:.1f} ms/step "
+          f"({MASK_TRAIN_STEPS * TRAIN_B / wall:.2f} {unit}/s); peak memory "
+          f"{peak:.2f} GiB; launches {counts} = {MASK_TRAIN_STEPS} x "
+          f"{launches}; lr of the next update {state.lr():.3e}")
+    print("  last step: " + ", ".join(f"{k} {v.item():.4f}"
+                                      for k, v in dicts[-1].items()))
+    assert all(bool(torch.isfinite(v).all()) for d in dicts
+               for v in d.values()), "a loss is not finite"
+    assert counts == {k: n * MASK_TRAIN_STEPS for k, n in launches.items()}, \
+        counts
+    return dicts, counts, ms
+
+
+def _frozen_unchanged(model, frozen):
+    """Assert that every tensor of `frozen` ({name: snapshot}) is
+    bit-identical to the model's."""
+    import torch
+
+    names = dict(model.named_parameters())
+    changed = [n for n, t in frozen.items() if not torch.equal(names[n], t)]
+    assert not changed, f"frozen tensors that moved: {changed[:8]}"
+
+
+def _below_spacing(state, p):
+    """True where the update rule is SGD and its step on p, the rate times
+    (1 + momentum) times the momentum buffer, stays under fp32's spacing
+    at p in every element: such a tensor may round back to itself."""
+    import torch
+
+    buf = state.optimizer.state[p].get("momentum_buffer")
+    if state.tx.kind != "sgd" or buf is None:
+        return False
+    spacing = torch.minimum(torch.nextafter(p, p.new_tensor(float("inf"))) - p,
+                            p - torch.nextafter(p, p.new_tensor(-float("inf"))))
+    step = state.lr() * (1.0 + state.tx.momentum) * buf.abs()
+    return bool((step < spacing).all())
+
+
+def _moved_check(step, state, batches, frozen):
+    """MOVED_CHECK_STEPS more steps of the path with a hook on every
+    trainable tensor that records whether its gradient held a nonzero
+    element. Then: every frozen tensor is bit-identical to `frozen`; every
+    trainable tensor had a nonzero gradient (the batches' small boxes give
+    the stride-8 level slots, so the level-0 controllers train too) and a
+    nonzero first moment in the optimizer's state (SGD's momentum buffer,
+    AdamW's exp_avg); and every one moved, save under SGD a tensor whose
+    step stays under fp32's spacing (`_below_spacing`: at SGD's small
+    rates the mask branch's GroupNorm scales, at 1.0, move by less than
+    half an ulp a step; AdamW's step is about the rate whatever the
+    gradient)."""
+    import torch
+
+    named = {n: p for n, p in state.model.named_parameters()
+             if p.requires_grad}
+    start = {n: p.detach().clone() for n, p in named.items()}
+    nonzero = {n: torch.zeros((), dtype=torch.bool, device=p.device)
+               for n, p in named.items()}
+
+    def watch(name):
+        def hook(g):
+            nonzero[name].logical_or_(g.ne(0).any())
+        return hook
+
+    handles = [p.register_hook(watch(n)) for n, p in named.items()]
+    try:
+        for t in range(MOVED_CHECK_STEPS):
+            step(state, *batches[t % len(batches)])
+    finally:
+        for h in handles:
+            h.remove()
+    silent = [n for n, v in nonzero.items() if not bool(v)]
+    stateless = [n for n, p in named.items() if not bool(
+        state.optimizer.state[p].get(
+            "momentum_buffer", state.optimizer.state[p].get("exp_avg",
+                                                             p.new_zeros(())))
+        .ne(0).any())]
+    unmoved = [n for n, t in start.items() if torch.equal(named[n], t)]
+    fine = [n for n in unmoved if _below_spacing(state, named[n])]
+    stuck = [n for n in unmoved if n not in fine]
+    _frozen_unchanged(state.model, frozen)
+    print(f"  {len(frozen)} frozen tensors bit-identical; {len(start)} "
+          f"trainable tensors over {MOVED_CHECK_STEPS} more steps: without a "
+          f"gradient {silent}, without optimizer state {stateless}, unmoved "
+          f"with a step under fp32's spacing {fine}, unmoved otherwise "
+          f"{stuck}")
+    assert not silent, f"trainable tensors without a gradient: {silent}"
+    assert not stateless, f"trainable tensors the optimizer skipped: " \
+        f"{stateless}"
+    assert not stuck, f"tensors that did not move: {stuck}"
+
+
+def _frozen_params(model):
+    """{name: snapshot} of the parameters that do not require a gradient."""
+    return {n: p.detach().clone() for n, p in model.named_parameters()
+            if not p.requires_grad}
+
+
+def _kernel_check_report(what, plain, kernels, beyond, dw_differ, counts,
+                         expected, names=None, leaf_bounds=(0.1, 0.02)):
+    """Print and assert a `_kernels_vs_plain` comparison: the total loss
+    within 0.02 of its value, each other loss term within 0.02 of its value
+    plus 1e-3, the worst gradient leaf (of `names`, else all) and the
+    median leaf, each as a share of the leaf's largest magnitude, within
+    `leaf_bounds` (phase train_model's 0.1 / 0.02 for leaves behind the
+    bf16 trunk and head); no kernel output beyond tolerance; the launches
+    as `expected`."""
+    import numpy as np
+
+    (loss_p, dict_p, grads_p), (loss_k, dict_k, grads_k) = plain, kernels
+    shares, worst, median = _grad_shares(grads_p, grads_k, names)
+    d_loss = abs(loss_k - loss_p) / abs(loss_p)
+    d_terms = {k: abs(dict_k[k] - v) for k, v in dict_p.items()}
+    bad_terms = [k for k, d in d_terms.items()
+                 if d > 0.02 * abs(dict_p[k]) + 1e-3]
+    nbad = sum(n for _, _, n in beyond)
+    calls = {}
+    for kind, _, _ in beyond:
+        calls[kind] = calls.get(kind, 0) + 1
+    print(f"{what}, kernels vs plain at the plain run's SimOTA assignment: "
+          f"total_loss {loss_k:.5f} vs {loss_p:.5f} (rel {d_loss:.2e}, bound "
+          f"0.02); loss terms beyond 0.02 + 1e-3: {bad_terms}; "
+          f"{len(shares)} gradient leaves, worst {shares[worst]:.3e} of its "
+          f"max at {worst} (bound {leaf_bounds[0]}), median {median:.3e} "
+          f"(bound {leaf_bounds[1]}); calls checked {calls}, {nbad} outputs "
+          f"beyond tolerance (dw7x7: {dw_differ[0]} of {dw_differ[1]} "
+          f"outputs differ at all); launches {counts}")
+    print("  loss dict (kernels): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in dict_k.items()))
+    assert counts == expected, counts
+    assert nbad == 0, [b for b in beyond if b[2]]
+    assert np.isfinite(loss_k) and d_loss <= 0.02 and not bad_terms
+    assert shares[worst] <= leaf_bounds[0] and median <= leaf_bounds[1]
+    return shares
+
+
+def phase_inst_train(report):
+    """The inst stage's training step: ExpDetMask.get_optimizer (SGD,
+    Nesterov, mask-only: the controllers and the mask branch train) and
+    get_train_step on unicorn_inst_convnext_tiny_800x1280's YOLOXDet at
+    B = 2 images of 800x1280, EMA on. (1) One step's loss and gradients
+    (of the trainable tensors) through the dw7x7 kernel vs its plain
+    version (`_kernels_vs_plain`). (2) MASK_TRAIN_WARMUP + MASK_TRAIN_STEPS
+    timed steps over two batches: ms/step, images/s, peak memory, 27 dw7x7
+    launches a step; then `_moved_check`: the frozen tensors bit-identical,
+    every trainable one with a gradient, and moved. (3) Two steps with
+    BoxInst: the projection and pairwise terms finite and > 0."""
+    import torch
+
+    from unicorn_torch.core.train_state import TrainState
+    from unicorn_torch.core.train_step import det_mask_loss_fn
+
+    exp, model = _inst_train_model(report)
+    state = TrainState.create(
+        model, exp.get_optimizer(TRAIN_B, MASK_TRAIN_ITERS_PER_EPOCH),
+        use_ema=exp.ema, device=DEVICE)
+    batches = [_inst_train_batch(exp, seed) for seed in (20, 21)]
+    H, W = exp.input_size
+
+    def run():
+        return _loss_and_grads(model, lambda: det_mask_loss_fn(
+            model, *batches[0], exp.input_size, exp.always_l1,
+            d_rate=exp.d_rate))
+
+    _kernel_check_report(
+        f"inst train {H}x{W}, B={TRAIN_B}, bf16, mask-only",
+        *_kernels_vs_plain(run, ()), INST_TRAIN_LAUNCHES)
+
+    frozen = _frozen_params(model)
+    step = exp.get_train_step(TRAIN_B)
+    _, counts, ms = _timed_steps(
+        step, state, batches, INST_TRAIN_LAUNCHES,
+        f"inst train path, B={TRAIN_B} images of {H}x{W}, SGD, mask-only, "
+        f"EMA", "images")
+    _moved_check(step, state, batches, frozen)
+    _record_launches(report, "inst_train", counts)
+    report["inst_train_ms_per_step"] = ms
+
+    exp.boxinst = True
+    box_step = exp.get_train_step(TRAIN_B)
+    dicts = [box_step(state, *batches[t])[1] for t in range(2)]
+    for t, d in enumerate(dicts):
+        print(f"  BoxInst step {t}: " + ", ".join(
+            f"{k} {v.item():.4f}" for k, v in d.items()))
+        for k in ("boxinst_prj_loss", "boxinst_pairwise_loss"):
+            v = d[k].item()
+            assert torch.isfinite(d[k]) and v > 0, (k, v)
+    exp.boxinst = False
+    _frozen_unchanged(model, frozen)
+    del state
+    torch.cuda.empty_cache()
+
+
+EMBEDDING_LAYERS = ("bottleneck.", "upsample_layer.", "transformer.",
+                    "pos_emb.")
+# Worst and median leaf of the embedding layers (fp32, ahead of the bf16
+# head only through the priors), kernels vs plain with every tensor
+# training: about 10x the largest readings on an H100, 4.66e-4 / 2.39e-4
+# (the batches without small boxes; 1.93e-4 / 7.5e-5 with them).
+EMBEDDING_LEAF_BOUNDS = (5e-3, 2e-3)
+
+
+def phase_mask_train(report):
+    """The VOS + MOTS stage's training step: ExpTrackMask.get_optimizer
+    (AdamW, accumulation over 2, mask-only, EMA off) and get_train_step on
+    unicorn_track_tiny_mask's Unicorn at B = 2 pairs of 800x1280, one VOS
+    and one MOTS pair, masks at d_rate 2. (1) One step's loss and the
+    trainable tensors' gradients through the dw7x7, MSDA and training
+    correlation kernels vs their plain versions (`_kernels_vs_plain`):
+    dw7x7 36, MSDA 1 (fp32), correlation forward 1 at K = 3, no backward
+    kernel. (2) MASK_TRAIN_WARMUP + MASK_TRAIN_STEPS timed steps: ms/step,
+    pairs/s, peak memory, launches; then `_moved_check`: frozen tensors
+    bit-identical, every trainable one with a gradient, and moved. (3) One
+    step with train_mask_only False, kernels vs plain: the backward kernels
+    run once each at K = 3; the embedding layers' gradients compared at
+    EMBEDDING_LEAF_BOUNDS."""
+    import torch
+
+    from unicorn_torch.core.train_state import TrainState
+    from unicorn_torch.core.train_step import uni_mask_loss_fn
+    from unicorn_torch.losses import vos as vos_mod
+
+    exp, model = _mask_train_model(report)
+    state = TrainState.create(
+        model, exp.get_optimizer(TRAIN_B, MASK_TRAIN_ITERS_PER_EPOCH),
+        use_ema=exp.ema, device=DEVICE)
+    batches = [_mask_train_batch(exp, seed) for seed in (30, 31)]
+    H, W = exp.input_size
+    kw = dict(mot_weight=float(exp.mot_weight) if exp.scale_all_mot else 1.0,
+              bidirect=exp.bidirect, use_l1=exp.always_l1,
+              up_rate=exp.up_rate)
+
+    def run():
+        return _loss_and_grads(model, lambda: uni_mask_loss_fn(
+            model, *batches[0], exp.input_size, **kw))
+
+    _kernel_check_report(
+        f"mask train {H}x{W}, B={TRAIN_B} pairs (VOS, MOTS), mask-only",
+        *_kernels_vs_plain(run, (vos_mod,)), MASK_TRAIN_LAUNCHES)
+
+    frozen = _frozen_params(model)
+    step = exp.get_train_step(TRAIN_B)
+    _, counts, ms = _timed_steps(
+        step, state, batches, MASK_TRAIN_LAUNCHES,
+        f"mask train path, B={TRAIN_B} pairs of {H}x{W} (VOS, MOTS), "
+        f"AdamW, grad_accum {state.tx.grad_accum}, mask-only", "pairs")
+    _moved_check(step, state, batches, frozen)
+    _record_launches(report, "mask_train", counts)
+    report["mask_train_ms_per_step"] = ms
+
+    # every tensor trains: the correlation's backward kernels run
+    del state
+    exp.train_mask_only = False
+    full = TrainState.create(model, exp.get_optimizer(
+        TRAIN_B, MASK_TRAIN_ITERS_PER_EPOCH), use_ema=False, device=DEVICE)
+    assert all(p.requires_grad for p in model.parameters())
+    names = {n for n, _ in model.named_parameters()
+             if n.startswith(EMBEDDING_LAYERS)}
+    shares = _kernel_check_report(
+        "mask train, every tensor training", *_kernels_vs_plain(
+            run, (vos_mod,)), MASK_TRAIN_FULL_LAUNCHES, names,
+        EMBEDDING_LEAF_BOUNDS)
+    print(f"  embedding layers: {len(shares)} leaves")
+    # two steps of the path (one AdamW update) with every tensor training
+    full_step = exp.get_train_step(TRAIN_B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    dicts = [full_step(full, *batches[t])[1] for t in range(2)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _all_counts()
+    print(f"mask train path, every tensor training: 2 steps, "
+          f"{wall / 2 * 1e3:.1f} ms/step; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+          f"{counts} = 2 x {MASK_TRAIN_FULL_LAUNCHES}")
+    assert all(bool(torch.isfinite(v).all()) for d in dicts
+               for v in d.values()), "a loss is not finite"
+    assert counts == {k: 2 * n for k, n in MASK_TRAIN_FULL_LAUNCHES.items()}, \
+        counts
+    assert full.opt_count == 1
+    _record_launches(report, "mask_train_full", counts)
+    exp.train_mask_only = True
+    del full
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------ opt-in: profile
 def _profile(label, step, frames, show=()):
     """torch.profiler over step(frame) for each frame: CUDA time by kernel
@@ -2985,7 +3495,8 @@ def phase_profile(report):
     """torch.profiler over 4 frames each of the MOT path, the streaming path,
     the detector with fused blocks, the SOT path, the inst path and its
     mask decode alone, the VOS shared path, the omni MOTS path (QDTrack),
-    and 4 training steps. Opt-in: --only profile."""
+    4 uni training steps, and 4 steps each of the inst and the VOS + MOTS
+    training steps. Opt-in: --only profile."""
     import numpy as np
 
     from unicorn_torch.drivers.mot import MOTDriver
@@ -3090,6 +3601,26 @@ def phase_profile(report):
     _profile("train (per step: SOT, MOT, SOT, MOT)",
              lambda b: step(state, *b), batches * 2,
              show=("fwd_lse_kernel", "bwd_i_kernel", "bwd_j_kernel"))
+    del state
+    report.pop("train_model")
+
+    # the mask-stage steps as the phases inst_train and mask_train run them
+    for build, make_batch, label in (
+            (_inst_train_model, _inst_train_batch, "inst train (mask-only "
+             "SGD, EMA)"),
+            (_mask_train_model, _mask_train_batch, "mask train (VOS + MOTS, "
+             "mask-only AdamW, accumulation 2)")):
+        exp, model = build(report)
+        state = TrainState.create(
+            model, exp.get_optimizer(TRAIN_B, MASK_TRAIN_ITERS_PER_EPOCH),
+            use_ema=exp.ema, device=DEVICE)
+        step = exp.get_train_step(TRAIN_B)
+        batches = [make_batch(exp, seed) for seed in (40, 41)]
+        for b in batches:
+            step(state, *b)
+        _profile(f"{label}, per step", lambda b: step(state, *b),
+                 batches * 2, show=("dw7x7", "fwd_lse_kernel", "msda"))
+        del state
 
 
 PHASES = {
@@ -3106,11 +3637,13 @@ PHASES = {
     "omni": phase_omni,
     "train_model": phase_train_model,
     "train": phase_train,
+    "inst_train": phase_inst_train,
+    "mask_train": phase_mask_train,
     "profile": phase_profile,
 }
 DEFAULT_PHASES = ("build", "kernels", "model", "main", "block_model",
                   "stream", "sot_model", "sot", "inst", "vos", "omni",
-                  "train_model", "train")
+                  "train_model", "train", "inst_train", "mask_train")
 
 
 def main(argv=None) -> int:

@@ -4,7 +4,8 @@ tools, nor OpenCV (cv2): it needs only PyTorch and numpy.
 Runs in a subprocess, because this test process has already imported jax
 (tests/conftest.py): a meta-path finder there refuses jax, flax, optax,
 unicorn_tpu, tools and cv2, then every module of unicorn_torch is imported,
-the training sub-packages `losses` and `core`, the fused block op, the
+the training sub-packages `losses` (with the mask stage's `losses.mask`
+and `losses.boxinst`) and `core`, the fused block op, the
 device tracker, the streaming, inst and VOS drivers, the omni MOT driver,
 the QDTrack / SORT / DeepSORT / MOTDT trackers and utils.boxes among them.
 """
@@ -36,7 +37,7 @@ leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 for n in ("ops.deform_attn", "ops.correlation", "ops.correlation_kernel",
           "models.interaction", "drivers.sot", "losses.det", "losses.vos",
-          "losses.uni", "core.schedule", "core.train_state",
+          "losses.uni", "losses.mask", "losses.boxinst", "core.schedule", "core.train_state",
           "core.train_step", "ops.convnext_block", "tracker.device_tracker",
           "drivers.stream", "drivers.inst", "drivers.vos",
           "tracker.qd_tracker", "tracker.legacy", "utils.boxes",

@@ -382,6 +382,12 @@ def test_exp_classes_build_the_mask_models():
     uni = tex.get_model(serve=True)
     assert uni.head.mask_branch.up_mask_layer[2].out_channels == 9 * 16
     assert uni.interact_dtype == torch.bfloat16
-    for fn in (tex.get_train_step, tex.get_optimizer):
-        with pytest.raises(NotImplementedError):
-            fn(2)
+    # the mask stage's training factories: AdamW with accumulation, only
+    # the controllers and the mask branch train
+    tx = tex.get_optimizer(2)
+    assert (tx.kind, tx.grad_accum) == ("adamw", 2)
+    trains = tx.trainable_mask_fn(uni.named_parameters())
+    assert trains["head.controllers.0.weight"]
+    assert trains["head.mask_branch.up_mask_layer.2.weight"]
+    assert not trains["upsample_layer.1.weight"]
+    assert callable(tex.get_train_step(2))

@@ -7,7 +7,8 @@ hand-written CUDA kernel under `csrc/`, built with nvcc on first use.
 
 Ported so far (slice 1, MOT detect-and-track; slice 2, SOT; slice 3, the
 uni-stage training step; slice 4, the fused block op and streaming MOT;
-slice 10, the JAX tests' CSPDarknet model and instance segmentation):
+slice 10, the JAX tests' CSPDarknet model and instance segmentation;
+then VOS, MOT / MOTS omni serving and the mask-stage training steps):
   models/   ConvNeXt-Tiny and CSPDarknet trunks, YOLO PAFPN, unified head
             (with the CondInst controllers), the "deform", "full" and
             "conv" interactions with the bottleneck, position embedding and
@@ -18,12 +19,14 @@ slice 10, the JAX tests' CSPDarknet model and instance segmentation):
             for serving and for training), correlation helpers, the
             dynamic mask convolution and its upsamplers, fixed-shape NMS,
             device letterbox
-  losses/   SimOTA + YOLOX losses, the unified SOT+MOT loss
-  core/     schedules, TrainState (AdamW/SGD, accumulation, EMA), the det
-            and uni train steps
+  losses/   SimOTA + YOLOX losses, the unified SOT+MOT loss, the mask
+            stage's CondInst, BoxInst and VOS losses
+  core/     schedules, TrainState (AdamW/SGD, accumulation, EMA, frozen
+            parameters), the det, uni, inst and VOS + MOTS train steps
   tracker/  host ByteTrack (Kalman, Hungarian matching), device ByteTrack
   drivers/  `MOTDriver` (ByteTrack path), `SOTDriver`,
-            `StreamingMOTPipeline`, `make_inst_forward`
+            `StreamingMOTPipeline`, `make_inst_forward`, `VOSDriver`,
+            `MOTOmniDriver`
   exp/      `ExpTrack`, `ExpTrackMask`, `ExpDet`, `ExpDetMask` and the
             copies of unicorn_track_tiny, unicorn_track_tiny_mask and
             unicorn_inst_convnext_tiny_800x1280

@@ -22,6 +22,23 @@ def yolox_warm_cos_lr(lr: float, min_lr_ratio: float, total_iters: int,
         / max(total_iters - warmup_total_iters - no_aug_iter, 1)))
 
 
+def warm_cos_lr_fn(exp, batch_size, iters_per_epoch):
+    """iteration -> learning rate of an experiment's fields: quadratic
+    warm-up, cosine, the no-augmentation floor."""
+    lr = exp.basic_lr_per_img * batch_size
+
+    def lr_fn(step):
+        return yolox_warm_cos_lr(
+            lr, exp.min_lr_ratio,
+            total_iters=exp.max_epoch * iters_per_epoch,
+            warmup_total_iters=exp.warmup_epochs * iters_per_epoch,
+            warmup_lr_start=exp.warmup_lr,
+            no_aug_iter=exp.no_aug_epochs * iters_per_epoch,
+            iters=step)
+
+    return lr_fn
+
+
 def warm_cos_lr(lr: float, total_iters: int, warmup_total_iters: int,
                 warmup_lr_start: float, iters) -> float:
     """Linear warm-up -> cosine."""

@@ -16,7 +16,14 @@ How the update rule maps onto optax's, which the tests hold it to:
     (a running mean) and runs the inner update once per `grad_accum`; the
     schedule is read at `count * grad_accum`, in iteration units.
   * `apply_gradients` advances `step` and updates the EMA on every
-    micro-step, also on those where the parameters did not move.
+    micro-step, also on those where the parameters did not move. The EMA
+    runs over every parameter, frozen ones too, as JAX's does.
+  * Frozen parameters (`trainable_mask_fn`): JAX chains
+    `optax.masked(optax.set_to_zero(), frozen)` after the whole update, so
+    a frozen parameter neither moves nor decays. Here it is left out of
+    the optimizer's groups and set `requires_grad_(False)`, so that the
+    backward does not reach it either; its optimizer state (which JAX keeps
+    and never reads) does not exist.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ class OptimizerSpec:
     grad_accum: int = 1
     max_grad_norm: Optional[float] = None
     no_decay_mask_fn: Optional[Callable] = None
+    trainable_mask_fn: Optional[Callable] = None
 
 
 def default_wd_mask(named_params) -> dict:
@@ -60,7 +68,9 @@ def make_optimizer(lr_fn: Callable, kind: str = "adamw",
                    ) -> OptimizerSpec:
     """AdamW for the uni stage, SGD with Nesterov momentum for detection
     pretraining. lr_fn maps the iteration to the learning rate. Without a
-    mask function weight decay applies to every parameter."""
+    mask function weight decay applies to every parameter. Every parameter
+    trains; an experiment that freezes some sets the spec's
+    `trainable_mask_fn` (named_params -> {name: True where it trains})."""
     if kind not in ("adamw", "sgd"):
         raise ValueError(kind)
     return OptimizerSpec(lr_fn, kind, weight_decay, momentum, grad_accum,
@@ -80,7 +90,8 @@ class TrainState:
         self.step = 0          # micro-steps taken
         self.opt_count = 0     # inner optimizer updates taken
         self.mini_step = 0     # micro-steps since the last inner update
-        self._params = [p for p in model.parameters()]
+        self._params = [p for p in model.parameters() if p.requires_grad]
+        self._all = list(model.parameters())
         self._ema = ([p for p in ema_model.parameters()]
                      if ema_model is not None else None)
         self._acc = None       # running mean of the micro-steps' gradients
@@ -90,11 +101,17 @@ class TrainState:
                ema_base_decay: float = 0.9998, use_ema: bool = True,
                device="cuda") -> "TrainState":
         """The model goes to `device` (the card unless the caller asks for
-        the CPU); the EMA copy starts equal to it."""
+        the CPU); the EMA copy starts equal to it. The parameters the rule
+        freezes stop requiring gradients."""
         model = model.to(resolve_device(device))
         named = list(model.named_parameters())
         mask = (tx.no_decay_mask_fn(named) if tx.no_decay_mask_fn
                 else {n: True for n, _ in named})
+        trains = (tx.trainable_mask_fn(named) if tx.trainable_mask_fn
+                  else {n: True for n, _ in named})
+        for n, p in named:
+            p.requires_grad_(trains[n])
+        named = [(n, p) for n, p in named if trains[n]]
         groups = [
             {"params": [p for n, p in named if mask[n]],
              "weight_decay": tx.weight_decay},
@@ -117,8 +134,9 @@ class TrainState:
 
     @torch.no_grad()
     def apply_gradients(self) -> "TrainState":
-        """One micro-step from the parameters' `.grad` (a parameter without
-        one counts as a zero gradient, so that it still decays)."""
+        """One micro-step from the trainable parameters' `.grad` (one
+        without a gradient counts as a zero gradient, so that it still
+        decays)."""
         tx = self.tx
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self._params]
@@ -153,5 +171,5 @@ class TrainState:
         if self._ema is not None:
             d = ema_decay_schedule(self.ema_base_decay, self.step)
             torch._foreach_mul_(self._ema, d)
-            torch._foreach_add_(self._ema, self._params, alpha=1.0 - d)
+            torch._foreach_add_(self._ema, self._all, alpha=1.0 - d)
         return self

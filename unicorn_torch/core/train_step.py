@@ -1,5 +1,5 @@
-"""Train-step factories for the det and uni stages (port of
-unicorn_tpu/core/train_step.py; the mask steps are not ported yet).
+"""Train-step factories for the det, uni, inst (det + mask) and VOS + MOTS
+(uni + mask) stages (port of unicorn_tpu/core/train_step.py).
 
 The uni step stacks the two frames into one 2B batch through the backbone,
 runs the interaction and the embedding upsample in fp32, builds the SOT
@@ -7,18 +7,30 @@ priors by correlation propagation, calls the unified head once and sums the
 masked task losses. On the card every kernel of the model and the three
 correlation training kernels run in the forward and in the backward.
 
+The mask steps add the CondInst dice loss over SimOTA's foreground anchors
+(or BoxInst's box-supervised terms) to the detection loss; the VOS + MOTS
+step adds the VOS slots (losses/vos.py) beside the MOTS head loss. Their
+experiments train only the controllers and the mask branch: the backward
+then reaches neither the frozen trunk nor, in the VOS + MOTS step, the
+correlation's backward kernels.
+
 Layout: images (B, 2, 3, H, W), as the port's models take NCHW (the JAX
-package takes (B, 2, H, W, 3)); targets (B, 2, M, 6) and task_ids (B,) as
-there. A step function takes (state, images, targets, task_ids), all on the
-state's device, updates the state in place and returns (state, loss_dict).
+package takes (B, 2, H, W, 3)); targets (B, 2, M, 6), task_ids (B,) and
+masks (B, 2, M, Hm, Wm) as there; the inst step's images (B, 3, H, W),
+labels (B, M, 5) and masks (B, M, Hm, Wm). A step function takes (state,
+*batch), all on the state's device, updates the state in place and returns
+(state, loss_dict).
 """
 from __future__ import annotations
 
 import torch
 
+from ..losses.boxinst import boxinst_mask_loss
 from ..losses.det import yolox_losses
+from ..losses.mask import condinst_mask_loss, semantic_focal_loss
 from ..losses.uni import (build_mhs_labels, build_sot_priors,
-                          unicorn_uni_loss)
+                          mot_contrastive_loss_single, unicorn_uni_loss)
+from ..losses.vos import vos_loss
 from ..models.heads import decode_boxes, flatten_raw_outputs, level_grids
 from ..ops.correlation import resize_bilinear_torch
 
@@ -100,13 +112,112 @@ def uni_loss_fn(model, images, targets, task_ids, img_size, mot_weight=1.0,
     return total, loss_dict
 
 
+def det_mask_loss_fn(model, images, labels, masks, img_size,
+                     use_l1=False, strides=(8, 16, 32), max_inst=24,
+                     sem_loss_on=False, boxinst=False, warmup_factor=1.0,
+                     d_rate=4):
+    """The inst stage's loss: the detection losses plus the CondInst dice
+    over the SimOTA-matched anchors. images (B, 3, H, W); labels (B, M, 5);
+    masks (B, M, Hm, Wm) at the d_rate grid.
+
+    boxinst=True supervises the masks with the boxes alone (BoxInst's
+    projection and pairwise terms; `masks` is then unused) and
+    `warmup_factor` scales the pairwise term. sem_loss_on adds the semantic
+    head's focal loss where the model has that head."""
+    head_raw, (mask_feats, up_mask, sem_logits) = model(images)
+    flat = flatten_raw_outputs(head_raw, "mot")
+    boxes = decode_boxes(flat["reg_raw"], flat["hw"], strides)
+    xs, ys, ss = level_grids(flat["hw"], strides, images.device)
+    loss_dict, assign = yolox_losses(
+        labels, boxes, flat["obj_logits"], flat["cls_logits"],
+        flat["reg_raw"], xs, ys, ss, img_size, use_l1=use_l1)
+    if boxinst:
+        gt_valid = (labels[..., 1:5].sum(2) > 0).float()
+        prj_l, pw_l = boxinst_mask_loss(
+            flat["ctrl"], mask_feats, assign.fg_mask, assign.matched_gt,
+            assign.pred_iou, labels[..., 1:5], gt_valid, images, flat["hw"],
+            strides, max_inst=max_inst, up_masks=up_mask,
+            warmup_factor=warmup_factor, d_rate=d_rate)
+        mask_l = prj_l + pw_l
+        loss_dict["boxinst_prj_loss"] = prj_l
+        loss_dict["boxinst_pairwise_loss"] = pw_l
+    else:
+        mask_l = condinst_mask_loss(
+            flat["ctrl"], mask_feats, assign.fg_mask, assign.matched_gt,
+            assign.pred_iou, masks, flat["hw"], strides, max_inst=max_inst,
+            up_masks=up_mask)
+    total = loss_dict["total_loss"] + mask_l
+    loss_dict["condinst_loss"] = mask_l
+    if sem_loss_on and sem_logits is not None:
+        gt_valid = (labels.sum(2) > 0).float()
+        sem_l = semantic_focal_loss(sem_logits, masks, labels[..., 0].long(),
+                                    gt_valid, sem_logits.shape[1])
+        total = total + sem_l
+        loss_dict["sem_loss"] = sem_l
+    loss_dict["total_loss"] = total
+    return total, loss_dict
+
+
+def uni_mask_loss_fn(model, images, targets, task_ids, masks, img_size,
+                     mot_weight=1.0, bidirect=True, use_l1=False, up_rate=8,
+                     max_pairs=3, max_inst=24):
+    """The VOS + MOTS stage's loss (task 1 = VOS, task 2 = MOTS) of a
+    (B, 2, ...) batch -> (total, loss_dict): the VOS slots' loss, and the
+    MOTS sample's head loss, CondInst over its foreground anchors and the
+    contrastive embedding loss, mixed as (n_vos * vos + n_mots * mots) / B.
+    The mask branch runs once, on the second frame's FPN maps."""
+    fpn_outs_1, embed_0, embed_1 = uni_forward_embeddings(model, images)
+    vos_mask = (task_ids == 1).float()
+    mots_mask = (task_ids == 2).float()
+    B = targets.shape[0]
+    strides = (8, 16, 32)
+    mask_branch_out = model.forward_mask_branch(fpn_outs_1)
+
+    vos_dict = vos_loss(model, mask_branch_out, fpn_outs_1, embed_0, embed_1,
+                        targets, masks, img_size, max_pairs=max_pairs,
+                        up_rate=up_rate, sample_mask=vos_mask, use_l1=use_l1)
+
+    # MOTS: the MOT head loss with zero priors, CondInst over its fg anchors
+    priors = tuple(f.new_zeros((f.shape[0], 1) + tuple(f.shape[2:]))
+                   for f in fpn_outs_1)
+    flat = flatten_raw_outputs(model.forward_head(fpn_outs_1, priors), "mot")
+    hw = flat["hw"]
+    xs, ys, ss = level_grids(hw, strides, images.device)
+    boxes = decode_boxes(flat["reg_raw"], hw, strides)
+    mot_dict, assign = yolox_losses(
+        targets[:, 1, :, :5], boxes, flat["obj_logits"], flat["cls_logits"],
+        flat["reg_raw"], xs, ys, ss, img_size, use_l1=use_l1,
+        sample_mask=mots_mask)
+    mask_feats, up_mask, _ = mask_branch_out
+    mots_mask_l = condinst_mask_loss(
+        flat["ctrl"], mask_feats, assign.fg_mask, assign.matched_gt,
+        assign.pred_iou, masks[:, 1], hw, strides, max_inst=max_inst,
+        up_masks=up_mask, up_rate=up_rate, sample_mask=mots_mask)
+    corr_mot_b = mot_contrastive_loss_single(embed_0.float(), embed_1.float(),
+                                             targets, bidirect)
+    corr_mot = (corr_mot_b * mots_mask).sum() / mots_mask.sum().clamp_min(1.0)
+    total_mots = mot_dict["total_loss"] + mots_mask_l + corr_mot
+    if mot_weight > 1.0:
+        total_mots = total_mots + mot_dict["conf_loss"] * (mot_weight - 1.0)
+
+    total = (vos_mask.sum() * vos_dict["total_loss"]
+             + mots_mask.sum() * total_mots) / B
+    out = {"total_loss": total, "condinst_loss_mots": mots_mask_l,
+           "corr_loss_mots": corr_mot}
+    out.update({k + "_vos": v for k, v in vos_dict.items()
+                if k != "total_loss"})
+    out.update({k + "_mots": v for k, v in mot_dict.items()
+                if k != "total_loss"})
+    return total, out
+
+
 def _make_step(loss):
-    """step(state, *batch): loss(state.model, *batch) -> backward ->
+    """step(state, *batch): loss(state, *batch) -> backward ->
     state.apply_gradients(); returns (state, detached loss dict)."""
 
     def step(state, *batch):
         state.model.zero_grad(set_to_none=True)
-        total, loss_dict = loss(state.model, *batch)
+        total, loss_dict = loss(state, *batch)
         total.backward()
         state.apply_gradients()
         return state, {k: v.detach() for k, v in loss_dict.items()}
@@ -116,8 +227,8 @@ def _make_step(loss):
 
 def make_det_train_step(img_size, use_l1=False):
     """step(state, images (B, 3, H, W), labels (B, M, 5))."""
-    return _make_step(lambda model, images, labels: det_loss_fn(
-        model, images, labels, img_size, use_l1))
+    return _make_step(lambda state, images, labels: det_loss_fn(
+        state.model, images, labels, img_size, use_l1))
 
 
 def make_uni_train_step(img_size, mot_weight=1.0, sot_weight=1.0,
@@ -126,6 +237,36 @@ def make_uni_train_step(img_size, mot_weight=1.0, sot_weight=1.0,
     """step(state, images (B, 2, 3, H, W), targets (B, 2, M, 6), task_ids
     (B,)). The model is the state's (the JAX factory takes the stateless
     module; here the module holds the parameters)."""
-    return _make_step(lambda model, images, targets, task_ids: uni_loss_fn(
-        model, images, targets, task_ids, img_size, mot_weight, sot_weight,
-        bidirect, use_l1, num_classes, mhs, mhs_weight, backbone_map))
+    return _make_step(lambda state, images, targets, task_ids: uni_loss_fn(
+        state.model, images, targets, task_ids, img_size, mot_weight,
+        sot_weight, bidirect, use_l1, num_classes, mhs, mhs_weight,
+        backbone_map))
+
+
+def make_det_mask_train_step(img_size, use_l1=False, max_inst=24,
+                             sem_loss_on=False, boxinst=False,
+                             boxinst_warmup_iters=10000, d_rate=4):
+    """step(state, images (B, 3, H, W), labels (B, M, 5), masks (B, M, Hm,
+    Wm)). With boxinst the pairwise term warms up linearly over
+    boxinst_warmup_iters, read from state.step before the update (so that
+    a resumed run keeps the schedule)."""
+
+    def loss(state, images, labels, masks):
+        warmup = (min(state.step / float(boxinst_warmup_iters), 1.0)
+                  if boxinst else 1.0)
+        return det_mask_loss_fn(state.model, images, labels, masks, img_size,
+                                use_l1, max_inst=max_inst,
+                                sem_loss_on=sem_loss_on, boxinst=boxinst,
+                                warmup_factor=warmup, d_rate=d_rate)
+
+    return _make_step(loss)
+
+
+def make_uni_mask_train_step(img_size, mot_weight=1.0, bidirect=True,
+                             use_l1=False, up_rate=8, max_inst=24):
+    """step(state, images (B, 2, 3, H, W), targets (B, 2, M, 6), task_ids
+    (B,), masks (B, 2, M, Hm, Wm))."""
+    return _make_step(
+        lambda state, images, targets, task_ids, masks: uni_mask_loss_fn(
+            state.model, images, targets, task_ids, masks, img_size,
+            mot_weight, bidirect, use_l1, up_rate, max_inst=max_inst))

@@ -1,11 +1,13 @@
-"""Detection experiment: the model and test fields of
-unicorn_tpu/exp/det.py ExpDet, and get_model() building the port's
-YOLOXDet. Its loader, evaluator, optimizer and train step are not ported
-yet."""
+"""Detection experiment: the model, training and test fields of
+unicorn_tpu/exp/det.py ExpDet, get_model() building the port's YOLOXDet,
+and the training factories get_lr_fn / get_optimizer (SGD with Nesterov
+momentum). Its loader and evaluator are not ported yet."""
 from __future__ import annotations
 
 import torch
 
+from ..core.schedule import warm_cos_lr_fn
+from ..core.train_state import default_wd_mask, make_optimizer
 from ..models.unicorn import YOLOXDet
 
 
@@ -26,6 +28,21 @@ class ExpDet:
         # backbone block remat is not ported yet (same numbers, less memory)
         self.remat = False
         self.input_size = (640, 640)
+        self.max_labels = 120
+        # --------------  training config --------------------- #
+        self.warmup_epochs = 1
+        self.max_epoch = 100
+        self.warmup_lr = 0
+        self.basic_lr_per_img = 1e-3 / 64.0
+        self.scheduler = "yoloxwarmcos"
+        self.no_aug_epochs = 5
+        self.min_lr_ratio = 0.025
+        self.ema = True
+        self.always_l1 = False
+        self.weight_decay = 5e-2
+        self.momentum = 0.9
+        self.use_grad_acc = False
+        self.grad_acc_step = 1
         # -----------------  testing config ------------------ #
         self.test_size = (640, 640)
         self.test_conf = 0.01
@@ -44,3 +61,18 @@ class ExpDet:
         """The YOLOXDet of this experiment, on the CPU, parameters drawn
         from `generator` (seed 0 when None)."""
         return YOLOXDet(**self._model_fields(), generator=generator)
+
+    # ---- training factories ----
+
+    def get_lr_fn(self, batch_size, iters_per_epoch):
+        return warm_cos_lr_fn(self, batch_size, iters_per_epoch)
+
+    def get_optimizer(self, batch_size, iters_per_epoch=1000):
+        """SGD with Nesterov momentum, decay (added before the momentum) on
+        kernels only; hand it to core.train_state.TrainState.create with
+        the model."""
+        return make_optimizer(
+            self.get_lr_fn(batch_size, iters_per_epoch), kind="sgd",
+            weight_decay=self.weight_decay, momentum=self.momentum,
+            grad_accum=self.grad_acc_step if self.use_grad_acc else 1,
+            no_decay_mask_fn=default_wd_mask)

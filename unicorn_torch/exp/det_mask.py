@@ -1,15 +1,36 @@
 """Instance-segmentation experiment: the fields of
 unicorn_tpu/exp/det_mask.py ExpDetMask, get_model() building the port's
-YOLOXDet with the CondInst controllers and mask branch, and
-get_inst_forward(). Its loader, evaluator, optimizer (the mask-only
-masking), train step and `load_pretrained` are not ported yet."""
+YOLOXDet with the CondInst controllers and mask branch, get_inst_forward(),
+and the training factories get_optimizer (SGD; with train_mask_only only
+the controllers and the mask branch train) and get_train_step. Its loader,
+evaluator and `load_pretrained` are not ported yet."""
 from __future__ import annotations
+
+from dataclasses import replace
 
 import torch
 
+from ..core.train_step import make_det_mask_train_step
 from ..drivers.inst import InstForward, make_inst_forward
 from ..models.unicorn import YOLOXDet
 from .det import ExpDet
+
+MASK_PARAM_KEYS = ("controller", "mask_branch")
+
+
+def mask_only_trainable(named_params) -> dict:
+    """{name: True where the parameter belongs to the CondInst branch}: the
+    head's controllers (`head.controllers.*`) and the mask branch
+    (`head.mask_branch.*`), the tensors JAX's rule selects on flax paths
+    (`head/controller*`, `mask_branch/*`)."""
+    return {name: any(k in name for k in MASK_PARAM_KEYS)
+            for name, _ in named_params}
+
+
+def mask_only(tx, on: bool):
+    """The update rule `tx`; with `on`, only the controllers and the mask
+    branch train (the rest neither moves nor decays)."""
+    return replace(tx, trainable_mask_fn=mask_only_trainable) if on else tx
 
 
 class ExpDetMask(ExpDet):
@@ -19,6 +40,10 @@ class ExpDetMask(ExpDet):
         self.exp_name = "unicorn_inst"
         self.train_mask_only = True
         self.d_rate = 4
+        # BoxInst box-supervised masks (losses/boxinst.py), off by default
+        self.boxinst = False
+        self.boxinst_warmup_iters = 10000
+        self.max_epoch = 12
         self.pretrain_name = "unicorn_det_convnext_tiny_800x1280"
 
     def get_model(self, generator: torch.Generator | None = None) -> YOLOXDet:
@@ -34,3 +59,17 @@ class ExpDetMask(ExpDet):
             nms_thre=self.nmsthre, use_raft=getattr(self, "use_raft", False),
             up_rate=getattr(self, "up_rate", 8 // self.d_rate),
             device=device)
+
+    def get_optimizer(self, batch_size, iters_per_epoch=1000):
+        """The parent's update rule, mask-only with train_mask_only."""
+        return mask_only(super().get_optimizer(batch_size, iters_per_epoch),
+                         self.train_mask_only)
+
+    def get_train_step(self, batch_size):
+        """step(state, images (B, 3, H, W), labels (B, M, 5), masks (B, M,
+        H / d_rate, W / d_rate)) -> (state, loss_dict)."""
+        del batch_size  # shapes are the batch's own
+        return make_det_mask_train_step(
+            self.input_size, use_l1=self.always_l1, boxinst=self.boxinst,
+            boxinst_warmup_iters=self.boxinst_warmup_iters,
+            d_rate=self.d_rate)

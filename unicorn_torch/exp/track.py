@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.schedule import yolox_warm_cos_lr
+from ..core.schedule import warm_cos_lr_fn
 from ..core.train_state import default_wd_mask, make_optimizer
 from ..core.train_step import make_uni_train_step
 from ..models.unicorn import Unicorn
@@ -91,18 +91,7 @@ class ExpTrack:
 
     def get_lr_fn(self, batch_size, iters_per_epoch):
         """iteration -> learning rate: quadratic warm-up, cosine, floor."""
-        lr = self.basic_lr_per_img * batch_size
-
-        def lr_fn(step):
-            return yolox_warm_cos_lr(
-                lr, self.min_lr_ratio,
-                total_iters=self.max_epoch * iters_per_epoch,
-                warmup_total_iters=self.warmup_epochs * iters_per_epoch,
-                warmup_lr_start=self.warmup_lr,
-                no_aug_iter=self.no_aug_epochs * iters_per_epoch,
-                iters=step)
-
-        return lr_fn
+        return warm_cos_lr_fn(self, batch_size, iters_per_epoch)
 
     def get_optimizer(self, batch_size, iters_per_epoch=12500):
         """AdamW, decay on kernels only, with gradient accumulation; hand it

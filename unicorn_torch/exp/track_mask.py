@@ -1,12 +1,14 @@
 """Unified VOS+MOTS experiment (the mask stage): the fields of
-unicorn_tpu/exp/track_mask.py ExpTrackMask and get_model() building the
+unicorn_tpu/exp/track_mask.py ExpTrackMask, get_model() building the
 port's Unicorn with the CondInst controllers, the mask branch and its RAFT
-up-mask layer. Its loader, its optimizer (only the controllers and the
-mask branch train), its train step and `load_pretrained` are not ported
-yet: get_optimizer and get_train_step raise rather than hand out ExpTrack's
-uni-stage ones."""
+up-mask layer, and the training factories get_optimizer (AdamW with
+accumulation; with train_mask_only only the controllers and the mask branch
+train) and get_train_step. Its loader and `load_pretrained` are not ported
+yet."""
 from __future__ import annotations
 
+from ..core.train_step import make_uni_mask_train_step
+from .det_mask import mask_only
 from .track import ExpTrack
 
 
@@ -29,10 +31,17 @@ class ExpTrackMask(ExpTrack):
                     up_rate=self.up_rate)
 
     def get_optimizer(self, batch_size, iters_per_epoch=12500):
-        raise NotImplementedError("the mask stage's optimizer (controllers "
-                                  "and mask branch only) is not yet ported")
+        """The parent's update rule, mask-only with train_mask_only."""
+        return mask_only(super().get_optimizer(batch_size, iters_per_epoch),
+                         self.train_mask_only)
 
     def get_train_step(self, batch_size):
-        raise NotImplementedError("the mask stage's train step "
-                                  "(make_uni_mask_train_step) is not yet "
-                                  "ported")
+        """step(state, images (B, 2, 3, H, W), targets (B, 2, M, 6),
+        task_ids (B,) 1 = VOS / 2 = MOTS, masks (B, 2, M, H / d_rate,
+        W / d_rate)) -> (state, loss_dict)."""
+        del batch_size  # shapes are the batch's own
+        return make_uni_mask_train_step(
+            self.input_size,
+            mot_weight=float(self.mot_weight) if self.scale_all_mot else 1.0,
+            bidirect=self.bidirect, use_l1=self.always_l1,
+            up_rate=self.up_rate, max_inst=int(getattr(self, "max_inst", 24)))

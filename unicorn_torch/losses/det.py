@@ -133,16 +133,14 @@ def simota_assign(gt_boxes, gt_classes, gt_valid, pred_boxes, obj_logits,
                      fg_mask.float().sum(1), gt_valid.float().sum(1))
 
 
-def yolox_losses(labels, pred_boxes, obj_logits, cls_logits, reg_raw,
-                 x_shifts, y_shifts, strides_vec, img_size,
-                 use_l1: bool = False, reg_weight: float = 5.0,
-                 sample_mask=None):
-    """Batched YOLOX losses with SimOTA assignment. labels (B, M, 5) [cls,
-    cx, cy, w, h] zero-padded; pred_boxes (B, A, 4) decoded cxcywh;
-    obj_logits (B, A, 1); cls_logits (B, A, C); reg_raw (B, A, 4).
-
-    With `sample_mask` (B,) the losses are those of the masked sub-batch
-    (sums and num_fg restricted to it). Returns (loss_dict, OTAResult)."""
+def yolox_terms(labels, pred_boxes, obj_logits, cls_logits, reg_raw,
+                x_shifts, y_shifts, strides_vec, img_size,
+                use_l1: bool = False):
+    """SimOTA assignment and each image's sums of the YOLOX terms over its
+    anchors. labels (B, M, 5) [cls, cx, cy, w, h] zero-padded; pred_boxes
+    (B, A, 4) decoded cxcywh; obj_logits (B, A, 1); cls_logits (B, A, C);
+    reg_raw (B, A, 4). Returns ((iou, obj, cls, l1) each (B,), OTAResult);
+    l1 is None without use_l1."""
     gt_valid = labels.sum(2) > 0                      # padded rows are zero
     gt_boxes = labels[..., 1:5]
     gt_classes = labels[..., 0].long()
@@ -153,13 +151,7 @@ def yolox_losses(labels, pred_boxes, obj_logits, cls_logits, reg_raw,
 
     B, A = assign.fg_mask.shape
     C = cls_logits.shape[-1]
-    if sample_mask is None:
-        sample_mask = labels.new_ones((B,))
-    sample_mask = sample_mask.float()
-    fg = assign.fg_mask.float() * sample_mask[:, None]
-    num_fg = (assign.num_fg * sample_mask).sum().clamp_min(1.0)
-    num_gts = (assign.num_gt * sample_mask).sum().clamp_min(1.0)
-
+    fg = assign.fg_mask.float()
     matched_cls = gt_classes.gather(1, assign.matched_gt)            # (B, A)
     reg_target = gt_boxes.gather(
         1, assign.matched_gt[..., None].expand(B, A, 4))
@@ -169,13 +161,12 @@ def yolox_losses(labels, pred_boxes, obj_logits, cls_logits, reg_raw,
     cls_target = onehot * assign.pred_iou[..., None]
 
     iou_ew = iou_elementwise_cxcywh(pred_boxes, reg_target)
-    loss_iou = ((1.0 - iou_ew ** 2) * fg).sum() / num_fg
-    loss_obj = (F.binary_cross_entropy_with_logits(
-        obj_logits[..., 0], fg, reduction="none")
-        * sample_mask[:, None]).sum() / num_fg
-    loss_cls = (F.binary_cross_entropy_with_logits(
-        cls_logits, cls_target, reduction="none").sum(-1) * fg).sum() / num_fg
-
+    t_iou = ((1.0 - iou_ew ** 2) * fg).sum(1)
+    t_obj = F.binary_cross_entropy_with_logits(
+        obj_logits[..., 0], fg, reduction="none").sum(1)
+    t_cls = (F.binary_cross_entropy_with_logits(
+        cls_logits, cls_target, reduction="none").sum(-1) * fg).sum(1)
+    t_l1 = None
     if use_l1:
         eps = 1e-8
         l1_t = torch.stack([
@@ -183,10 +174,33 @@ def yolox_losses(labels, pred_boxes, obj_logits, cls_logits, reg_raw,
             reg_target[..., 1] / strides_vec - y_shifts,
             torch.log(reg_target[..., 2] / strides_vec + eps),
             torch.log(reg_target[..., 3] / strides_vec + eps)], -1)
-        loss_l1 = ((reg_raw - l1_t).abs().sum(-1) * fg).sum() / num_fg
-    else:
-        loss_l1 = labels.new_zeros(())
+        t_l1 = ((reg_raw - l1_t).abs().sum(-1) * fg).sum(1)
+    return (t_iou, t_obj, t_cls, t_l1), assign
 
+
+def yolox_losses(labels, pred_boxes, obj_logits, cls_logits, reg_raw,
+                 x_shifts, y_shifts, strides_vec, img_size,
+                 use_l1: bool = False, reg_weight: float = 5.0,
+                 sample_mask=None):
+    """Batched YOLOX losses with SimOTA assignment (the arguments of
+    `yolox_terms`), normalised by the batch's foreground count.
+
+    With `sample_mask` (B,) the losses are those of the masked sub-batch
+    (sums and num_fg restricted to it). Returns (loss_dict, OTAResult)."""
+    (t_iou, t_obj, t_cls, t_l1), assign = yolox_terms(
+        labels, pred_boxes, obj_logits, cls_logits, reg_raw, x_shifts,
+        y_shifts, strides_vec, img_size, use_l1)
+    if sample_mask is None:
+        sample_mask = labels.new_ones((labels.shape[0],))
+    sample_mask = sample_mask.float()
+    num_fg = (assign.num_fg * sample_mask).sum().clamp_min(1.0)
+    num_gts = (assign.num_gt * sample_mask).sum().clamp_min(1.0)
+
+    def masked(t):
+        return (t * sample_mask).sum() / num_fg
+
+    loss_iou, loss_obj, loss_cls = masked(t_iou), masked(t_obj), masked(t_cls)
+    loss_l1 = masked(t_l1) if use_l1 else labels.new_zeros(())
     total = reg_weight * loss_iou + loss_obj + loss_cls + loss_l1
     loss_dict = {
         "total_loss": total,

@@ -7,8 +7,10 @@ reference's: weights [80, 64, 8] then biases [8, 8, 1], each weight block
 stored (out, in) row-major.
 
 Maps are NCHW (the port's layout): mask features (C, H, W) of one image,
-the RAFT up-mask (9*R*R, H, W). `resize_align_corners` and
-`aligned_bilinear` take (N, H, W) or (N, C, H, W).
+the RAFT up-mask (9*R*R, H, W); `dynamic_mask_logits` and
+`convex_upsample` also take a leading batch dim, where the JAX package
+vmaps them over images. `resize_align_corners` and `aligned_bilinear` take
+(N, H, W) or (N, C, H, W).
 """
 from __future__ import annotations
 
@@ -25,16 +27,16 @@ SIZES_OF_INTEREST = (64, 128, 256, 512, 1024)
 
 
 def parse_dynamic_params(params):
-    """params (N, 169) -> ([w0 (N,10,8), w1 (N,8,8), w2 (N,8,1)],
-    [b0 (N,8), b1 (N,8), b2 (N,1)]), the weights transposed to (in, out)
-    for x @ w."""
-    n = params.shape[0]
-    splits = torch.split(params, WEIGHT_NUMS + BIAS_NUMS, dim=1)
+    """params (..., N, 169) -> ([w0 (..., N,10,8), w1 (..., N,8,8),
+    w2 (..., N,8,1)], [b0 (..., N,8), b1 (..., N,8), b2 (..., N,1)]), the
+    weights transposed to (in, out) for x @ w."""
+    lead = params.shape[:-1]
+    splits = torch.split(params, WEIGHT_NUMS + BIAS_NUMS, dim=-1)
     in_chs = (MASK_CHANNELS + 2, MASK_CHANNELS, MASK_CHANNELS)
     out_chs = (MASK_CHANNELS, MASK_CHANNELS, 1)
-    weights = [splits[i].reshape(n, out_chs[i], in_chs[i]).transpose(1, 2)
-               for i in range(3)]
-    biases = [splits[3 + i].reshape(n, out_chs[i]) for i in range(3)]
+    weights = [splits[i].reshape(*lead, out_chs[i], in_chs[i])
+               .transpose(-1, -2) for i in range(3)]
+    biases = [splits[3 + i].reshape(*lead, out_chs[i]) for i in range(3)]
     return weights, biases
 
 
@@ -52,25 +54,27 @@ def dynamic_mask_logits(mask_feats, params, instance_locations,
                         instance_fpn_levels, mask_feat_stride: int = 8):
     """The 3-layer dynamic head for N instances at once, in fp32.
 
-    mask_feats: (C=8, H, W); params: (N, 169); instance_locations: (N, 2)
-    image coords; instance_fpn_levels: (N,) int. Returns logits (N, H, W).
+    mask_feats: (..., C=8, H, W); params: (..., N, 169);
+    instance_locations: (..., N, 2) image coords; instance_fpn_levels:
+    (..., N) int. The leading dims (none for one image, B for a batch) are
+    the images'. Returns logits (..., N, H, W).
     """
-    C, H, W = mask_feats.shape
-    N = params.shape[0]
+    *lead, C, H, W = mask_feats.shape
+    N = params.shape[-2]
     dev = mask_feats.device
     locations = compute_locations(H, W, mask_feat_stride, dev)   # (HW, 2)
-    rel = instance_locations[:, None, :].float() - locations[None]
+    rel = instance_locations[..., None, :].float() - locations
     soi = torch.tensor(SIZES_OF_INTEREST, dtype=torch.float32, device=dev)[
         instance_fpn_levels.long().clamp(0, len(SIZES_OF_INTEREST) - 1)]
-    rel = rel / soi[:, None, None]
-    feat = mask_feats.float().reshape(C, H * W).t()[None].expand(N, -1, -1)
-    x = torch.cat([rel, feat], -1)                               # (N, HW, 10)
+    rel = rel / soi[..., None, None]
+    feat = mask_feats.float().reshape(*lead, 1, C, H * W).transpose(-1, -2)
+    x = torch.cat([rel, feat.expand(*lead, N, H * W, C)], -1)  # (.., N, HW, 10)
     weights, biases = parse_dynamic_params(params.float())
     for i, (w, b) in enumerate(zip(weights, biases)):
-        x = torch.bmm(x, w) + b[:, None, :]
+        x = torch.matmul(x, w) + b[..., None, :]
         if i < 2:
             x = F.relu(x)
-    return x.reshape(N, H, W)
+    return x.reshape(*lead, N, H, W)
 
 
 def _as_nchw(x):
@@ -104,16 +108,20 @@ def aligned_bilinear(x, factor: int):
 
 
 def convex_upsample(pred, up_mask, up_rate: int = 8):
-    """RAFT convex-combination upsampling. pred: (N, H, W) logits; up_mask:
-    (9*R*R, H, W) from the mask branch, whose softmax over the 9 neighbours
-    runs in up_mask's dtype, as JAX's does. Returns (N, R*H, R*W)."""
-    N, H, W = pred.shape
+    """RAFT convex-combination upsampling. pred: (..., N, H, W) logits;
+    up_mask: (..., 9*R*R, H, W) from the mask branch (the same leading
+    dims: none for one image, B for a batch), whose softmax over the 9
+    neighbours runs in up_mask's dtype, as JAX's does. Returns
+    (..., N, R*H, R*W)."""
+    *lead, N, H, W = pred.shape
     R = up_rate
-    m = torch.softmax(up_mask.reshape(9, R, R, H, W), 0)
+    m = torch.softmax(up_mask.reshape(*lead, 9, R, R, H, W), -5)
     # 3x3 neighbourhoods of pred, zero-padded (F.unfold's order: dy, dx)
     p = F.pad(pred, (1, 1, 1, 1))
-    patches = torch.stack([p[:, dy:dy + H, dx:dx + W]
-                           for dy in range(3) for dx in range(3)], 1)
-    up = torch.einsum("nkhw,krshw->nrshw", patches,
+    patches = torch.stack([p[..., dy:dy + H, dx:dx + W]
+                           for dy in range(3) for dx in range(3)], -3)
+    up = torch.einsum("...nkhw,...krshw->...nrshw", patches,
                       m.to(torch.promote_types(m.dtype, patches.dtype)))
-    return up.permute(0, 3, 1, 4, 2).reshape(N, H * R, W * R)
+    L = len(lead)
+    return up.permute(*range(L), L, L + 3, L + 1, L + 4, L + 2).reshape(
+        *lead, N, H * R, W * R)
