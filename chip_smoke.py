@@ -108,6 +108,26 @@ Phases (each must pass, else the exit code is 1):
              a step); the frozen tensors bit-identical; with every tensor
              training, one step kernels vs plain (the embedding layers'
              gradients) and two timed steps, bwd_i and bwd_j once a step
+  trainer    the training loop: Trainer(exp, {"batch_size": 2}).train()
+             on unicorn_track_tiny (AdamW, accumulation 2, EMA) from an
+             in-memory omni dataset of seeded 1080x1920 uint8 frames (SOT
+             sequences of one box, MOT of 8-12 with ids): 2 epochs of 12
+             iterations (a multiscale draw at iteration 10 of each, the L1
+             switch at epoch 1, eval tried and skipped), ms / iteration,
+             pairs/s, data against step ms an iteration, peak memory,
+             launches (36 / 1 / 2 / 2 / 2 a step), metrics.jsonl's keys,
+             the sizes of the batches run; at each multiscale size run
+             besides 800x1280, one step's loss and gradients through the
+             kernels against their plain versions (train_model's bounds);
+             the save time blocking and asynchronous, the file size; 12
+             iterations with 4 loader workers; load_pretrained from a
+             checkpoint of the seeded inst YOLOXDet (tensors copied, cls
+             gathered, *_sot duplicated), SIGTERM after iteration 3
+             (`latest` written, the run stops), resume (model, EMA and AdamW
+             moments bit-equal to the checkpoint, counters rewound) to the
+             end; one epoch of 4 iterations each of ExpTrackMask
+             (UniMaskLoader, 480x854 frames with masks) and the inst stage
+             (InstLoader, 480x640 images)
 `--only profile` adds a torch.profiler breakdown of the paths.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the rest of the
@@ -2676,15 +2696,16 @@ def _train_model(report):
     return report["train_model"]
 
 
-def _train_batch(exp, task: int, seed: int, n_obj: int):
+def _train_batch(exp, task: int, seed: int, n_obj: int, size=None):
     """One synthetic batch on the card from a numpy seed: images
     (B, 2, 3, H, W) float32 in [0, 255] (a random texture, the second frame
-    shifted by 4 px), targets (B, 2, M, 6) [cls, cx, cy, w, h, track id] with
-    n_obj boxes that drift by a few px between the frames, task_ids (B,)."""
+    shifted by 4 px) at `size` (H, W), else the exp's input size, targets
+    (B, 2, M, 6) [cls, cx, cy, w, h, track id] with n_obj boxes that drift
+    by a few px between the frames, task_ids (B,)."""
     import numpy as np
     import torch
 
-    H, W = exp.input_size
+    H, W = size or exp.input_size
     rng = np.random.RandomState(seed)
     base = (rng.rand(TRAIN_B, 3, H, W + 4) * 255).round().astype(np.float32)
     images = np.stack([base[..., :W], base[..., 4:]], 1)
@@ -3459,6 +3480,459 @@ def phase_mask_train(report):
     torch.cuda.empty_cache()
 
 
+# -------------------------------------------------------- the trainer
+TRAINER_FRAME_HW = (1080, 1920)  # the omni datasets' frames (uni stage)
+TRAINER_MASK_HW = (480, 854)     # the VOS + MOTS datasets' frames
+TRAINER_INST_HW = (480, 640)     # the inst dataset's images
+TRAINER_SAMPLES = 24             # pairs an epoch: 12 iterations at B = 2
+TRAINER_EPOCHS = 2               # the second without augmentation (L1)
+TRAINER_SHORT_SAMPLES = 8        # 4 iterations: the other runs
+TRAINER_SIGTERM_ITER = 3         # the SIGTERM lands after this iteration
+TRAINER_EXP_FIELDS = {}          # fields set on every exp of the phase
+# the loss keys of JAX's uni step with mhs (its metrics.jsonl records hold
+# these beside epoch and iter; tests/test_torch_port_trainer.py holds the
+# port's against JAX's)
+UNI_LOSS_KEYS = {"total_loss", "mhs_loss"} | {
+    f"{k}_{t}" for k in ("corr_loss", "iou_loss", "conf_loss", "cls_loss",
+                         "l1_loss", "num_fg") for t in ("sot", "mot")}
+
+
+class _MemorySeqs:
+    """In-memory sequences of two seeded uint8 frames each (a random
+    texture, the second shifted by 8 px) with boxes that drift by a few
+    px between them: `pull_item_omni(seq, n)` -> n frames of (img, res
+    (N, 5 | 6) [xyxy, cls(, track id)](, masks (H, W, N) float32 filled
+    ellipses)). sot: one box without an id column."""
+
+    def __init__(self, n_seq, n_obj, hw, seed, sot=False, masked=False,
+                 num_classes=8, with_ids=True):
+        import numpy as np
+
+        rng = np.random.RandomState(seed)
+        h, w = hw
+        self.items = []
+        for _ in range(n_seq):
+            base = rng.randint(0, 256, (h, w + 8, 3), dtype=np.uint8)
+            n = 1 if sot else rng.randint(n_obj[0], n_obj[1] + 1)
+            wh = rng.uniform(0.04, 0.25, (n, 2)) * [w, h]
+            cxy = rng.uniform(0.2, 0.8, (n, 2)) * [w, h]
+            cls = np.zeros(n) if sot else rng.randint(0, num_classes, n)
+            frames = []
+            for f in range(2):
+                c = cxy + f * rng.uniform(-6, 6, (n, 2))
+                boxes = np.concatenate([c - wh / 2, c + wh / 2], 1).clip(
+                    0, [w, h, w, h])
+                cols = [boxes, cls[:, None]]
+                if not sot and with_ids:
+                    cols.append(np.arange(1, n + 1)[:, None])
+                item = [np.ascontiguousarray(base[:, 8 * f:8 * f + w]),
+                        np.hstack(cols).astype(np.float32)]
+                if masked:
+                    item.append(self._ellipses(boxes, h, w))
+                frames.append(tuple(item))
+            self.items.append(frames)
+
+    @staticmethod
+    def _ellipses(boxes, h, w):
+        import numpy as np
+
+        masks = np.zeros((h, w, len(boxes)), np.float32)
+        for k, (x0, y0, x1, y1) in enumerate(boxes):
+            ys, xs = np.ogrid[int(y0):int(np.ceil(y1)), int(x0):int(np.ceil(x1))]
+            inside = (((xs + 0.5 - (x0 + x1) / 2) / max((x1 - x0) / 2, 1e-6)) ** 2
+                      + ((ys + 0.5 - (y0 + y1) / 2) / max((y1 - y0) / 2, 1e-6))
+                      ** 2) <= 1.0
+            masks[int(y0):int(np.ceil(y1)), int(x0):int(np.ceil(x1)), k] = inside
+        return masks
+
+    def __len__(self):
+        return len(self.items)
+
+    def pull_item_omni(self, seq_id, num_frames=2):
+        return [tuple(a.copy() for a in fr)
+                for fr in self.items[seq_id][:num_frames]]
+
+
+def _trainer_exp(base, out_dir, samples, max_epoch, datasets=None,
+                 loader=None, **fields):
+    """An instance of a subclass of the exp class `base` writing under
+    out_dir, samples_per_epoch = samples, whose get_dataset passes the
+    in-memory `datasets` (two groups) or whose get_data_loader is
+    `loader(exp, batch_size)`."""
+    class Exp(base):
+        def get_dataset(self, *groups):
+            return super().get_dataset(*datasets)
+
+        if loader is not None:
+            def get_data_loader(self, batch_size):
+                return loader(self, batch_size)
+
+    exp = Exp()
+    exp.output_dir = out_dir
+    exp.samples_per_epoch = samples
+    exp.max_epoch = max_epoch
+    exp.pretrain_name = None
+    exp.print_interval = 4
+    for k, v in {**TRAINER_EXP_FIELDS, **fields}.items():
+        setattr(exp, k, v)
+    return exp
+
+
+def _uni_datasets(seed):
+    hw = TRAINER_FRAME_HW
+    return ([_MemorySeqs(3, None, hw, seed, sot=True)],
+            [_MemorySeqs(3, (8, 12), hw, seed + 1)])
+
+
+def _trainer_run(trainer, label, launches, unit="pairs"):
+    """trainer.train() with the launch counts zeroed just before and read
+    after; prints ms / iteration, pairs/s, data and step ms an iteration
+    (host clocks inside the loop), peak memory. Returns (counts, iters,
+    loop seconds)."""
+    import torch
+
+    t = {}
+    orig = trainer.before_train
+
+    def timed_before_train():
+        orig()
+        torch.cuda.synchronize()
+        t["loop"] = time.perf_counter()
+
+    trainer.before_train = timed_before_train
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    trainer.train()
+    torch.cuda.synchronize()
+    loop = time.perf_counter() - t["loop"]
+    counts = _all_counts()
+    iters = trainer.state.step - trainer.start_epoch * trainer.iters_per_epoch
+    data, step = trainer.meters["data_time"], trainer.meters["step_time"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    H, W = trainer.input_size
+    print(f"{label}: {iters} iterations of B={trainer.batch_size} at "
+          f"{H}x{W} in {loop:.2f} s: {loop / iters * 1e3:.1f} ms/iteration "
+          f"({iters * trainer.batch_size / loop:.2f} {unit}/s); an iteration, "
+          f"mean (median of the last {len(data._deque)}): data "
+          f"{data.global_avg * 1e3:.1f} ({data.median * 1e3:.1f}) ms "
+          f"(waiting on the loader, {trainer.loader.workers} workers, and "
+          f"the copy up), step {step.global_avg * 1e3:.1f} "
+          f"({step.median * 1e3:.1f}) ms (host clock, no synchronise); "
+          f"peak memory {peak:.2f} GiB; launches {counts}"
+          + (f" = {iters} x {launches}" if launches is not None else ""))
+    if launches is not None:
+        assert counts == {k: n * iters for k, n in launches.items()}, counts
+    return counts, iters, loop
+
+
+def _record_sizes(trainer):
+    """Wrap trainer.device_batch to record the (H, W) of every batch the
+    loop moves to the card, in order; returns that list."""
+    sizes = []
+    put = trainer.device_batch
+
+    def recording(batch):
+        out = put(batch)
+        sizes.append(tuple(out[0].shape[-2:]))
+        return out
+
+    trainer.device_batch = recording
+    return sizes
+
+
+def _check_at_size(model, exp, size, seed):
+    """The uni step's loss and gradients at a multiscale `size` on
+    `model`, kernels vs plain (`_kernels_vs_plain`: every dw7x7, MSDA and
+    training-correlation call at this size's stage, level and N shapes
+    against its plain version) on one mixed batch (an SOT and a MOT
+    sample, 8 boxes) at that size, with the exp's loss weights and L1
+    setting, at phase train_model's bounds (`_kernel_check_report`)."""
+    from unicorn_torch.core.train_step import uni_loss_fn
+    from unicorn_torch.losses import uni as uni_mod
+
+    images, targets, task_ids = _train_batch(exp, 2, seed=seed, n_obj=8,
+                                             size=size)
+    task_ids[0] = 1
+    kw = dict(_uni_loss_kwargs(exp), img_size=tuple(size))
+
+    def run():
+        return _loss_and_grads(model, lambda: uni_loss_fn(
+            model, images, targets, task_ids, **kw))
+
+    H, W = size
+    _kernel_check_report(f"trainer, multiscale {H}x{W} (use_l1 "
+                         f"{kw['use_l1']})", *_kernels_vs_plain(
+                             run, (uni_mod,)), TRAIN_LAUNCHES)
+
+
+def _check_metrics(trainer, keys):
+    """Every metrics.jsonl record holds epoch, iter and `keys`, finite."""
+    import math
+
+    path = os.path.join(trainer.output_dir, "metrics.jsonl")
+    with open(path) as f:
+        records = [json.loads(line) for line in f]
+    assert records, "no metrics.jsonl record"
+    for r in records:
+        assert set(r) == {"epoch", "iter"} | keys, sorted(set(r) ^ keys)
+        assert all(math.isfinite(v) for v in r.values()), r
+    return records
+
+
+def _states_equal(a: dict, b: dict, what):
+    import torch
+
+    assert a.keys() == b.keys(), what
+    for k in a:
+        assert torch.equal(a[k].cpu(), b[k].cpu()), (what, k)
+
+
+def phase_trainer(report):
+    """The training loop: Trainer(exp, {"batch_size": 2}).train() on
+    unicorn_track_tiny at full width from an in-memory omni dataset
+    (seeded 1080x1920 frames; SOT sequences of one box, MOT of 8-12 with
+    ids): 2 epochs of 12 iterations (a multiscale draw at iteration 10,
+    the L1 switch at epoch 1), and at each size run besides the input
+    size one step kernels vs plain (`_check_at_size`); then 12 iterations
+    with 4 loader workers;
+    save times and file size; load_pretrained of a detector checkpoint
+    (the seeded inst YOLOXDet), SIGTERM after iteration 3, resume
+    bit-equal and to the end; one epoch of 4 iterations each of
+    ExpTrackMask (UniMaskLoader, 480x854 frames) and the inst stage
+    (InstLoader, 480x640 images)."""
+    import logging
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from unicorn_torch.core.checkpoint import (load_checkpoint,
+                                               save_checkpoint,
+                                               wait_for_checkpoints)
+    from unicorn_torch.core.trainer import Trainer
+    from unicorn_torch.data.loader import InstLoader
+    from unicorn_torch.data.transforms import TrainTransformIns
+    from unicorn_torch.exp import unicorn_inst_convnext_tiny_800x1280 as inst
+    from unicorn_torch.exp import unicorn_track_tiny as track
+    from unicorn_torch.exp import unicorn_track_tiny_mask as track_mask
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_")
+    cwd = os.getcwd()
+    logger = logging.getLogger("unicorn_torch")
+    try:
+        out = tmp.name
+        # -- two epochs at full width
+        exp = _trainer_exp(track.Exp, out, TRAINER_SAMPLES, TRAINER_EPOCHS,
+                           _uni_datasets(40), no_aug_epochs=1,
+                           multiscale_range=2, eval_interval=1)
+        tr = Trainer(exp, {"batch_size": TRAIN_B}, device=DEVICE)
+        sizes = _record_sizes(tr)
+        counts, iters, _ = _trainer_run(tr, "trainer, 2 epochs",
+                                        TRAIN_LAUNCHES)
+        _record_launches(report, "trainer", counts)
+        assert iters == TRAINER_EPOCHS * TRAINER_SAMPLES // TRAIN_B
+        assert tr.no_aug and exp.always_l1 and tr.state.opt_count == iters // 2
+        records = _check_metrics(tr, UNI_LOSS_KEYS)
+        draws = [np.random.RandomState((e * 100003 + 9) % 2 ** 32).randint(
+            len(tr.size_list)) for e in range(TRAINER_EPOCHS)]
+        runs = [[sizes[0], 1]]
+        for hw in sizes[1:]:
+            if hw == runs[-1][0]:
+                runs[-1][1] += 1
+            else:
+                runs.append([hw, 1])
+        print(f"  sizes {tr.size_list}; drawn at iteration 10 of each epoch: "
+              f"{[tr.size_list[i] for i in draws]}; batches run, in order: "
+              + ", ".join(f"{n} x {h}x{w}" for (h, w), n in runs)
+              + f"; loader now at {tr.loader.input_size}; {len(records)} "
+              f"metrics records, total_loss "
+              f"{[round(r['total_loss'], 3) for r in records]}")
+        assert len(sizes) == iters and tr.loader.input_size == \
+            tr.size_list[draws[-1]]
+        # every size the loop ran besides the input size: the same step
+        # through the kernels against their plain versions
+        others = sorted(set(sizes) - {tuple(exp.input_size)})
+        assert others, "no multiscale size was run"
+        for i, hw in enumerate(others):
+            _check_at_size(tr.state.model, exp, hw, seed=13 + i)
+        for name in ("latest", "last_mosaic_epoch"):
+            assert os.path.isfile(os.path.join(tr.output_dir, name)), name
+        # no evaluator is ported: eval was tried each epoch and skipped
+        assert not os.path.exists(os.path.join(tr.output_dir, "best"))
+        # save times: blocking, and the return of an asynchronous save
+        t0 = time.perf_counter()
+        tr.save_ckpt("timed_blocking", blocking=True)
+        t_block = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tr.save_ckpt("timed_async")
+        t_async = time.perf_counter() - t0
+        wait_for_checkpoints()
+        t_async_done = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(tr.output_dir, "latest"))
+        print(f"  checkpoint {size / 2 ** 20:.1f} MiB: blocking save "
+              f"{t_block * 1e3:.0f} ms; asynchronous save returns in "
+              f"{t_async * 1e3:.0f} ms (copy to host), written after "
+              f"{t_async_done * 1e3:.0f} ms")
+        shutil.rmtree(tr.output_dir)  # 4 checkpoints of the full state
+        del tr
+        torch.cuda.empty_cache()
+
+        # -- the same with 4 loader workers
+        exp = _trainer_exp(track.Exp, os.path.join(out, "w4"),
+                           TRAINER_SAMPLES, 1, _uni_datasets(41),
+                           data_num_workers=4)
+        tr = Trainer(exp, {"batch_size": TRAIN_B}, device=DEVICE)
+        _trainer_run(tr, "trainer, 4 loader workers", TRAIN_LAUNCHES)
+        _check_metrics(tr, UNI_LOSS_KEYS)
+        shutil.rmtree(tr.output_dir)
+        del tr
+        torch.cuda.empty_cache()
+
+        # -- load_pretrained from a detector checkpoint, SIGTERM, resume
+        os.chdir(out)
+        dexp = inst.Exp()
+        for k, v in TRAINER_EXP_FIELDS.items():
+            setattr(dexp, k, v)
+        det = dexp.get_model(torch.Generator().manual_seed(0)).state_dict()
+        save_checkpoint(os.path.join(out, "Unicorn_outputs", "det_smoke"),
+                        {"model": det, "ema_model": det})
+
+        class Preempted(Trainer):
+            def before_train(self):
+                super().before_train()
+                got = {k: v.cpu() for k, v in self.model.state_dict().items()}
+                gather = [0, 0, 2, 7, 5, 6, 3, 1]
+                n = 0
+                for k, v in det.items():
+                    if k in got and "cls_preds" in k and \
+                            v.shape != got[k].shape:
+                        v = v[gather]
+                    if k in got and v.shape == got[k].shape:
+                        assert torch.equal(got[k], v), k
+                        n += 1
+                sot = [k for k in got if "_sot." in k and (
+                    "obj_preds" in k or "reg_preds" in k)]
+                for k in sot:
+                    assert torch.equal(got[k], det[k.replace("_sot", "")]), k
+                print(f"  load_pretrained: {n} of {len(got)} tensors equal "
+                      f"to the detector's ({len(det)}), cls_preds gathered "
+                      f"80 -> 8, {len(sot)} *_sot tensors duplicated")
+                assert n > len(got) // 2 and len(sot) == 12
+
+            def _get_step_fn(self, size):
+                fn = super()._get_step_fn(size)
+
+                def hooked(*a):
+                    res = fn(*a)
+                    if self.iter == TRAINER_SIGTERM_ITER - 1:
+                        os.kill(os.getpid(), signal.SIGTERM)
+                    return res
+
+                return hooked
+
+        def preempt_exp():
+            return _trainer_exp(track.Exp, os.path.join(out, "pre"),
+                                TRAINER_SHORT_SAMPLES, 1, _uni_datasets(42),
+                                pretrain_name="det_smoke")
+
+        before = signal.getsignal(signal.SIGTERM)
+        tr = Preempted(preempt_exp(), {"batch_size": TRAIN_B}, device=DEVICE)
+        _reset_all_counts()
+        tr.train()
+        assert tr._preempted == signal.SIGTERM and tr.iter == \
+            TRAINER_SIGTERM_ITER - 1
+        assert signal.getsignal(signal.SIGTERM) is before
+        pre_counts = _all_counts()
+        assert pre_counts == {k: n * TRAINER_SIGTERM_ITER
+                              for k, n in TRAIN_LAUNCHES.items()}, pre_counts
+        saved = load_checkpoint(tr.output_dir, "latest")
+        assert (saved["epoch"], saved["step"], saved["opt_count"],
+                saved["mini_step"]) == (0, 3, 1, 1), saved["step"]
+        mine = tr.state.state_dict()
+        _states_equal(mine["model"], saved["model"], "model as saved")
+        print(f"  SIGTERM after iteration {TRAINER_SIGTERM_ITER}: `latest` "
+              f"written (epoch 0, step 3, opt_count 1, mini_step 1), the run "
+              f"stopped; launches {pre_counts}")
+        del tr, mine
+        torch.cuda.empty_cache()
+
+        class Resumed(Trainer):
+            def before_train(self):
+                super().before_train()
+                sd = self.state.state_dict()
+                _states_equal(sd["model"], saved["model"], "model")
+                _states_equal(sd["ema_model"], saved["ema_model"], "ema")
+                opt, s_opt = sd["optimizer"]["state"], \
+                    saved["optimizer"]["state"]
+                assert opt.keys() == s_opt.keys() and opt
+                for i in opt:
+                    for k in ("exp_avg", "exp_avg_sq"):
+                        assert torch.equal(opt[i][k].cpu(),
+                                           s_opt[i][k]), (i, k)
+                    assert float(opt[i]["step"]) == 0
+                st = self.state
+                assert (st.step, st.opt_count, st.mini_step) == (0, 0, 0)
+                assert all(not a.any() for a in st._acc)
+                print(f"  resume: model, EMA and AdamW moments of {len(opt)} "
+                      f"tensors bit-equal to the checkpoint; counters "
+                      f"rewound to the epoch-0 boundary")
+
+        exp = preempt_exp()
+        exp.pretrain_name = None
+        tr = Resumed(exp, {"batch_size": TRAIN_B, "resume": True},
+                     device=DEVICE)
+        _trainer_run(tr, "trainer, resumed run", TRAIN_LAUNCHES)
+        assert tr._preempted is None and tr.state.step == tr.iters_per_epoch
+        _check_metrics(tr, UNI_LOSS_KEYS)
+        os.chdir(cwd)
+        shutil.rmtree(tr.output_dir)
+        del tr, saved
+        torch.cuda.empty_cache()
+
+        # -- the mask stages, one epoch of 4 iterations each
+        mh = TRAINER_MASK_HW
+        exp = _trainer_exp(
+            track_mask.Exp, os.path.join(out, "mask"), TRAINER_SHORT_SAMPLES,
+            1, ([_MemorySeqs(2, (1, 3), mh, 50, masked=True)],
+                [_MemorySeqs(2, (8, 12), mh, 51, masked=True)]))
+        tr = Trainer(exp, {"batch_size": TRAIN_B}, device=DEVICE)
+        counts, _, _ = _trainer_run(tr, "trainer, VOS + MOTS stage",
+                                    MASK_TRAIN_LAUNCHES)
+        _record_launches(report, "trainer_mask", counts)
+        shutil.rmtree(tr.output_dir)
+        del tr
+        torch.cuda.empty_cache()
+
+        def inst_loader(exp, batch_size):
+            return InstLoader(
+                _MemorySeqs(3, (8, 16), TRAINER_INST_HW, 60, masked=True,
+                            num_classes=exp.num_classes, with_ids=False),
+                TrainTransformIns(exp.max_labels, exp.flip_prob,
+                                  exp.hsv_prob, d_rate=exp.d_rate),
+                batch_size, exp.input_size, seed=exp.seed or 0,
+                workers=exp.data_num_workers)
+
+        exp = _trainer_exp(inst.Exp, os.path.join(out, "inst"),
+                           TRAINER_SHORT_SAMPLES, 1, loader=inst_loader)
+        tr = Trainer(exp, {"batch_size": TRAIN_B}, device=DEVICE)
+        counts, _, _ = _trainer_run(tr, "trainer, inst stage",
+                                    INST_TRAIN_LAUNCHES, unit="images")
+        _record_launches(report, "trainer_inst", counts)
+        del tr
+        torch.cuda.empty_cache()
+    finally:
+        os.chdir(cwd)
+        wait_for_checkpoints()
+        for h in [h for h in logger.handlers
+                  if isinstance(h, logging.FileHandler)]:
+            logger.removeHandler(h)
+            h.close()
+        tmp.cleanup()
+
+
 # ------------------------------------------------------ opt-in: profile
 def _profile(label, step, frames, show=()):
     """torch.profiler over step(frame) for each frame: CUDA time by kernel
@@ -3639,11 +4113,13 @@ PHASES = {
     "train": phase_train,
     "inst_train": phase_inst_train,
     "mask_train": phase_mask_train,
+    "trainer": phase_trainer,
     "profile": phase_profile,
 }
 DEFAULT_PHASES = ("build", "kernels", "model", "main", "block_model",
                   "stream", "sot_model", "sot", "inst", "vos", "omni",
-                  "train_model", "train", "inst_train", "mask_train")
+                  "train_model", "train", "inst_train", "mask_train",
+                  "trainer")
 
 
 def main(argv=None) -> int:

@@ -7,7 +7,9 @@ unicorn_tpu, tools and cv2, then every module of unicorn_torch is imported,
 the training sub-packages `losses` (with the mask stage's `losses.mask`
 and `losses.boxinst`) and `core`, the fused block op, the
 device tracker, the streaming, inst and VOS drivers, the omni MOT driver,
-the QDTrack / SORT / DeepSORT / MOTDT trackers and utils.boxes among them.
+the QDTrack / SORT / DeepSORT / MOTDT trackers and utils.boxes among them,
+and the training loop's checkpoints, trainer, logger, meters and host data
+path (preproc, transforms, the omni datasets, the loaders).
 """
 import os
 import subprocess
@@ -41,7 +43,9 @@ for n in ("ops.deform_attn", "ops.correlation", "ops.correlation_kernel",
           "core.train_step", "ops.convnext_block", "tracker.device_tracker",
           "drivers.stream", "drivers.inst", "drivers.vos",
           "tracker.qd_tracker", "tracker.legacy", "utils.boxes",
-          "drivers.mot"):
+          "drivers.mot", "core.checkpoint", "core.trainer", "utils.logger",
+          "utils.meters", "data", "data.preproc", "data.transforms",
+          "data.loader", "data.datasets", "data.datasets.omni"):
     assert "unicorn_torch." + n in names, n
 print(len(names))
 """

@@ -18,6 +18,9 @@ How the update rule maps onto optax's, which the tests hold it to:
   * `apply_gradients` advances `step` and updates the EMA on every
     micro-step, also on those where the parameters did not move. The EMA
     runs over every parameter, frozen ones too, as JAX's does.
+  * `state_dict` / `load_state_dict` carry what optax keeps in one state
+    tree: the optimizer's moments and per-parameter step counts, the
+    counters and the accumulator, beside the model and its EMA copy.
   * Frozen parameters (`trainable_mask_fn`): JAX chains
     `optax.masked(optax.set_to_zero(), frozen)` after the whole update, so
     a frozen parameter neither moves nor decays. Here it is left out of
@@ -173,3 +176,56 @@ class TrainState:
             torch._foreach_mul_(self._ema, d)
             torch._foreach_add_(self._ema, self._all, alpha=1.0 - d)
         return self
+
+    def state_dict(self) -> dict:
+        """model, EMA model (None without EMA), optimizer, the counters and
+        the accumulation buffer (None until the first micro-step). The
+        tensors are the state's own, not copies."""
+        return {
+            "model": self.model.state_dict(),
+            "ema_model": (self.ema_model.state_dict()
+                          if self.ema_model is not None else None),
+            "optimizer": self.optimizer.state_dict(),
+            "step": self.step, "opt_count": self.opt_count,
+            "mini_step": self.mini_step,
+            "acc": list(self._acc) if self._acc is not None else None}
+
+    def load_state_dict(self, sd: dict, optimizer: bool = True):
+        """Restore what state_dict saved. The EMA copy loads `ema_model`
+        (the model's entry when that is None) and stays off when this state
+        has none. optimizer=False restores the weights and `step` only and
+        leaves the optimizer, its counters and the accumulator fresh."""
+        self.model.load_state_dict(sd["model"])
+        if self.ema_model is not None:
+            self.ema_model.load_state_dict(sd.get("ema_model") or sd["model"])
+        self.step = int(sd["step"])
+        if not optimizer:
+            return
+        self.optimizer.load_state_dict(sd["optimizer"])
+        self.opt_count = int(sd["opt_count"])
+        self.mini_step = int(sd["mini_step"])
+        self._acc = None
+        if sd.get("acc") is not None:
+            self._acc = [a.to(p.device, p.dtype)
+                         for a, p in zip(sd["acc"], self._params)]
+
+
+def rewind_opt_counts(state: TrainState, opt_step: int, step: int):
+    """Set every step counter to the epoch boundary: `opt_count` and each
+    AdamW parameter's `state["step"]` (its bias correction) to `opt_step`,
+    `step` (the EMA decay, BoxInst's warm-up) to `step`, `mini_step` to 0
+    with the accumulator zeroed (port of JAX's, which sets optax's counts
+    and MultiSteps' `mini_step` in the state tree).
+
+    Used when resuming a mid-epoch preemption checkpoint: the trainer
+    replays that epoch from iteration 0, so counters saved mid-epoch would
+    run the learning-rate schedule ahead of the iteration count by the
+    replayed iterations."""
+    state.opt_count = opt_step
+    state.step = step
+    state.mini_step = 0
+    if state._acc is not None:
+        torch._foreach_zero_(state._acc)
+    for s in state.optimizer.state.values():
+        if "step" in s:  # AdamW; SGD keeps none
+            s["step"].fill_(float(opt_step))

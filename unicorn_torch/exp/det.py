@@ -1,7 +1,8 @@
 """Detection experiment: the model, training and test fields of
 unicorn_tpu/exp/det.py ExpDet, get_model() building the port's YOLOXDet,
-and the training factories get_lr_fn / get_optimizer (SGD with Nesterov
-momentum). Its loader and evaluator are not ported yet."""
+the training factories get_lr_fn / get_optimizer (SGD with Nesterov
+momentum) and the fields the trainer reads. Its loader (mosaic over the
+on-disk COCO set) and evaluator are not ported yet."""
 from __future__ import annotations
 
 import torch
@@ -9,6 +10,13 @@ import torch
 from ..core.schedule import warm_cos_lr_fn
 from ..core.train_state import default_wd_mask, make_optimizer
 from ..models.unicorn import YOLOXDet
+
+NOT_PORTED_DATASETS = (
+    "the on-disk training datasets are not ported yet (ROADMAP Queue 1 "
+    "item 3: the datasets with a cv2-free image decoder); pass in-memory "
+    "sub-datasets with pull_item_omni to get_dataset")
+NOT_PORTED_EVAL = ("the evaluators are not ported yet (ROADMAP Queue 1 "
+                   "item 7)")
 
 
 class ExpDet:
@@ -28,8 +36,14 @@ class ExpDet:
         # backbone block remat is not ported yet (same numbers, less memory)
         self.remat = False
         self.input_size = (640, 640)
+        self.data_num_workers = 1
+        self.multiscale_range = 5
         self.max_labels = 120
+        self.hsv_prob = 1.0
+        self.flip_prob = 0.5
         # --------------  training config --------------------- #
+        self.seed = None
+        self.output_dir = "./Unicorn_outputs"
         self.warmup_epochs = 1
         self.max_epoch = 100
         self.warmup_lr = 0
@@ -41,6 +55,9 @@ class ExpDet:
         self.always_l1 = False
         self.weight_decay = 5e-2
         self.momentum = 0.9
+        self.print_interval = 10
+        self.debug_only = False
+        self.eval_interval = 10
         self.use_grad_acc = False
         self.grad_acc_step = 1
         # -----------------  testing config ------------------ #
@@ -76,3 +93,7 @@ class ExpDet:
             weight_decay=self.weight_decay, momentum=self.momentum,
             grad_accum=self.grad_acc_step if self.use_grad_acc else 1,
             no_decay_mask_fn=default_wd_mask)
+
+    def get_trainer_evaluator(self, batch_size=1):
+        """The trainer's in-training COCO evaluator: not ported yet."""
+        raise NotImplementedError(NOT_PORTED_EVAL)

@@ -1,19 +1,23 @@
 """Instance-segmentation experiment: the fields of
 unicorn_tpu/exp/det_mask.py ExpDetMask, get_model() building the port's
 YOLOXDet with the CondInst controllers and mask branch, get_inst_forward(),
-and the training factories get_optimizer (SGD; with train_mask_only only
-the controllers and the mask branch train) and get_train_step. Its loader,
-evaluator and `load_pretrained` are not ported yet."""
+the training factories get_optimizer (SGD; with train_mask_only only
+the controllers and the mask branch train) and get_train_step, and
+load_pretrained (the detector's weights). Its loader over the on-disk
+COCO set and its evaluator are not ported yet: build
+data.loader.InstLoader over an in-memory dataset."""
 from __future__ import annotations
 
+import os
 from dataclasses import replace
 
 import torch
 
+from ..core.checkpoint import load_checkpoint, load_matching
 from ..core.train_step import make_det_mask_train_step
 from ..drivers.inst import InstForward, make_inst_forward
 from ..models.unicorn import YOLOXDet
-from .det import ExpDet
+from .det import NOT_PORTED_DATASETS, ExpDet
 
 MASK_PARAM_KEYS = ("controller", "mask_branch")
 
@@ -73,3 +77,16 @@ class ExpDetMask(ExpDet):
             self.input_size, use_l1=self.always_l1, boxinst=self.boxinst,
             boxinst_warmup_iters=self.boxinst_warmup_iters,
             d_rate=self.d_rate)
+
+    def get_data_loader(self, batch_size):
+        """InstLoader over the on-disk COCO set: not ported yet."""
+        raise NotImplementedError(NOT_PORTED_DATASETS)
+
+    def load_pretrained(self, state_dict: dict) -> dict:
+        """Detector -> inst-stage init: every tensor of the detector
+        checkpoint's EMA weights (its weights when it has none), from
+        <cwd>/Unicorn_outputs/<pretrain_name>/latest, whose name and shape
+        match; the controllers and the mask branch stay at their init."""
+        det = load_checkpoint(os.path.join(os.getcwd(), "Unicorn_outputs",
+                                           self.pretrain_name))
+        return load_matching(state_dict, det.get("ema_model") or det["model"])

@@ -1,16 +1,26 @@
-"""Unified SOT+MOT experiment: the model, training and test fields of
-unicorn_tpu/exp/track.py ExpTrack, get_model() building the port's Unicorn
-(any of its interaction modes, `interact_mode`), and the training factories
-get_lr_fn / get_optimizer / get_train_step. The loader, the evaluators, the
-trainer, checkpoints and `load_pretrained` are not ported yet."""
+"""Unified SOT+MOT experiment: the model, data, training and test fields
+of unicorn_tpu/exp/track.py ExpTrack, get_model() building the port's
+Unicorn (any of its interaction modes, `interact_mode`), the training
+factories get_lr_fn / get_optimizer / get_train_step, the omni dataset and
+its loader (get_dataset over sub-datasets the caller passes,
+get_data_loader), and load_pretrained (detector -> tracker weight surgery).
+The on-disk datasets and the evaluators are not ported yet."""
 from __future__ import annotations
+
+import logging
+import os
 
 import torch
 
+from ..core.checkpoint import load_checkpoint
 from ..core.schedule import warm_cos_lr_fn
 from ..core.train_state import default_wd_mask, make_optimizer
 from ..core.train_step import make_uni_train_step
+from ..data.datasets.omni import OmniDataset, OmniDatasetPlus
+from ..data.loader import UniLoader
+from ..data.transforms import TrainTransformOmni
 from ..models.unicorn import Unicorn
+from .det import NOT_PORTED_DATASETS, NOT_PORTED_EVAL
 
 
 class ExpTrack:
@@ -38,7 +48,16 @@ class ExpTrack:
         # backbone block remat is not ported yet (same numbers, less memory)
         self.remat = False
         self.input_size = (800, 1280)
+        # ---------------- dataloader config ---------------- #
+        self.data_num_workers = 1
+        self.multiscale_range = 2
+        self.max_labels = 100
+        # --------------- transform config ----------------- #
+        self.hsv_prob = 1.0
+        self.flip_prob = 0.5
         # --------------  training config --------------------- #
+        self.seed = None
+        self.output_dir = "./Unicorn_outputs"
         self.warmup_epochs = 1
         self.max_epoch = 15
         self.warmup_lr = 0
@@ -49,6 +68,10 @@ class ExpTrack:
         self.ema = True
         self.mhs = True
         self.weight_decay = 5e-4
+        self.print_interval = 15
+        self.debug_only = False
+        self.eval_interval = 10
+        self.samples_per_epoch = 200000
         self.always_l1 = True
         self.use_grad_acc = True
         self.grad_acc_step = 2
@@ -57,10 +80,15 @@ class ExpTrack:
         self.alter_step = 1
         self.mot_weight = 3
         self.scale_all_mot = True
+        self.pretrain_name = "unicorn_det_convnext_tiny_800x1280"
         # -----------------  testing config ------------------ #
         self.test_size = (800, 1280)
         self.test_conf = 0.01
         self.nmsthre = 0.65
+        # -----------------  other config ------------------ #
+        self.sot_only = False
+        self.mot_only = False
+        self.mot_test_name = "bdd100k"  # "bdd100k" or "motchallenge"
 
     def get_model(self, generator: torch.Generator | None = None,
                   serve: bool = False, msda_method: str = "auto") -> Unicorn:
@@ -112,3 +140,107 @@ class ExpTrack:
             mot_weight=float(self.mot_weight) if self.scale_all_mot else 1.0,
             bidirect=self.bidirect, use_l1=self.always_l1,
             num_classes=self.num_classes, mhs=self.mhs)
+
+    # ---- weights, data, evaluation ----
+
+    def load_pretrained(self, state_dict: dict) -> dict:
+        """Detector -> tracker weight surgery on the port's state_dict names,
+        from the port's checkpoint
+        <cwd>/Unicorn_outputs/<pretrain_name>/latest:
+        every tensor whose name and shape match is copied; `cls_preds` maps
+        80 -> 8 classes by the class gather [0, 0, 2, 7, 5, 6, 3, 1] (or 80 ->
+        1 by [0]) on its class axis (0); `obj_preds` / `reg_preds` are
+        duplicated into the `*_sot` branches."""
+        det = load_checkpoint(os.path.join(os.getcwd(), "Unicorn_outputs",
+                                           self.pretrain_name))["model"]
+        gather = [0, 0, 2, 7, 5, 6, 3, 1] if self.num_classes == 8 else [0]
+        out = dict(state_dict)
+        for k, v in det.items():
+            if k not in out:
+                continue
+            if "cls_preds" in k and out[k].shape != v.shape:
+                v = v[gather]
+            if out[k].shape == v.shape:
+                out[k] = v
+        for k in out:
+            for src, dst in (("obj_preds", "obj_preds_sot"),
+                             ("reg_preds", "reg_preds_sot")):
+                if dst in k:
+                    src_k = k.replace(dst, src)
+                    if src_k in det and det[src_k].shape == out[k].shape:
+                        out[k] = det[src_k]
+        return out
+
+    def get_dataset(self, sot_datasets=None, mot_datasets=None):
+        """The alternating OmniDatasetPlus over the SOT and MOT groups of
+        sub-datasets (each with pull_item_omni), weighted by their lengths.
+        sot_only / mot_only drop a group. A group left None means the
+        reference's on-disk training mix, not ported yet: it raises
+        NotImplementedError."""
+        sot_weights = mot_weights = None
+        if self.mot_only:
+            sot_datasets = []
+        if self.sot_only:
+            mot_datasets = []
+        if sot_datasets is None:
+            sot_datasets, sot_weights = self._build_group(
+                self._sot_dataset_specs())
+        if mot_datasets is None:
+            mot_datasets, mot_weights = self._build_group(
+                self._mot_dataset_specs())
+        sot = OmniDataset(sot_datasets, p_datasets=sot_weights,
+                          samples_per_epoch=self.samples_per_epoch // 2) \
+            if sot_datasets else None
+        mot = OmniDataset(mot_datasets, p_datasets=mot_weights,
+                          samples_per_epoch=self.samples_per_epoch // 2) \
+            if mot_datasets else None
+        return OmniDatasetPlus(sot, mot, self.samples_per_epoch,
+                               mode=self.train_mode)
+
+    def _sot_dataset_specs(self):
+        """(name, weight, builder) triples of the reference's SOT mix
+        (COCOSOT, LaSOT, GOT10K, TrackingNet)."""
+        raise NotImplementedError(NOT_PORTED_DATASETS)
+
+    def _mot_dataset_specs(self):
+        """(name, weight, builder) triples of the reference's MOT mix
+        (BDD100K, or MOT17, CrowdHuman, CityPersons and ETHZ)."""
+        raise NotImplementedError(NOT_PORTED_DATASETS)
+
+    @staticmethod
+    def _build_group(specs):
+        """Instantiate (name, weight, builder) specs, skipping with a logged
+        warning only the datasets whose files are missing or that are
+        empty; any other error propagates."""
+        log = logging.getLogger("unicorn_torch")
+        datasets, weights = [], []
+        for name, weight, build in specs:
+            try:
+                ds = build()
+            except (FileNotFoundError, NotADirectoryError) as e:
+                log.warning("training mix: %s not found (%s); skipped",
+                            name, e)
+                continue
+            if len(ds) == 0:
+                log.warning("training mix: %s is empty; skipped", name)
+                continue
+            datasets.append(ds)
+            weights.append(weight)
+        return datasets, (weights or None)
+
+    def get_data_loader(self, batch_size):
+        """UniLoader over get_dataset() with TrainTransformOmni, the task
+        flipped every alter_step batches, seeded from `seed` (0 when None),
+        data_num_workers threads."""
+        return UniLoader(
+            self.get_dataset(),
+            TrainTransformOmni(max_labels=self.max_labels,
+                               flip_prob=self.flip_prob,
+                               hsv_prob=self.hsv_prob),
+            batch_size, self.input_size, alter_every=self.alter_step,
+            seed=self.seed or 0, workers=self.data_num_workers)
+
+    def get_trainer_evaluator(self, batch_size=1):
+        """The trainer's in-training evaluator (the reference's COCO box AP
+        over the MOT val set): not ported yet."""
+        raise NotImplementedError(NOT_PORTED_EVAL)

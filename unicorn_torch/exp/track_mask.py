@@ -3,11 +3,14 @@ unicorn_tpu/exp/track_mask.py ExpTrackMask, get_model() building the
 port's Unicorn with the CondInst controllers, the mask branch and its RAFT
 up-mask layer, and the training factories get_optimizer (AdamW with
 accumulation; with train_mask_only only the controllers and the mask branch
-train) and get_train_step. Its loader and `load_pretrained` are not ported
-yet."""
+train) and get_train_step, and the VOS + MOTS loader (UniMaskLoader with
+TrainTransformIns); it inherits ExpTrack's get_dataset and load_pretrained
+(the uni checkpoint into the mask model)."""
 from __future__ import annotations
 
 from ..core.train_step import make_uni_mask_train_step
+from ..data.loader import UniMaskLoader
+from ..data.transforms import TrainTransformIns
 from .det_mask import mask_only
 from .track import ExpTrack
 
@@ -45,3 +48,16 @@ class ExpTrackMask(ExpTrack):
             mot_weight=float(self.mot_weight) if self.scale_all_mot else 1.0,
             bidirect=self.bidirect, use_l1=self.always_l1,
             up_rate=self.up_rate, max_inst=int(getattr(self, "max_inst", 24)))
+
+    def get_data_loader(self, batch_size):
+        """UniMaskLoader over get_dataset() (ExpTrack's, whose groups here
+        are VOS, task 1, and MOTS, task 2, of frames (img, res, masks)) with
+        TrainTransformIns (masks at 1 / d_rate), seeded from `seed` (0 when
+        None)."""
+        return UniMaskLoader(
+            self.get_dataset(),
+            TrainTransformIns(max_labels=self.max_labels,
+                              flip_prob=self.flip_prob,
+                              hsv_prob=self.hsv_prob, d_rate=self.d_rate),
+            batch_size, self.input_size, alter_every=self.alter_step,
+            seed=self.seed or 0, workers=self.data_num_workers)
