@@ -230,7 +230,8 @@ def test_all_filtered_fallback_matches_jax():
 class Sub:
     """An in-memory sub-dataset: pull_item_omni returns fresh frames from
     its own seeded generator (so call order fixes the data), with masks
-    when `masked`."""
+    when `masked`. It draws nothing from `rng` (the port passes its
+    loader's; JAX's omni passes none)."""
 
     def __init__(self, n, seed, n_obj, masked=False, hw=(90, 120)):
         self.n, self.rng, self.n_obj = n, np.random.RandomState(seed), n_obj
@@ -239,7 +240,7 @@ class Sub:
     def __len__(self):
         return self.n
 
-    def pull_item_omni(self, seq_id, num_frames=2):
+    def pull_item_omni(self, seq_id, num_frames=2, rng=None):
         self.calls.append(seq_id)
         out = []
         for _ in range(num_frames):
@@ -282,7 +283,7 @@ def test_omni_draws_match_jax(mode):
     assert {solo.sample_spec(0, rng)[2] for _ in range(4)} == {2}
     solo = tomni.OmniDatasetPlus(_plus(tomni, False).sot_dataset, None)
     assert {solo.sample_spec(0, rng)[2] for _ in range(4)} == {1}
-    frames, task = solo.load_spec(solo.sample_spec(0, rng))
+    frames, task = solo.load_spec(solo.sample_spec(0, rng), rng)
     assert task == 1 and len(frames) == 2
 
 
@@ -346,7 +347,7 @@ def test_loader_keeps_built_batches_on_full_queue():
         def __len__(self):
             return 4
 
-        def pull_item_omni(self, idx, num_frames=1):
+        def pull_item_omni(self, idx, num_frames=1, rng=None):
             res = np.array([[0, 0, 8, 8, self.count, 1]], np.float32)
             self.count += 1
             return [(np.zeros((16, 16, 3), np.uint8), res,
@@ -446,7 +447,7 @@ def test_loader_raises_a_failed_batch():
         def __len__(self):
             return 2
 
-        def pull_item_omni(self, idx, num_frames=1):
+        def pull_item_omni(self, idx, num_frames=1, rng=None):
             raise OSError("unreadable frame")
 
     loader = tl.InstLoader(Broken(), tt.TrainTransformIns(2), 2, (16, 16))

@@ -1,15 +1,19 @@
 """The PyTorch port imports neither JAX/flax/optax nor the JAX package or
-tools, nor OpenCV (cv2): it needs only PyTorch and numpy.
+tools, nor OpenCV (cv2) nor PIL: it needs only PyTorch and numpy (the
+card's machine has neither cv2 nor PIL; images are read by the port's own
+decoder).
 
 Runs in a subprocess, because this test process has already imported jax
 (tests/conftest.py): a meta-path finder there refuses jax, flax, optax,
-unicorn_tpu, tools and cv2, then every module of unicorn_torch is imported,
+unicorn_tpu, tools, cv2 and PIL, then every module of unicorn_torch is
+imported,
 the training sub-packages `losses` (with the mask stage's `losses.mask`
 and `losses.boxinst`) and `core`, the fused block op, the
 device tracker, the streaming, inst and VOS drivers, the omni MOT driver,
 the QDTrack / SORT / DeepSORT / MOTDT trackers and utils.boxes among them,
 and the training loop's checkpoints, trainer, logger, meters and host data
-path (preproc, transforms, the omni datasets, the loaders).
+path (preproc, transforms, the omni datasets, the loaders), the image
+reader, the on-disk datasets and the RLE codec.
 """
 import os
 import subprocess
@@ -20,7 +24,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = r"""
 import importlib, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "unicorn_tpu", "tools", "cv2")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "unicorn_tpu", "tools", "cv2",
+           "PIL")
 
 class Blocker:
     def find_spec(self, name, path=None, target=None):
@@ -45,7 +50,10 @@ for n in ("ops.deform_attn", "ops.correlation", "ops.correlation_kernel",
           "tracker.qd_tracker", "tracker.legacy", "utils.boxes",
           "drivers.mot", "core.checkpoint", "core.trainer", "utils.logger",
           "utils.meters", "data", "data.preproc", "data.transforms",
-          "data.loader", "data.datasets", "data.datasets.omni"):
+          "data.loader", "data.datasets", "data.datasets.omni",
+          "data.image_io", "data.datasets.coco", "data.datasets.sot",
+          "data.datasets.mot", "data.datasets.vos", "data.datasets.bdd",
+          "data.datasets.voc", "evaluators", "evaluators.rle"):
     assert "unicorn_torch." + n in names, n
 print(len(names))
 """

@@ -53,14 +53,14 @@ class FakeSOT:
     def __len__(self):
         return 20
 
-    def pull_item_omni(self, seq_id, num_frames=2):
+    def pull_item_omni(self, seq_id, num_frames=2, rng=None):
         return [((self.rng.rand(48, 56, 3) * 255).astype(np.uint8),
                  np.array([[10, 10, 40, 40, 0]], np.float32))
                 for _ in range(num_frames)]
 
 
 class FakeMOT(FakeSOT):
-    def pull_item_omni(self, seq_id, num_frames=2):
+    def pull_item_omni(self, seq_id, num_frames=2, rng=None):
         return [((self.rng.rand(48, 56, 3) * 255).astype(np.uint8),
                  np.array([[10, 10, 30, 30, 0, 1], [25, 20, 50, 45, 1, 2]],
                           np.float32))
@@ -475,18 +475,27 @@ def test_eval_skipped_without_evaluator_and_best_ckpt(tmp_path):
     assert ck.load_checkpoint(str(out), "best")["best_ap"] == 0.25
 
 
-def test_debug_only_and_on_disk_data_raise(tmp_path):
+def test_debug_only_and_on_disk_data_raise(tmp_path, monkeypatch):
+    """debug_dump is not ported; the on-disk mixes under a data root that
+    holds none of their datasets raise FileNotFoundError naming the root
+    (each dataset skipped with a warning first), and detection's mosaic
+    loader is not ported."""
+    from unicorn_torch.exp.det import ExpDet
+
     tr = _trainer(tmp_path, debug_only=True)
     with pytest.raises(NotImplementedError, match="debug_dump"):
         tr.before_train()
+    monkeypatch.setenv("UNICORN_DATADIR", str(tmp_path / "none"))
     exp = ExpTrack()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(FileNotFoundError, match="none"):
         exp.get_dataset()
     exp.sot_only = True  # the ablation drops the MOT group, specs unread
     plus = exp.get_dataset(sot_datasets=[FakeSOT()])
     assert plus.mot_dataset is None and plus.sot_dataset is not None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(FileNotFoundError, match="none"):
         ExpDetMask().get_data_loader(2)
+    with pytest.raises(NotImplementedError, match="mosaic"):
+        ExpDet().get_data_loader(2)
 
 
 def test_build_group_skips_missing_and_empty(caplog):

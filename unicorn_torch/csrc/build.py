@@ -1,10 +1,12 @@
-"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+"""Build the port's native libraries and load them with ctypes.
 
-Each `csrc/<name>.cu` exposes a plain C interface and is compiled on first
-use into `unicorn_torch/csrc/_build/` (listed in .gitignore), as
-`<name>-<hash>.so`, where the hash covers the source, the headers
-(`csrc/*.cuh`), the flags and the compiler. A build that fails raises:
-nothing falls back to the plain PyTorch version.
+Each `csrc/<name>.cu` (a CUDA kernel, built with nvcc) or `csrc/<name>.cpp`
+(host code, built with the system C++ compiler: $CXX, else c++ or g++)
+exposes a plain C interface and is compiled on first use into
+`unicorn_torch/csrc/_build/` (listed in .gitignore), as `<name>-<hash>.so`,
+where the hash covers the source (and, for a .cu, the headers
+`csrc/*.cuh`), the flags and the compiler. A build that fails raises:
+nothing falls back to the plain PyTorch version or to another library.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ CSRC = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(CSRC, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# no -march=native: a library built on one host may be loaded on another
+CXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _logs: dict[str, str] = {}
@@ -37,39 +41,64 @@ def nvcc_path() -> str:
                        "kernels are built from source on first use")
 
 
-def _target(name: str, nvcc: str) -> str:
-    # the source and every header of csrc/ (a .cu may include any of them)
-    files = [f"{name}.cu"] + sorted(f for f in os.listdir(CSRC)
-                                    if f.endswith(".cuh"))
-    src = b""
+def cxx_path() -> str:
+    for c in (os.environ.get("CXX"), "c++", "g++"):
+        path = shutil.which(c) if c else None
+        if path:
+            return path
+    raise RuntimeError("no C++ compiler found (set CXX); the port's host "
+                       "libraries are built from source on first use")
+
+
+def _source(name: str) -> tuple[str, bool]:
+    """(path, host): csrc/<name>.cpp (host code) if it exists, else
+    csrc/<name>.cu."""
+    cpp = os.path.join(CSRC, f"{name}.cpp")
+    if os.path.isfile(cpp):
+        return cpp, True
+    return os.path.join(CSRC, f"{name}.cu"), False
+
+
+def _target(name: str, compiler: str) -> str:
+    # the source and, for a .cu, every header of csrc/ (it may include any)
+    src, host = _source(name)
+    files = [src] if host else [src] + sorted(
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    data = b""
     for fname in files:
-        with open(os.path.join(CSRC, fname), "rb") as f:
-            src += f.read()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode() + nvcc.encode())
+        with open(fname, "rb") as f:
+            data += f.read()
+    flags = CXX_FLAGS if host else NVCC_FLAGS
+    h = hashlib.sha256(data + " ".join(flags).encode() + compiler.encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def _compile(name: str) -> str:
-    nvcc = nvcc_path()
-    out = _target(name, nvcc)
+    src, host = _source(name)
+    compiler = cxx_path() if host else nvcc_path()
+    out = _target(name, compiler)
     if os.path.exists(out):
         _logs[name] = "cached"
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.tmp{os.getpid()}"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    # written under a name of this process and thread, then renamed: builds
+    # racing in parallel workers each replace the file with a whole one
+    tmp = f"{out}.tmp{os.getpid()}.{threading.get_ident()}"
+    cmd = [compiler, *(CXX_FLAGS if host else NVCC_FLAGS), "-o", tmp, src]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     _logs[name] = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu "
-                           f"(exit {proc.returncode}):\n{_logs[name]}")
+        raise RuntimeError(f"{os.path.basename(compiler)} failed for "
+                           f"{os.path.basename(src)} (exit {proc.returncode})"
+                           f":\n{_logs[name]}")
     os.replace(tmp, out)
     return out
 
 
 def build(names) -> dict[str, str]:
-    """Compile the named kernels in parallel, one nvcc each. Returns
-    {name: nvcc output} ("cached" for a library already built)."""
+    """Compile the named libraries in parallel, one compiler process each.
+    Returns {name: compiler output} ("cached" for a library already
+    built)."""
     names = list(names)
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as ex:
         for f in [ex.submit(_compile, n) for n in names]:
@@ -78,7 +107,8 @@ def build(names) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if needed."""
+    """The loaded library of csrc/<name>.cu or .cpp, built first if
+    needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -1,11 +1,12 @@
 """Omni meta-datasets: weighted sampling over sub-datasets and the
 alternating task schedule (port of unicorn_tpu/data/datasets/omni.py).
 
-Every sub-dataset exposes `pull_item_omni(seq_id, num_frames)` returning
-`num_frames` frames of (HWC uint8 image, (N, 5 | 6) [xyxy, cls(, tid)]),
-with (H, W, N) masks as a third element in the mask stage. The draws take
-the caller's generator (`rng`, a random.Random; the loader's), where the
-JAX package draws from the process-global `random`, in the same order.
+Every sub-dataset exposes `pull_item_omni(seq_id, num_frames, *, rng)`
+returning `num_frames` frames of (HWC uint8 image, (N, 5 | 6) [xyxy,
+cls(, tid)]), with (H, W, N) masks as a third element in the mask stage.
+Every draw, here and inside the sub-datasets' pull_item_omni, takes the
+caller's generator (`rng`, a random.Random; the loader's), where the JAX
+package draws from the process-global `random`, in the same order.
 """
 from __future__ import annotations
 
@@ -37,12 +38,14 @@ class OmniDataset:
         ds = rng.choices(self.datasets, self.p_datasets)[0]
         return ds, rng.randint(0, len(ds) - 1)
 
-    def load_spec(self, spec):
+    def load_spec(self, spec, rng: random.Random):
+        """The frames of a drawn spec; the sub-dataset's own draws (the
+        second frame of a pair) come from `rng`."""
         ds, seq_id = spec
-        return ds.pull_item_omni(seq_id, self.num_frames)
+        return ds.pull_item_omni(seq_id, self.num_frames, rng=rng)
 
     def pull_item(self, index, rng: random.Random):
-        return self.load_spec(self.sample_spec(index, rng))
+        return self.load_spec(self.sample_spec(index, rng), rng)
 
 
 class OmniDatasetPlus:
@@ -86,10 +89,11 @@ class OmniDatasetPlus:
             else None
         return ds, inner, task
 
-    def load_spec(self, spec):
+    def load_spec(self, spec, rng: random.Random):
         ds, inner, task = spec
-        frames = ds.load_spec(inner) if inner is not None else ds.pull_item(0)
+        frames = ds.load_spec(inner, rng) if inner is not None \
+            else ds.pull_item(0, rng)
         return frames, task
 
     def pull_item(self, index, rng: random.Random):
-        return self.load_spec(self.sample_spec(index, rng))
+        return self.load_spec(self.sample_spec(index, rng), rng)

@@ -131,7 +131,7 @@ class UniLoader(_Prefetcher):
             if self.alter_every > 0 and self._count % self.alter_every == 0:
                 self.dataset.alter_task()
         if split:
-            items = [self.dataset.load_spec(s) for s in specs]
+            items = [self.dataset.load_spec(s, self._py_rng) for s in specs]
         return items, flips, size
 
     def _transform(self, *args, **kwargs):
@@ -190,7 +190,7 @@ class UniMaskLoader(UniLoader):
 class InstLoader(_Prefetcher):
     """Instance-segmentation batches: (images (B, H, W, 3), labels (B, M,
     6), masks (B, M, H / d, W / d)) from a dataset exposing pull_item_omni
-    (its first frame) through TrainTransformIns."""
+    (its first frame; its draws from `_py_rng`) through TrainTransformIns."""
 
     def __init__(self, dataset, transform, batch_size: int, input_size,
                  prefetch: int = 2, seed: int = 0, workers: int = 1):
@@ -211,7 +211,8 @@ class InstLoader(_Prefetcher):
             size = self.input_size
         imgs, labs, mks = [], [], []
         for idx in idxs:
-            img, res, masks = self.dataset.pull_item_omni(idx, 1)[0]
+            img, res, masks = self.dataset.pull_item_omni(
+                idx, 1, rng=self._py_rng)[0]
             im_t, lab_t, m_t = self.transform(img, res, masks, size,
                                               rng=self._py_rng,
                                               np_rng=self._np_rng)

@@ -1,9 +1,12 @@
-"""Detection experiment: the model, training and test fields of
+"""Detection experiment: the model, data, training and test fields of
 unicorn_tpu/exp/det.py ExpDet, get_model() building the port's YOLOXDet,
 the training factories get_lr_fn / get_optimizer (SGD with Nesterov
-momentum) and the fields the trainer reads. Its loader (mosaic over the
-on-disk COCO set) and evaluator are not ported yet."""
+momentum), the fields the trainer reads, and get_unicorn_datadir (the
+root of the on-disk datasets). Its loader (mosaic over the on-disk COCO
+set) and evaluator are not ported yet."""
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -11,12 +14,19 @@ from ..core.schedule import warm_cos_lr_fn
 from ..core.train_state import default_wd_mask, make_optimizer
 from ..models.unicorn import YOLOXDet
 
-NOT_PORTED_DATASETS = (
-    "the on-disk training datasets are not ported yet (ROADMAP Queue 1 "
-    "item 3: the datasets with a cv2-free image decoder); pass in-memory "
-    "sub-datasets with pull_item_omni to get_dataset")
+NOT_PORTED_MOSAIC = (
+    "detection pretraining's loader is not ported yet (ROADMAP Queue 1: "
+    "mosaic, random_perspective and DetLoader)")
 NOT_PORTED_EVAL = ("the evaluators are not ported yet (ROADMAP Queue 1 "
                    "item 7)")
+
+
+def get_unicorn_datadir() -> str:
+    """The root of the on-disk datasets: $UNICORN_DATADIR, else
+    $YOLOX_DATADIR, else <cwd>/datasets."""
+    return os.environ.get(
+        "UNICORN_DATADIR",
+        os.environ.get("YOLOX_DATADIR", os.path.join(os.getcwd(), "datasets")))
 
 
 class ExpDet:
@@ -38,6 +48,12 @@ class ExpDet:
         self.input_size = (640, 640)
         self.data_num_workers = 1
         self.multiscale_range = 5
+        # the COCO set under data_dir (None: <datadir>/coco)
+        self.data_dir = None
+        self.train_ann = "instances_train2017.json"
+        self.train_name = "train2017"
+        self.val_ann = "instances_val2017.json"
+        self.val_name = "val2017"
         self.max_labels = 120
         self.hsv_prob = 1.0
         self.flip_prob = 0.5
@@ -93,6 +109,11 @@ class ExpDet:
             weight_decay=self.weight_decay, momentum=self.momentum,
             grad_accum=self.grad_acc_step if self.use_grad_acc else 1,
             no_decay_mask_fn=default_wd_mask)
+
+    def get_data_loader(self, batch_size):
+        """Mosaic detection batches over the on-disk COCO set: not ported
+        yet."""
+        raise NotImplementedError(NOT_PORTED_MOSAIC)
 
     def get_trainer_evaluator(self, batch_size=1):
         """The trainer's in-training COCO evaluator: not ported yet."""

@@ -3,9 +3,9 @@ unicorn_tpu/exp/det_mask.py ExpDetMask, get_model() building the port's
 YOLOXDet with the CondInst controllers and mask branch, get_inst_forward(),
 the training factories get_optimizer (SGD; with train_mask_only only
 the controllers and the mask branch train) and get_train_step, and
-load_pretrained (the detector's weights). Its loader over the on-disk
-COCO set and its evaluator are not ported yet: build
-data.loader.InstLoader over an in-memory dataset."""
+load_pretrained (the detector's weights), and get_data_loader: InstLoader
+over the on-disk COCO instances (COCOMOTSDataset, polygon and RLE masks).
+Its evaluator is not ported yet."""
 from __future__ import annotations
 
 import os
@@ -15,9 +15,12 @@ import torch
 
 from ..core.checkpoint import load_checkpoint, load_matching
 from ..core.train_step import make_det_mask_train_step
+from ..data.datasets.vos import COCOMOTSDataset
+from ..data.loader import InstLoader
+from ..data.transforms import TrainTransformIns
 from ..drivers.inst import InstForward, make_inst_forward
 from ..models.unicorn import YOLOXDet
-from .det import NOT_PORTED_DATASETS, ExpDet
+from .det import ExpDet, get_unicorn_datadir
 
 MASK_PARAM_KEYS = ("controller", "mask_branch")
 
@@ -79,8 +82,18 @@ class ExpDetMask(ExpDet):
             d_rate=self.d_rate)
 
     def get_data_loader(self, batch_size):
-        """InstLoader over the on-disk COCO set: not ported yet."""
-        raise NotImplementedError(NOT_PORTED_DATASETS)
+        """InstLoader over COCOMOTSDataset(data_dir or <datadir>/coco,
+        train_ann, train_name) with TrainTransformIns (masks at
+        1 / d_rate), seeded from `seed` (0 when None), data_num_workers
+        threads."""
+        data_dir = self.data_dir or os.path.join(get_unicorn_datadir(), "coco")
+        return InstLoader(
+            COCOMOTSDataset(data_dir, self.train_ann, self.train_name),
+            TrainTransformIns(max_labels=self.max_labels,
+                              flip_prob=self.flip_prob,
+                              hsv_prob=self.hsv_prob, d_rate=self.d_rate),
+            batch_size, self.input_size, seed=self.seed or 0,
+            workers=self.data_num_workers)
 
     def load_pretrained(self, state_dict: dict) -> dict:
         """Detector -> inst-stage init: every tensor of the detector

@@ -2,9 +2,10 @@
 of unicorn_tpu/exp/track.py ExpTrack, get_model() building the port's
 Unicorn (any of its interaction modes, `interact_mode`), the training
 factories get_lr_fn / get_optimizer / get_train_step, the omni dataset and
-its loader (get_dataset over sub-datasets the caller passes,
+its loader (get_dataset: the reference's on-disk mix under
+get_unicorn_datadir(), or sub-datasets the caller passes;
 get_data_loader), and load_pretrained (detector -> tracker weight surgery).
-The on-disk datasets and the evaluators are not ported yet."""
+The evaluators are not ported yet."""
 from __future__ import annotations
 
 import logging
@@ -16,11 +17,15 @@ from ..core.checkpoint import load_checkpoint
 from ..core.schedule import warm_cos_lr_fn
 from ..core.train_state import default_wd_mask, make_optimizer
 from ..core.train_step import make_uni_train_step
+from ..data.datasets.bdd import BDDOmniDataset
+from ..data.datasets.coco import COCODataset
+from ..data.datasets.mot import MOTOmniDataset
 from ..data.datasets.omni import OmniDataset, OmniDatasetPlus
+from ..data.datasets.sot import COCOSOT, Got10k, Lasot, TrackingNet
 from ..data.loader import UniLoader
 from ..data.transforms import TrainTransformOmni
 from ..models.unicorn import Unicorn
-from .det import NOT_PORTED_DATASETS, NOT_PORTED_EVAL
+from .det import NOT_PORTED_EVAL, get_unicorn_datadir
 
 
 class ExpTrack:
@@ -52,6 +57,11 @@ class ExpTrack:
         self.data_num_workers = 1
         self.multiscale_range = 2
         self.max_labels = 100
+        # the COCO set under data_dir (None: <datadir>/coco), its train
+        # split feeding COCOSOT (and the mask stage's COCO groups)
+        self.data_dir = None
+        self.train_ann = "instances_train2017.json"
+        self.train_name = "train2017"
         # --------------- transform config ----------------- #
         self.hsv_prob = 1.0
         self.flip_prob = 0.5
@@ -172,40 +182,82 @@ class ExpTrack:
         return out
 
     def get_dataset(self, sot_datasets=None, mot_datasets=None):
-        """The alternating OmniDatasetPlus over the SOT and MOT groups of
-        sub-datasets (each with pull_item_omni), weighted by their lengths.
-        sot_only / mot_only drop a group. A group left None means the
-        reference's on-disk training mix, not ported yet: it raises
-        NotImplementedError."""
+        """The alternating OmniDatasetPlus over the SOT and MOT groups.
+        A group left None is the reference's on-disk mix under
+        get_unicorn_datadir() (`_sot_dataset_specs`, `_mot_dataset_specs`:
+        SOT COCOSOT + LaSOT + GOT10K + TrackingNet at weights [1, 1, 1, 1];
+        MOT BDD100K [1], or with mot_test_name "motchallenge" MOT17 +
+        CrowdHuman + CityPersons + ETHZ [2, 6, 1, 1]); a dataset whose files
+        are missing is skipped with a logged warning. Passed groups are
+        lists of sub-datasets (each with pull_item_omni), weighted by their
+        lengths. sot_only / mot_only drop a group before anything is
+        built. With no dataset in either group it raises
+        FileNotFoundError (naming the root), where JAX's loader would fail
+        at its first draw."""
         sot_weights = mot_weights = None
         if self.mot_only:
             sot_datasets = []
         if self.sot_only:
             mot_datasets = []
+        root = get_unicorn_datadir()
         if sot_datasets is None:
             sot_datasets, sot_weights = self._build_group(
-                self._sot_dataset_specs())
+                self._sot_dataset_specs(root))
         if mot_datasets is None:
             mot_datasets, mot_weights = self._build_group(
-                self._mot_dataset_specs())
+                self._mot_dataset_specs(root))
         sot = OmniDataset(sot_datasets, p_datasets=sot_weights,
                           samples_per_epoch=self.samples_per_epoch // 2) \
             if sot_datasets else None
         mot = OmniDataset(mot_datasets, p_datasets=mot_weights,
                           samples_per_epoch=self.samples_per_epoch // 2) \
             if mot_datasets else None
+        if sot is None and mot is None:
+            raise FileNotFoundError(
+                f"no training dataset found under {root} (set "
+                f"UNICORN_DATADIR, or pass in-memory sub-datasets)")
         return OmniDatasetPlus(sot, mot, self.samples_per_epoch,
                                mode=self.train_mode)
 
-    def _sot_dataset_specs(self):
-        """(name, weight, builder) triples of the reference's SOT mix
-        (COCOSOT, LaSOT, GOT10K, TrackingNet)."""
-        raise NotImplementedError(NOT_PORTED_DATASETS)
+    def _sot_dataset_specs(self, root):
+        """(name, weight, builder) triples of the reference's SOT mix under
+        `root`."""
+        def coco_sot():
+            return COCOSOT(COCODataset(
+                data_dir=self.data_dir or os.path.join(root, "coco"),
+                json_file=self.train_ann, name=self.train_name,
+                img_size=self.input_size))
 
-    def _mot_dataset_specs(self):
-        """(name, weight, builder) triples of the reference's MOT mix
-        (BDD100K, or MOT17, CrowdHuman, CityPersons and ETHZ)."""
-        raise NotImplementedError(NOT_PORTED_DATASETS)
+        return [
+            ("COCOSOT", 1, coco_sot),
+            ("LaSOT", 1, lambda: Lasot(os.path.join(root, "LaSOT"))),
+            ("GOT10K", 1,
+             lambda: Got10k(os.path.join(root, "GOT10K", "train"))),
+            ("TrackingNet", 1,
+             lambda: TrackingNet(os.path.join(root, "TrackingNet"))),
+        ]
+
+    def _mot_dataset_specs(self, root):
+        """(name, weight, builder) triples of the reference's MOT mix under
+        `root`: BDD100K, or MOT17, CrowdHuman, CityPersons and ETHZ."""
+        if self.mot_test_name == "bdd100k":
+            return [("BDD100K", 1, lambda: BDDOmniDataset(
+                os.path.join(root, "bdd100k"), "train"))]
+        if self.mot_test_name == "motchallenge":
+            return [
+                ("MOT17", 2, lambda: MOTOmniDataset(
+                    os.path.join(root, "mot"), "train_omni.json", "train")),
+                ("CrowdHuman", 6, lambda: MOTOmniDataset(
+                    os.path.join(root, "crowdhuman"), "train.json",
+                    "CrowdHuman_train")),
+                ("CityPersons", 1, lambda: MOTOmniDataset(
+                    os.path.join(root, "Cityscapes"), "train.json", None,
+                    img_root=os.path.join(root, "Cityscapes"))),
+                ("ETHZ", 1, lambda: MOTOmniDataset(
+                    os.path.join(root, "ETHZ"), "train.json", None,
+                    img_root=os.path.join(root, "ETHZ"))),
+            ]
+        raise ValueError(f"Unsupported mot_test_name: {self.mot_test_name}")
 
     @staticmethod
     def _build_group(specs):

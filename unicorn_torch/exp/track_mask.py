@@ -4,11 +4,19 @@ port's Unicorn with the CondInst controllers, the mask branch and its RAFT
 up-mask layer, and the training factories get_optimizer (AdamW with
 accumulation; with train_mask_only only the controllers and the mask branch
 train) and get_train_step, and the VOS + MOTS loader (UniMaskLoader with
-TrainTransformIns); it inherits ExpTrack's get_dataset and load_pretrained
-(the uni checkpoint into the mask model)."""
+TrainTransformIns) over the reference's on-disk mask-stage mix
+(`_vos_dataset_specs`, `_mots_dataset_specs`); it inherits ExpTrack's
+get_dataset and load_pretrained (the uni checkpoint into the mask
+model)."""
 from __future__ import annotations
 
+import os
+
 from ..core.train_step import make_uni_mask_train_step
+from ..data.datasets.bdd import BDDOmniMOTSDataset
+from ..data.datasets.vos import (COCOMOTSDataset, DAVISTrainDataset,
+                                 MOTSVideoDataset, SaliencyDataset,
+                                 YoutubeVOSDataset)
 from ..data.loader import UniMaskLoader
 from ..data.transforms import TrainTransformIns
 from .det_mask import mask_only
@@ -48,6 +56,46 @@ class ExpTrackMask(ExpTrack):
             mot_weight=float(self.mot_weight) if self.scale_all_mot else 1.0,
             bidirect=self.bidirect, use_l1=self.always_l1,
             up_rate=self.up_rate, max_inst=int(getattr(self, "max_inst", 24)))
+
+    def _vos_dataset_specs(self, root):
+        """(name, weight, builder) of the VOS group (task 1): COCO
+        instances, saliency, DAVIS and YouTube-VOS at weights [1, 1, 1,
+        1]."""
+        return [
+            ("COCO-inst", 1, lambda: COCOMOTSDataset(
+                self.data_dir or os.path.join(root, "coco"),
+                json_file=self.train_ann, name=self.train_name)),
+            ("Saliency", 1,
+             lambda: SaliencyDataset(os.path.join(root, "saliency"))),
+            ("DAVIS", 1,
+             lambda: DAVISTrainDataset(os.path.join(root, "DAVIS"))),
+            ("YouTubeVOS", 1,
+             lambda: YoutubeVOSDataset(os.path.join(root, "ytbvos18"))),
+        ]
+
+    def _mots_dataset_specs(self, root):
+        """(name, weight, builder) of the MOTS group (task 2): BDD100K's
+        seg_track [1], or with mot_test_name "motchallenge" the COCO
+        persons and MOTS-Challenge [1, 1]."""
+        if self.mot_test_name == "bdd100k":
+            return [("BDD-MOTS", 1, lambda: BDDOmniMOTSDataset(
+                os.path.join(root, "bdd100k"), "train"))]
+        if self.mot_test_name == "motchallenge":
+            return [
+                ("COCO-person", 1, lambda: COCOMOTSDataset(
+                    self.data_dir or os.path.join(root, "coco"),
+                    json_file=self.train_ann, name=self.train_name,
+                    person_only=True)),
+                ("MOTS-Challenge", 1, lambda: MOTSVideoDataset(
+                    os.path.join(root, "MOTS"))),
+            ]
+        raise ValueError(f"Unsupported mot_test_name: {self.mot_test_name}")
+
+    def _sot_dataset_specs(self, root):
+        return self._vos_dataset_specs(root)
+
+    def _mot_dataset_specs(self, root):
+        return self._mots_dataset_specs(root)
 
     def get_data_loader(self, batch_size):
         """UniMaskLoader over get_dataset() (ExpTrack's, whose groups here

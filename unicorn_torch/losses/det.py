@@ -53,6 +53,11 @@ def iou_elementwise_cxcywh(pred, target):
     return area_i / (area_p + area_g - area_i + 1e-16)
 
 
+def l1_elementwise(pred, target):
+    """|pred - target| element-wise."""
+    return (pred - target).abs()
+
+
 class OTAResult(NamedTuple):
     fg_mask: torch.Tensor         # (B, A) bool: assigned anchors
     matched_gt: torch.Tensor      # (B, A) int64: gt index per anchor (0 if bg)
@@ -174,7 +179,7 @@ def yolox_terms(labels, pred_boxes, obj_logits, cls_logits, reg_raw,
             reg_target[..., 1] / strides_vec - y_shifts,
             torch.log(reg_target[..., 2] / strides_vec + eps),
             torch.log(reg_target[..., 3] / strides_vec + eps)], -1)
-        t_l1 = ((reg_raw - l1_t).abs().sum(-1) * fg).sum(1)
+        t_l1 = (l1_elementwise(reg_raw, l1_t).sum(-1) * fg).sum(1)
     return (t_iou, t_obj, t_cls, t_l1), assign
 
 
