@@ -147,6 +147,22 @@ Phases (each must pass, else the exit code is 1):
              and inst stages 4 iterations each; ms / iteration, data vs
              step ms, the loader's ms a batch and its decode share, peak
              memory, launches (36 / 1 / 2 / 2 / 2, 36 / 1 / fwd_lse 1, 27)
+  det        mosaic detection pretraining: with UNICORN_DATADIR at the
+             COCO layout of phase disk (written again under
+             chiprun_out/det_data), Trainer.train on
+             unicorn_det_convnext_tiny_800x1280 (SGD, Nesterov, EMA) 2
+             epochs of 3 iterations at B = 2, 800x1280: mosaic and MixUp,
+             then close_mosaic and L1; ms / iteration, data vs step ms,
+             the loader's ms a batch, peak memory, 27 dw7x7 launches a
+             step; the first mosaic batch's step kernels vs plain; the
+             chain: unicorn_track_tiny's load_pretrained reads the stage's
+             `latest` (trunk equal, cls_preds 80 -> 8), one uni step; the
+             convnext_large YOLOXDet (bf16, B = 2, 800x1280) one det step
+             each under remat False (twice), True and "dw": loss, gradients
+             against the two-run spread, ms/step, peak memory, dw7x7
+             launches 45 / 81 / 45; one unicorn_track_tiny uni step with
+             backbone_map against without (fp32 with TF32 off: the loss
+             within 1e-5; bf16 as trained: within 0.02)
 `--only profile` adds a torch.profiler breakdown of the paths.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the rest of the
@@ -4275,7 +4291,8 @@ def _disk_run(report, tr, label, launches, path, unit="pairs"):
                for f in ("_jpeg", "_png")]
     patches += [mock.patch.object(c, "_make_batch", timed(
         c._make_batch, "build", "batches"))
-        for c in (tl.UniLoader, tl.UniMaskLoader, tl.InstLoader)]
+        for c in (tl.UniLoader, tl.UniMaskLoader, tl.InstLoader,
+                  tl.DetLoader)]
     with contextlib.ExitStack() as stack:
         for ptc in patches:
             stack.enter_context(ptc)
@@ -4396,6 +4413,336 @@ def phase_disk(report):
             logger.removeHandler(h)
             h.close()
         tmp.cleanup()
+
+
+DET_ROOT = os.path.join(ROOT, "chiprun_out", "det_data")
+DET_SAMPLES = 6          # images an epoch: 3 iterations at B = 2
+# dw7x7 launches of one det step: 18 trunk blocks of ConvNeXt-Tiny (36 of
+# ConvNeXt-Large) and 9 head attention blocks; under remat=True the
+# backward recomputes the trunk's blocks, under "dw" it keeps their output
+DET_LAUNCHES = dict(INST_TRAIN_LAUNCHES)
+DET_LARGE_LAUNCHES = {False: dict(DET_LAUNCHES, dwconv7x7=45),
+                      True: dict(DET_LAUNCHES, dwconv7x7=81),
+                      "dw": dict(DET_LAUNCHES, dwconv7x7=45)}
+REMAT_STEPS = 3          # timed steps of each remat mode, after a warm-up
+# backbone_map: the trunk runs once a frame, 4 frames of a B = 2 batch
+MAP_LAUNCHES = dict(TRAIN_LAUNCHES, dwconv7x7=4 * 18 + 2 * 9)
+
+
+def _det_batch(exp, seed, n_obj=12):
+    """One synthetic detection batch on the card: images (B, 3, H, W)
+    float32 in [0, 255] (a random texture), labels (B, max_labels, 5)
+    [cls, cx, cy, w, h] with n_obj boxes of 30-300 px."""
+    import numpy as np
+    import torch
+
+    H, W = exp.input_size
+    rng = np.random.RandomState(seed)
+    images = (rng.rand(TRAIN_B, 3, H, W) * 255).round().astype(np.float32)
+    labels = np.zeros((TRAIN_B, exp.max_labels, 5), np.float32)
+    scale = min(H / 800, W / 1280)
+    for b in range(TRAIN_B):
+        labels[b, :n_obj, 0] = rng.randint(0, exp.num_classes, n_obj)
+        labels[b, :n_obj, 1:3] = rng.uniform(0.15, 0.85, (n_obj, 2)) * [W, H]
+        labels[b, :n_obj, 3:5] = rng.uniform(30, 300, (n_obj, 2)) * scale
+    return (torch.from_numpy(images).to(DEVICE),
+            torch.from_numpy(labels).to(DEVICE))
+
+
+def _det_stage(report, tmp):
+    """Trainer.train on unicorn_det_convnext_tiny_800x1280 over the COCO
+    layout under UNICORN_DATADIR: 2 epochs of 3 iterations, mosaic and
+    MixUp in the first, closed in the second (L1 on). Returns (trainer,
+    the first batch on the card, the items built with and without
+    mosaic)."""
+    from unittest import mock
+
+    from unicorn_torch.core.trainer import Trainer
+    from unicorn_torch.data import mosaic as tm
+    from unicorn_torch.exp import unicorn_det_convnext_tiny_800x1280 as det
+
+    exp = _trainer_exp(det.Exp, os.path.join(tmp, "Unicorn_outputs"),
+                       DET_SAMPLES, 2, (), no_aug_epochs=1,
+                       print_interval=DET_SAMPLES // TRAIN_B)
+    tr = Trainer(exp, {"batch_size": TRAIN_B}, device=DEVICE)
+    first, built = [], {"mosaic": 0, "plain": 0}
+    put, get_item = tr.device_batch, tm.MosaicDetection.get_item
+
+    def keep_first(batch):
+        out = put(batch)
+        if not first:
+            first.extend(out)
+        return out
+
+    def counting(self, idx, **kw):
+        built["mosaic" if self.enable_mosaic else "plain"] += 1
+        return get_item(self, idx, **kw)
+
+    tr.device_batch = keep_first
+    with mock.patch.object(tm.MosaicDetection, "get_item", counting):
+        _disk_run(report, tr, "det stage (mosaic pretraining) from disk",
+                  DET_LAUNCHES, "det", unit="images")
+    return tr, first, built
+
+
+def _remat_large(report):
+    """One det step (forward + backward) of the
+    unicorn_det_convnext_large_800x1280 YOLOXDet (bf16, seed-0 weights, B =
+    2 of 800x1280) on one synthetic batch under remat False (twice: the
+    two-run spread of the kernels), True and "dw": the loss, the gradient
+    leaves' largest difference from the first run as a share of the leaf's
+    largest magnitude, ms/step (the median of REMAT_STEPS after a warm-up
+    step), the step's peak memory above what was allocated before it, and
+    the dw7x7 launches."""
+    import torch
+
+    from unicorn_torch.core.train_step import det_loss_fn
+    from unicorn_torch.exp import unicorn_det_convnext_large_800x1280 as large
+
+    exp = large.Exp()
+    for k, v in TRAINER_EXP_FIELDS.items():
+        setattr(exp, k, v)
+    model = exp.get_model(torch.Generator().manual_seed(0)).to(
+        DEVICE).train()
+    images, labels = _det_batch(exp, seed=30)
+    H, W = exp.input_size
+    blocks = [b for s in model.backbone.backbone.stages for b in s]
+
+    def step():
+        return _loss_and_grads(model, lambda: det_loss_fn(
+            model, images, labels, exp.input_size))
+
+    runs = {}
+    for mode in (False, False, True, "dw"):
+        for b in blocks:
+            b.remat = mode
+        # the warm-up grows the allocator's cache to this mode's working
+        # set, so that the timed steps make no cudaMalloc calls
+        torch.cuda.empty_cache()
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        _reset_all_counts()
+        times = []
+        for _ in range(REMAT_STEPS):
+            t0 = time.perf_counter()
+            loss, _, grads = step()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = sorted(times)[len(times) // 2]
+        grads = {k: g.cpu() for k, g in grads.items()}
+        counts = {k: n // REMAT_STEPS for k, n in _all_counts().items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 - held
+        key = "spread" if mode is False and False in runs else mode
+        runs[key] = (loss, grads)
+        shares = (_grad_shares(runs[False][1], grads)
+                  if key is not False else None)
+        print(f"remat {mode!r}{' (second run)' if key == 'spread' else ''}: "
+              f"{exp.backbone_name} YOLOXDet {H}x{W}, B={TRAIN_B}, "
+              f"{'bf16' if exp.bf16 else 'fp32'}: loss "
+              f"{loss:.6f}, {ms:.1f} ms/step (forward + backward, the "
+              f"median of {REMAT_STEPS}: "
+              f"{', '.join(f'{t:.1f}' for t in times)}), peak "
+              f"memory {peak:.2f} GiB above the {held:.2f} GiB held before "
+              f"the step (the weights and what earlier phases keep), "
+              f"launches a step {counts}"
+              + (f"; gradient leaves against the first remat False run: "
+                 f"worst {shares[0][shares[1]]:.3e} of its max at "
+                 f"{shares[1]}, median {shares[2]:.3e}" if shares else ""))
+        report.setdefault("det_remat", {})[repr(key)] = (ms, peak, loss)
+        _record_launches(report, f"det_large_remat_{mode}", counts)
+        assert counts == DET_LARGE_LAUNCHES[mode], counts
+        assert torch.isfinite(torch.tensor(loss))
+    loss0 = runs[False][0]
+    spread_loss = abs(runs["spread"][0] - loss0)
+    spread = max(_grad_shares(runs[False][1], runs["spread"][1])[0].values())
+    for mode in (True, "dw"):
+        loss, grads = runs[mode]
+        worst = max(_grad_shares(runs[False][1], grads)[0].values())
+        print(f"  remat {mode!r} against remat False: loss {loss - loss0:+.3e}"
+              f" (two-run spread {spread_loss:.3e}); worst gradient leaf "
+              f"{worst:.3e} of its max (two-run spread {spread:.3e}, the "
+              f"bound)")
+        assert abs(loss - loss0) <= spread_loss, (mode, loss, loss0)
+        assert worst <= spread, (mode, worst, spread)
+    for b in blocks:
+        b.remat = exp.remat
+    del model, runs
+    torch.cuda.empty_cache()
+
+
+def phase_det(report):
+    """Mosaic detection pretraining and what it feeds. With
+    UNICORN_DATADIR at the COCO layout that phase disk writes (written
+    again under chiprun_out/det_data): Trainer(unicorn_det_convnext_tiny_
+    800x1280, {"batch_size": 2}).train() at 800x1280, 2 epochs of 3
+    iterations (mosaic and MixUp, then no-aug with L1), SGD with Nesterov
+    and EMA (ms / iteration, data and step ms, the loader's ms a batch,
+    peak memory, 27 dw7x7 launches a step); the first mosaic batch's step
+    kernels vs plain (on the trained and on the seeded weights, at
+    train_model's bounds); the chain: unicorn_track_tiny's load_pretrained
+    reads the stage's `latest` (trunk tensors equal, cls_preds gathered
+    80 -> 8) and one uni step runs from those weights; remat False / True
+    / "dw" on the convnext_large YOLOXDet (`_remat_large`); one
+    unicorn_track_tiny uni step with backbone_map against without
+    (`_backbone_map`)."""
+    import logging
+    import shutil
+    import tempfile
+
+    import torch
+
+    from unicorn_torch.core.checkpoint import (load_checkpoint,
+                                               wait_for_checkpoints)
+    from unicorn_torch.core.train_state import TrainState
+    from unicorn_torch.core.train_step import det_loss_fn
+    from unicorn_torch.exp import unicorn_det_convnext_tiny_800x1280 as det
+    from unicorn_torch.exp import unicorn_track_tiny as track
+
+    print(f"det ({report.get('card', '')})")
+    shutil.rmtree(DET_ROOT, ignore_errors=True)
+    _write_disk_layouts(DET_ROOT)
+    env = os.environ.get("UNICORN_DATADIR")
+    os.environ["UNICORN_DATADIR"] = DET_ROOT
+    cwd = os.getcwd()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_det_")
+    logger = logging.getLogger("unicorn_torch")
+    try:
+        tr, first, built = _det_stage(report, tmp.name)
+        exp = tr.exp
+        print(f"  items built: {built['mosaic']} with mosaic, "
+              f"{built['plain']} after close_mosaic; L1 on: "
+              f"{exp.always_l1}; lr of the next update {tr.state.lr():.3e}")
+        assert built["mosaic"] > 0 and built["plain"] > 0, built
+        assert not tr.loader.dataset.enable_mosaic and exp.always_l1
+        records = _check_metrics(tr, {"total_loss", "iou_loss", "conf_loss",
+                                      "cls_loss", "l1_loss", "num_fg"})
+        print(f"  metrics.jsonl: {records}")
+        assert records[-1]["l1_loss"] > 0, records
+
+        images, labels = first
+        n_boxes = int((labels[..., 3] > 0).sum())
+        seeded = det.Exp()
+        for k, v in TRAINER_EXP_FIELDS.items():
+            setattr(seeded, k, v)
+        seeded = seeded.get_model(torch.Generator().manual_seed(0)).to(
+            DEVICE).train()
+        for model, which, bounds in ((tr.state.model, "trained", None),
+                                     (seeded, "seeded", (0.1, 0.02))):
+            def run():
+                return _loss_and_grads(model, lambda: det_loss_fn(
+                    model, images, labels, exp.input_size, False))
+
+            _kernel_check_report(
+                f"det stage, first mosaic batch ({n_boxes} boxes), {which} "
+                f"weights", *_kernels_vs_plain(run, ()), DET_LAUNCHES,
+                leaf_bounds=bounds)
+        del seeded, first, images, labels
+        wait_for_checkpoints()
+        latest = load_checkpoint(tr.output_dir, "latest")["model"]
+        del tr
+        torch.cuda.empty_cache()
+
+        os.chdir(tmp.name)
+        texp = track.Exp()
+        for k, v in TRAINER_EXP_FIELDS.items():
+            setattr(texp, k, v)
+        assert texp.pretrain_name == exp.exp_name
+        model = texp.get_model(torch.Generator().manual_seed(0))
+        got = texp.load_pretrained(model.state_dict())
+        trunk = [k for k in latest if k.startswith("backbone.backbone.")]
+        for k in trunk:
+            assert torch.equal(got[k], latest[k]), k
+        gather = [0, 0, 2, 7, 5, 6, 3, 1]
+        cls = [k for k in latest if "cls_preds" in k]
+        for k in cls:
+            assert torch.equal(got[k], latest[k][gather]), k
+        model.load_state_dict(got)
+        print(f"  chain: unicorn_track_tiny's load_pretrained read "
+              f"{exp.exp_name}/latest: {len(trunk)} trunk tensors equal, "
+              f"{len(cls)} cls_preds tensors gathered 80 -> 8")
+        model = model.to(DEVICE).train()
+        state = TrainState.create(
+            model, texp.get_optimizer(TRAIN_B, TRAIN_ITERS_PER_EPOCH),
+            use_ema=texp.ema, device=DEVICE)
+        step = texp.get_train_step(TRAIN_B)
+        batch = _train_batch(texp, 2, seed=31, n_obj=8)
+        _reset_all_counts()
+        _, loss_dict = step(state, *batch)
+        counts = _all_counts()
+        total = loss_dict["total_loss"].item()
+        print(f"  one uni step from the det stage's weights: total_loss "
+              f"{total:.4f}; launches {counts}")
+        assert counts == TRAIN_LAUNCHES and torch.isfinite(
+            loss_dict["total_loss"])
+        _record_launches(report, "det_chain", counts)
+        del state, model, step
+        torch.cuda.empty_cache()
+        shutil.rmtree(DET_ROOT)
+    finally:
+        os.chdir(cwd)
+        if env is None:
+            os.environ.pop("UNICORN_DATADIR", None)
+        else:
+            os.environ["UNICORN_DATADIR"] = env
+        wait_for_checkpoints()
+        for h in [h for h in logger.handlers
+                  if isinstance(h, logging.FileHandler)]:
+            logger.removeHandler(h)
+            h.close()
+        tmp.cleanup()
+
+    _remat_large(report)
+    _backbone_map(report)
+
+
+def _backbone_map(report):
+    """One unicorn_track_tiny uni step (forward + backward) with
+    backbone_map against without, on one mixed batch: in fp32 with TF32
+    off, where batch 1 and batch 4 differ only in the order of fp32 sums
+    (the loss within 1e-5 relative), and as trained, in bf16, where they
+    round at other points and SimOTA may assign otherwise (the loss
+    within phase train_model's 0.02); the gradient leaves printed; 90
+    dw7x7 launches against 36."""
+    import torch
+
+    from unicorn_torch.core.train_step import uni_loss_fn
+    from unicorn_torch.exp.unicorn_track_tiny import Exp
+
+    exp32 = Exp()
+    for k, v in {**TRAINER_EXP_FIELDS, "bf16": False}.items():
+        setattr(exp32, k, v)
+    fp32 = exp32.get_model(torch.Generator().manual_seed(0)).to(
+        DEVICE).train()
+    for label, (texp, model), bound in (
+            ("fp32, TF32 off", (exp32, fp32), 1e-5),
+            ("bf16, as trained", _train_model(report), 0.02)):
+        images, targets, task_ids = _train_batch(texp, 2, seed=32, n_obj=8)
+        task_ids[0] = 1
+        kw = _uni_loss_kwargs(texp)
+        out = {}
+        for bmap, launches in ((False, TRAIN_LAUNCHES),
+                               (True, MAP_LAUNCHES)):
+            _reset_all_counts()
+            with (tf32_off() if model is fp32 else contextlib.nullcontext()):
+                loss, _, grads = _loss_and_grads(model, lambda: uni_loss_fn(
+                    model, images, targets, task_ids, backbone_map=bmap,
+                    **kw))
+            counts = _all_counts()
+            out[bmap] = (loss, grads)
+            assert counts == launches, (bmap, counts)
+            _record_launches(report, f"uni_backbone_map_{bmap}", counts)
+        rel = abs(out[True][0] - out[False][0]) / abs(out[False][0])
+        shares, worst, median = _grad_shares(out[False][1], out[True][1])
+        print(f"backbone_map on one unicorn_track_tiny uni step, {label} "
+              f"(B={TRAIN_B} pairs, the 4 frames' trunk at batch 1): "
+              f"total_loss {out[True][0]:.6f} vs {out[False][0]:.6f} (rel "
+              f"{rel:.2e}, bound {bound:g}); gradient leaves worst "
+              f"{shares[worst]:.3e} of its max at {worst}, median "
+              f"{median:.3e}; launches {MAP_LAUNCHES}")
+        assert rel <= bound, (label, rel)
+    del fp32
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------ opt-in: profile
@@ -4580,12 +4927,13 @@ PHASES = {
     "mask_train": phase_mask_train,
     "trainer": phase_trainer,
     "disk": phase_disk,
+    "det": phase_det,
     "profile": phase_profile,
 }
 DEFAULT_PHASES = ("build", "kernels", "model", "main", "block_model",
                   "stream", "sot_model", "sot", "inst", "vos", "omni",
                   "train_model", "train", "inst_train", "mask_train",
-                  "trainer", "disk")
+                  "trainer", "disk", "det")
 
 
 def main(argv=None) -> int:

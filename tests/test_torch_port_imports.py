@@ -13,7 +13,8 @@ device tracker, the streaming, inst and VOS drivers, the omni MOT driver,
 the QDTrack / SORT / DeepSORT / MOTDT trackers and utils.boxes among them,
 and the training loop's checkpoints, trainer, logger, meters and host data
 path (preproc, transforms, the omni datasets, the loaders), the image
-reader, the on-disk datasets and the RLE codec.
+reader, the on-disk datasets and the RLE codec, the mosaic augmentation,
+the dataset converters and the det / large exps.
 """
 import os
 import subprocess
@@ -53,7 +54,11 @@ for n in ("ops.deform_attn", "ops.correlation", "ops.correlation_kernel",
           "data.loader", "data.datasets", "data.datasets.omni",
           "data.image_io", "data.datasets.coco", "data.datasets.sot",
           "data.datasets.mot", "data.datasets.vos", "data.datasets.bdd",
-          "data.datasets.voc", "evaluators", "evaluators.rle"):
+          "data.datasets.voc", "evaluators", "evaluators.rle",
+          "data.mosaic", "tools", "tools.convert_datasets",
+          "exp.unicorn_det_convnext_tiny_800x1280",
+          "exp.unicorn_det_convnext_large_800x1280",
+          "exp.unicorn_track_large"):
     assert "unicorn_torch." + n in names, n
 print(len(names))
 """

@@ -220,11 +220,20 @@ def test_from_flax_reports_only_the_mask_branch():
 
 
 def test_constructor_fields_not_ported_raise():
-    for kw in (dict(remat=True), dict(remat="dw"),
-               dict(backbone_name="swin_tiny"),
+    for kw in (dict(backbone_name="swin_tiny"),
                dict(backbone_name="resnet50")):
         with pytest.raises(NotImplementedError):
             TUnicorn(**{**CFG, **kw})
+    # backbone remat is ported: the trunk's blocks take the mode, the
+    # head's attention blocks do not; any other mode is refused
+    for remat in (True, "dw"):
+        m = TUnicorn(**CFG, remat=remat)
+        assert {b.remat for s in m.backbone.backbone.stages for b in s} \
+            == {remat}
+        assert not any(getattr(b, "remat", False)
+                       for b in m.head.modules() if b is not m.head)
+    with pytest.raises(ValueError):
+        TUnicorn(**CFG, remat="mlp")
     # the mask stack, the other interaction modes and CSPDarknet are
     # ported now
     m = TUnicorn(**CFG, use_mask=True, use_raft=True, up_rate=4,

@@ -35,6 +35,7 @@ from unicorn_torch.core.train_step import (make_det_train_step,
                                            make_uni_train_step, uni_loss_fn)
 from unicorn_torch.exp.unicorn_track_tiny import Exp as TExp
 from unicorn_torch.models.unicorn import Unicorn as TUnicorn
+from unicorn_torch.models.unicorn import YOLOXDet as TDet
 from unicorn_tpu.core import train_state as jts
 from unicorn_tpu.core.train_step import uni_loss_fn as j_uni_loss_fn
 from unicorn_tpu.exp.track import ExpTrack as JExp
@@ -340,22 +341,30 @@ def test_step_needs_a_card_unless_asked_for_the_cpu(setup):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tts.TrainState.create(_torch_model(setup["state"]), tx)
-    with pytest.raises(NotImplementedError, match="backbone_map"):
-        uni_loss_fn(_torch_model(setup["state"]),
-                    *_torch_batch(setup["batches"][0]), (H, W),
-                    backbone_map=True)
-    with pytest.raises(NotImplementedError):
-        TUnicorn(**CFG, remat=True)
+    # backbone_map and remat are ported: the loss is the one without them
+    model = _torch_model(setup["state"])
+    batch = _torch_batch(setup["batches"][0])
+    with torch.no_grad():
+        want = uni_loss_fn(model, *batch, (H, W), **LOSS_KW)[0]
+        got = uni_loss_fn(model, *batch, (H, W), backbone_map=True,
+                          **LOSS_KW)[0]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    assert TUnicorn(**CFG, remat=True).backbone.backbone.remat is True
 
 
 def test_det_train_step_runs_and_lowers_its_loss(setup):
-    """make_det_train_step (no JAX counterpart compiled here: its loss is
-    yolox_losses on forward_whole, both held elsewhere): finite losses that
-    fall over four SGD steps on one batch."""
+    """make_det_train_step on a YOLOXDet, the det stage's model, with the
+    module's Unicorn weights (every YOLOXDet tensor is one of the
+    Unicorn's; its loss, det_loss_fn, is held against JAX's in
+    test_torch_port_det_train.py): finite losses that fall over four SGD
+    steps on one batch."""
     tx = tts.make_optimizer(lambda c: 1e-3, kind="sgd", weight_decay=WD,
                             no_decay_mask_fn=tts.default_wd_mask)
-    state = tts.TrainState.create(_torch_model(setup["state"]), tx,
-                                  device="cpu")
+    model = TDet(**CFG, use_attention=True)
+    model.load_state_dict({k: setup["state"][k]
+                           for k in model.state_dict()})
+    model.train()
+    state = tts.TrainState.create(model, tx, device="cpu")
     images, targets, _ = _torch_batch(setup["batches"][0])
     step = make_det_train_step((H, W), use_l1=True)
     losses = [step(state, images[:, 1], targets[:, 1, :, :5])[1]["total_loss"]

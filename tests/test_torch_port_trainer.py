@@ -478,8 +478,8 @@ def test_eval_skipped_without_evaluator_and_best_ckpt(tmp_path):
 def test_debug_only_and_on_disk_data_raise(tmp_path, monkeypatch):
     """debug_dump is not ported; the on-disk mixes under a data root that
     holds none of their datasets raise FileNotFoundError naming the root
-    (each dataset skipped with a warning first), and detection's mosaic
-    loader is not ported."""
+    (each dataset skipped with a warning first), detection's mosaic
+    loader among them."""
     from unicorn_torch.exp.det import ExpDet
 
     tr = _trainer(tmp_path, debug_only=True)
@@ -494,7 +494,7 @@ def test_debug_only_and_on_disk_data_raise(tmp_path, monkeypatch):
     assert plus.mot_dataset is None and plus.sot_dataset is not None
     with pytest.raises(FileNotFoundError, match="none"):
         ExpDetMask().get_data_loader(2)
-    with pytest.raises(NotImplementedError, match="mosaic"):
+    with pytest.raises(FileNotFoundError, match="none"):
         ExpDet().get_data_loader(2)
 
 

@@ -37,8 +37,9 @@ from ..ops.correlation import resize_bilinear_torch
 
 def det_loss_fn(model, images, labels, img_size, use_l1=False,
                 strides=(8, 16, 32)):
-    """Detection pretraining loss. images (B, 3, H, W); labels (B, M, 5)."""
-    head_raw = model(images)[0]
+    """Detection pretraining loss of a YOLOXDet without the mask branch
+    (the det stage's model). images (B, 3, H, W); labels (B, M, 5)."""
+    head_raw = model(images)
     flat = flatten_raw_outputs(head_raw, "mot")
     boxes = decode_boxes(flat["reg_raw"], flat["hw"], strides)
     xs, ys, ss = level_grids(flat["hw"], strides, images.device)
@@ -52,14 +53,25 @@ def uni_forward_embeddings(model, images, backbone_map=False):
     """Backbone + interaction + upsample for a 2-frame batch. images
     (B, 2, 3, H, W). Returns (fpn_outs_1, embed_0, embed_1): both frames
     share one backbone pass as a 2B batch, frame-major, and the stride-16
-    features are cast to fp32 for the interaction."""
-    if backbone_map:
-        raise NotImplementedError("uni_forward_embeddings(backbone_map=True) "
-                                  "is not yet ported")
+    features are cast to fp32 for the interaction.
+
+    backbone_map=True runs the backbone once a frame over the 2B frames at
+    batch 1 and concatenates the outputs: the same math (the PAFPN's
+    GroupNorm is per sample), JAX's lax.map. In eager PyTorch autograd
+    keeps every frame's activations until the backward all the same, so
+    it lowers the peak only together with remat, whose blocks keep
+    little."""
     B, n_frames = images.shape[:2]
     assert n_frames == 2
     imgs_flat = images.transpose(0, 1).reshape(2 * B, *images.shape[2:])
-    fpn_outs, feat16 = model.forward_backbone(imgs_flat)
+    if backbone_map:
+        outs = [model.forward_backbone(imgs_flat[i:i + 1])
+                for i in range(2 * B)]
+        fpn_outs = tuple(torch.cat([o[0][k] for o in outs])
+                         for k in range(len(outs[0][0])))
+        feat16 = torch.cat([o[1] for o in outs])
+    else:
+        fpn_outs, feat16 = model.forward_backbone(imgs_flat)
     fpn_outs_1 = tuple(x[B:] for x in fpn_outs)
     new0, new1 = model.forward_interaction(feat16[:B].float(),
                                            feat16[B:].float())

@@ -2,7 +2,8 @@
 its own json parsing (no pycocotools), frames read by data.image_io.
 
 `pull_item(i)` -> (img HWC uint8 BGR, res (N, 5) [x1, y1, x2, y2, cls],
-(h, w), id). A frame that cannot be read raises (FileNotFoundError /
+(h, w), id); `get_item(i, rng=, np_rng=)` passes it through a preproc
+that draws (DetLoader's interface). A frame that cannot be read raises (FileNotFoundError /
 ValueError) where the JAX package asserts.
 """
 from __future__ import annotations
@@ -87,6 +88,14 @@ class COCODataset:
         res, img_info, _ = self.annotations[index]
         img = self.load_image(index)
         return img, res.copy(), img_info, np.array([self.ids[index]])
+
+    def get_item(self, index, *, rng, np_rng):
+        """pull_item through `preproc`, which draws from the generators (a
+        TrainTransform)."""
+        img, target, img_info, img_id = self.pull_item(index)
+        img, target = self.preproc(img, target, self.img_size, rng=rng,
+                                   np_rng=np_rng)
+        return img, target, img_info, img_id
 
     def __getitem__(self, index):
         img, target, img_info, img_id = self.pull_item(index)

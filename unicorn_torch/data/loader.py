@@ -220,3 +220,51 @@ class InstLoader(_Prefetcher):
             labs.append(lab_t)
             mks.append(m_t)
         return np.stack(imgs), np.stack(labs), np.stack(mks)
+
+
+class DetLoader(_Prefetcher):
+    """Detection batches: (images (B, H, W, 3) float32, labels (B, M, 5))
+    from a dataset exposing `get_item(idx, rng=, np_rng=)` (MosaicDetection,
+    COCODataset), in an epoch order shuffled by `_rng`. The images keep the
+    dataset's size: there is no multiscale (`set_input_size`), as in the
+    JAX package. `set_rank` also strides the epoch order `rank::world`.
+
+    The batch's indices are taken under the lock, the items built outside
+    it from the shared `_py_rng` / `_np_rng`, as InstLoader does: with one
+    worker a loader seeded s gives the JAX loader's batches after
+    `seed_everything(s)`; with more, the draws' order across threads is
+    not fixed."""
+
+    def __init__(self, dataset, batch_size: int, prefetch: int = 2,
+                 seed: int = 0, shuffle: bool = True, workers: int = 1):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self._order = list(range(len(dataset)))
+        self._pos = 0
+        self._lock = threading.Lock()
+        self._init_prefetch(prefetch, workers, seed)
+
+    def set_rank(self, rank: int, world: int):
+        super().set_rank(rank, world)
+        self._order = list(range(len(self.dataset)))[rank::world]
+        self._pos = 0
+        return self
+
+    def _next_index(self):
+        if self._pos == 0 and self.shuffle:
+            self._rng.shuffle(self._order)
+        idx = self._order[self._pos]
+        self._pos = (self._pos + 1) % len(self._order)
+        return idx
+
+    def _make_batch(self):
+        with self._lock:
+            idxs = [self._next_index() for _ in range(self.batch_size)]
+        imgs, labels = [], []
+        for idx in idxs:
+            img, lab, _, _ = self.dataset.get_item(idx, rng=self._py_rng,
+                                                   np_rng=self._np_rng)
+            imgs.append(img)
+            labels.append(lab)
+        return np.stack(imgs), np.stack(labels)

@@ -43,6 +43,8 @@ def resize_linear(img: np.ndarray, dsize) -> np.ndarray:
     """cv2.resize(img, dsize=(w, h), interpolation=INTER_LINEAR) for an
     (H, W) or (H, W, C) uint8 or float32 array."""
     dw, dh = int(dsize[0]), int(dsize[1])
+    if (dh, dw) == img.shape[:2]:
+        return img.copy()  # the weights are (1, 0): a copy, bit for bit
     squeeze = img.ndim == 2
     x = img[:, :, None] if squeeze else img
     sh, sw = x.shape[:2]

@@ -1,9 +1,10 @@
-"""Detection experiment: the model, data, training and test fields of
-unicorn_tpu/exp/det.py ExpDet, get_model() building the port's YOLOXDet,
-the training factories get_lr_fn / get_optimizer (SGD with Nesterov
-momentum), the fields the trainer reads, and get_unicorn_datadir (the
-root of the on-disk datasets). Its loader (mosaic over the on-disk COCO
-set) and evaluator are not ported yet."""
+"""Detection experiment: the model, data, transform, training and test
+fields of unicorn_tpu/exp/det.py ExpDet, get_model() building the port's
+YOLOXDet, the training factories get_lr_fn / get_optimizer (SGD with
+Nesterov momentum), the fields the trainer reads, get_unicorn_datadir (the
+root of the on-disk datasets), and the mosaic pretraining data
+(get_dataset: the on-disk COCO set; get_data_loader: a DetLoader over
+MosaicDetection with MixUp). Its evaluator is not ported yet."""
 from __future__ import annotations
 
 import os
@@ -12,11 +13,12 @@ import torch
 
 from ..core.schedule import warm_cos_lr_fn
 from ..core.train_state import default_wd_mask, make_optimizer
+from ..data.datasets.coco import COCODataset
+from ..data.loader import DetLoader
+from ..data.mosaic import MosaicDetection
+from ..data.transforms import TrainTransform
 from ..models.unicorn import YOLOXDet
 
-NOT_PORTED_MOSAIC = (
-    "detection pretraining's loader is not ported yet (ROADMAP Queue 1: "
-    "mosaic, random_perspective and DetLoader)")
 NOT_PORTED_EVAL = ("the evaluators are not ported yet (ROADMAP Queue 1 "
                    "item 7)")
 
@@ -43,7 +45,9 @@ class ExpDet:
         self.use_attention = True
         self.n_layer_att = 3
         self.bf16 = True
-        # backbone block remat is not ported yet (same numbers, less memory)
+        # backbone block remat (same numbers, less memory): False, True
+        # (each trunk block recomputed in the backward) or "dw" (the dw7x7
+        # output kept, the block's tail recomputed)
         self.remat = False
         self.input_size = (640, 640)
         self.data_num_workers = 1
@@ -54,9 +58,18 @@ class ExpDet:
         self.train_name = "train2017"
         self.val_ann = "instances_val2017.json"
         self.val_name = "val2017"
-        self.max_labels = 120
+        # --------------- transform config ----------------- #
+        self.mosaic_prob = 1.0
+        self.mixup_prob = 1.0
         self.hsv_prob = 1.0
         self.flip_prob = 0.5
+        self.degrees = 10.0
+        self.translate = 0.1
+        self.mosaic_scale = (0.1, 2)
+        self.mixup_scale = (0.5, 1.5)
+        self.shear = 2.0
+        self.enable_mixup = True
+        self.max_labels = 120
         # --------------  training config --------------------- #
         self.seed = None
         self.output_dir = "./Unicorn_outputs"
@@ -110,10 +123,35 @@ class ExpDet:
             grad_accum=self.grad_acc_step if self.use_grad_acc else 1,
             no_decay_mask_fn=default_wd_mask)
 
-    def get_data_loader(self, batch_size):
-        """Mosaic detection batches over the on-disk COCO set: not ported
-        yet."""
-        raise NotImplementedError(NOT_PORTED_MOSAIC)
+    def _transform(self):
+        return TrainTransform(max_labels=self.max_labels,
+                              flip_prob=self.flip_prob,
+                              hsv_prob=self.hsv_prob)
+
+    def get_dataset(self) -> COCODataset:
+        """The COCO training set under data_dir (else <datadir>/coco)
+        through TrainTransform; a missing annotation file raises
+        FileNotFoundError naming it."""
+        data_dir = self.data_dir or os.path.join(get_unicorn_datadir(), "coco")
+        return COCODataset(data_dir=data_dir, json_file=self.train_ann,
+                           name=self.train_name, img_size=self.input_size,
+                           preproc=self._transform())
+
+    def get_data_loader(self, batch_size) -> DetLoader:
+        """Detection batches (images (B, H, W, 3) float32, labels (B,
+        max_labels, 5)) at input_size: the COCO set through mosaic and
+        MixUp where mosaic_prob > 0, seeded from the exp's seed (0 when
+        None), data_num_workers threads."""
+        dataset = self.get_dataset()
+        if self.mosaic_prob > 0:
+            dataset = MosaicDetection(
+                dataset, img_size=self.input_size, preproc=self._transform(),
+                mosaic_prob=self.mosaic_prob, mixup_prob=self.mixup_prob,
+                degrees=self.degrees, translate=self.translate,
+                mosaic_scale=self.mosaic_scale, mixup_scale=self.mixup_scale,
+                shear=self.shear, enable_mixup=self.enable_mixup)
+        return DetLoader(dataset, batch_size, seed=self.seed or 0,
+                         workers=self.data_num_workers)
 
     def get_trainer_evaluator(self, batch_size=1):
         """The trainer's in-training COCO evaluator: not ported yet."""

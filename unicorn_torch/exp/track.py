@@ -50,7 +50,8 @@ class ExpTrack:
         self.bf16 = True
         # serving runs the interaction and embedding stages in bf16 too
         self.serve_interact_bf16 = True
-        # backbone block remat is not ported yet (same numbers, less memory)
+        # backbone block remat (same numbers, less memory): False, True
+        # or "dw", as ExpDet
         self.remat = False
         self.input_size = (800, 1280)
         # ---------------- dataloader config ---------------- #
@@ -63,8 +64,17 @@ class ExpTrack:
         self.train_ann = "instances_train2017.json"
         self.train_name = "train2017"
         # --------------- transform config ----------------- #
+        # the mosaic fields are JAX's; no loader of this stage reads them
+        self.mosaic_prob = -1.0
+        self.mixup_prob = 1.0
         self.hsv_prob = 1.0
         self.flip_prob = 0.5
+        self.degrees = 10.0
+        self.translate = 0.1
+        self.mosaic_scale = (0.1, 2)
+        self.mixup_scale = (0.5, 1.5)
+        self.shear = 2.0
+        self.enable_mixup = True
         # --------------  training config --------------------- #
         self.seed = None
         self.output_dir = "./Unicorn_outputs"

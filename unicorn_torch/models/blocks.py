@@ -17,6 +17,7 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.dwconv7x7 import dwconv7x7
 
@@ -265,7 +266,16 @@ class ConvNeXtBlock(nn.Module):
     """dw7x7 -> fp32 LayerNorm -> Linear C->4C -> GELU -> Linear 4C->C ->
     x gamma -> + residual. Used by the trunk and by the head's attention.
     Its fused alternative is the op `ops.convnext_block.convnext_block` on
-    `block_params(self)`, which no model calls (as in the JAX package)."""
+    `block_params(self)`, which no model calls (as in the JAX package).
+
+    `remat` (set by ConvNeXt on its trunk blocks) rematerialises the block
+    while gradients are recorded: False keeps every activation; True keeps
+    only the block's input and recomputes the whole block in the backward
+    (the dw7x7 kernel launches again); "dw" keeps the dw7x7 output and
+    recomputes the tail (`tail`), the residual add outside. The numbers
+    are the same either way."""
+
+    remat = False
 
     def __init__(self, dim: int, layer_scale_init_value: float = 1e-6,
                  dtype=torch.float32, exact_gelu: bool = True):
@@ -285,15 +295,30 @@ class ConvNeXtBlock(nn.Module):
             with torch.no_grad():
                 self.gamma.fill_(self.lsiv)
 
-    def forward(self, x):
+    def tail(self, y):
+        """LayerNorm -> Linear -> GELU -> Linear -> x gamma of the dw7x7
+        output (B, H, W, C)."""
         dt = self.dtype
-        y = self.norm(self.dwconv.forward_nhwc(x))
+        y = self.norm(y)
         y = F.linear(y, self.pwconv1.weight.to(dt), self.pwconv1.bias.to(dt))
         y = F.gelu(y, approximate=self.approximate)
         y = F.linear(y, self.pwconv2.weight.to(dt), self.pwconv2.bias.to(dt))
         if self.gamma is not None:
             y = y * self.gamma.to(dt)
-        return x.to(dt) + y.permute(0, 3, 1, 2)
+        return y
+
+    def _block(self, x, remat_tail=False):
+        y = self.dwconv.forward_nhwc(x)
+        y = (checkpoint(self.tail, y, use_reentrant=False) if remat_tail
+             else self.tail(y))
+        return x.to(self.dtype) + y.permute(0, 3, 1, 2)
+
+    def forward(self, x):
+        if not (self.remat and torch.is_grad_enabled()):
+            return self._block(x)
+        if self.remat == "dw":
+            return self._block(x, remat_tail=True)
+        return checkpoint(self._block, x, use_reentrant=False)
 
 
 def upsample_nearest_2x(x):

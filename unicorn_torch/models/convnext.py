@@ -2,7 +2,8 @@
 
 Returns the stride-8/16/32 features of stages 1..3, each through its output
 LayerNorm. Module names follow the reference torch ConvNeXt
-(downsample_layers / stages / norm{i}).
+(downsample_layers / stages / norm{i}). `remat` (False, True or "dw")
+rematerialises the stage blocks in training, as ConvNeXtBlock describes.
 """
 from __future__ import annotations
 
@@ -50,12 +51,19 @@ class PatchEmbed4x4(nn.Module):
         return (y + self.bias.to(dt)).permute(0, 3, 1, 2)
 
 
+REMAT_MODES = (False, True, "dw")
+
+
 class ConvNeXt(nn.Module):
     def __init__(self, depths: Sequence[int] = (3, 3, 9, 3),
                  dims: Sequence[int] = (96, 192, 384, 768),
                  layer_scale_init_value: float = 1e-6, dtype=torch.float32,
-                 exact_gelu: bool = True, in_chans: int = 3):
+                 exact_gelu: bool = True, in_chans: int = 3,
+                 remat=False):
         super().__init__()
+        if remat not in REMAT_MODES:
+            raise ValueError(f"remat {remat!r} is none of {REMAT_MODES}")
+        self.remat = remat
         self.downsample_layers = nn.ModuleList([nn.Sequential(
             PatchEmbed4x4(dims[0], in_chans, dtype=dtype),
             LayerNorm32(dims[0], dtype=dtype, channels_first=True))])
@@ -72,6 +80,9 @@ class ConvNeXt(nn.Module):
         for i in range(1, 4):
             self.add_module(f"norm{i}", LayerNorm32(
                 dims[i], dtype=dtype, channels_first=True))
+        for stage in self.stages:
+            for block in stage:
+                block.remat = remat
 
     def forward(self, x):
         outs = []
@@ -83,19 +94,19 @@ class ConvNeXt(nn.Module):
         return tuple(outs)  # strides 8, 16, 32
 
 
-def convnext_tiny(dtype=torch.float32, exact_gelu=True):
+def convnext_tiny(dtype=torch.float32, exact_gelu=True, remat=False):
     return ConvNeXt(depths=(3, 3, 9, 3), dims=(96, 192, 384, 768),
-                    dtype=dtype, exact_gelu=exact_gelu)
+                    dtype=dtype, exact_gelu=exact_gelu, remat=remat)
 
 
-def convnext_base(dtype=torch.float32, exact_gelu=True):
+def convnext_base(dtype=torch.float32, exact_gelu=True, remat=False):
     return ConvNeXt(depths=(3, 3, 27, 3), dims=(128, 256, 512, 1024),
-                    dtype=dtype, exact_gelu=exact_gelu)
+                    dtype=dtype, exact_gelu=exact_gelu, remat=remat)
 
 
-def convnext_large(dtype=torch.float32, exact_gelu=True):
+def convnext_large(dtype=torch.float32, exact_gelu=True, remat=False):
     return ConvNeXt(depths=(3, 3, 27, 3), dims=(192, 384, 768, 1536),
-                    dtype=dtype, exact_gelu=exact_gelu)
+                    dtype=dtype, exact_gelu=exact_gelu, remat=remat)
 
 
 CONVNEXT_OUT_CHANNELS = {

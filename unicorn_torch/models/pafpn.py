@@ -15,9 +15,10 @@ from .csp_darknet import CSPDarknet
 
 
 def build_backbone(name: str, depth: float = 1.0, width: float = 1.0,
-                   dtype=torch.float32, exact_gelu: bool = True):
-    """(module, raw stride-8/16/32 channel counts): ConvNeXt or CSPDarknet
-    (at the model's depth and width)."""
+                   dtype=torch.float32, exact_gelu: bool = True, remat=False):
+    """(module, raw stride-8/16/32 channel counts): ConvNeXt (its blocks
+    rematerialised under `remat`) or CSPDarknet (at the model's depth and
+    width; remat does not apply, as in the JAX package)."""
     if name.startswith("convnext"):
         fn = {
             "convnext": convnext_tiny,
@@ -25,7 +26,8 @@ def build_backbone(name: str, depth: float = 1.0, width: float = 1.0,
             "convnext_base": convnext_base,
             "convnext_large": convnext_large,
         }[name]
-        return fn(dtype=dtype, exact_gelu=exact_gelu), CONVNEXT_OUT_CHANNELS[name]
+        return (fn(dtype=dtype, exact_gelu=exact_gelu, remat=remat),
+                CONVNEXT_OUT_CHANNELS[name])
     if name == "csp_darknet":
         ch = (int(256 * width), int(512 * width), int(1024 * width))
         return CSPDarknet(dep_mul=depth, wid_mul=width, dtype=dtype), ch
@@ -39,13 +41,13 @@ class YOLOPAFPN(nn.Module):
                  in_channels: Sequence[int] = (256, 512, 1024),
                  depthwise: bool = False, act: str = "silu",
                  backbone_name: str = "convnext_tiny", dtype=torch.float32,
-                 exact_gelu: bool = True):
+                 exact_gelu: bool = True, remat=False):
         super().__init__()
         conv = DWConv if depthwise else BaseConv
         c0, c1, c2 = [int(c * width) for c in in_channels]
         kw = dict(act=act, dtype=dtype)
         self.backbone, raw = build_backbone(backbone_name, depth, width,
-                                            dtype, exact_gelu)
+                                            dtype, exact_gelu, remat)
         self.raw_channels = raw   # of the backbone's stride-8/16/32 features
         self.adjust = raw != (c0, c1, c2)
         if self.adjust:

@@ -9,7 +9,9 @@ embedding), the embedding upsample (`forward_upsample`), the unified head
 use_mask, the CondInst mask branch (`forward_mask_branch`, with the RAFT
 up-mask under use_raft). YOLOXDet: PAFPN + detection head without the SOT
 branch or priors, and with use_mask the controllers and the mask branch.
-Backbone block remat (`remat`) is not ported: it accepts only False.
+`remat` (False, True or "dw") rematerialises the ConvNeXt trunk's blocks
+in training (models/blocks.py ConvNeXtBlock); the head's attention blocks
+are not rematerialised, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -27,12 +29,6 @@ from .mask_head import MaskBranch
 from .pafpn import YOLOPAFPN
 
 INTERACT_MODES = ("deform", "full", "conv")
-
-
-def _no_remat(remat):
-    if remat is not False:
-        raise NotImplementedError(f"remat={remat!r}: backbone block remat is "
-                                  "not yet ported")
 
 
 class Unicorn(nn.Module):
@@ -57,7 +53,6 @@ class Unicorn(nn.Module):
                  interact_dtype=torch.float32, msda_method: str = "auto",
                  generator: torch.Generator | None = None):
         super().__init__()
-        _no_remat(remat)
         if interact_mode not in INTERACT_MODES:
             raise ValueError(interact_mode)
         if interact_dtype not in (torch.float32, torch.bfloat16):
@@ -68,7 +63,8 @@ class Unicorn(nn.Module):
         self.interact_mode = interact_mode
         self.backbone = YOLOPAFPN(
             depth=depth, width=width, in_channels=in_channels, act=act,
-            backbone_name=backbone_name, dtype=dtype, exact_gelu=exact_gelu)
+            backbone_name=backbone_name, dtype=dtype, exact_gelu=exact_gelu,
+            remat=remat)
         mask_branch = MaskBranch(
             [int(c * width) for c in in_channels], use_raft=use_raft,
             up_rate=up_rate, dtype=dtype) if use_mask else None
@@ -159,11 +155,11 @@ class YOLOXDet(nn.Module):
                  dtype=torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
-        _no_remat(remat)
         self.dtype = dtype
         self.backbone = YOLOPAFPN(
             depth=depth, width=width, in_channels=in_channels, act=act,
-            backbone_name=backbone_name, dtype=dtype, exact_gelu=exact_gelu)
+            backbone_name=backbone_name, dtype=dtype, exact_gelu=exact_gelu,
+            remat=remat)
         mask_branch = MaskBranch(
             [int(c * width) for c in in_channels], sem_loss_on=sem_loss_on,
             num_classes=num_classes, dtype=dtype) if use_mask else None
