@@ -17,7 +17,9 @@ Phases (each must pass, else the exit code is 1):
              D = 6), in bf16 and fp32, with times (dw7x7 per shape, with
              the tiling its launcher picks; the fused block per shape, with
              its plan, each kernel's time per launch and, at C <= 256, the
-             other route)
+             other route; dw7x7 also at the r50 head's and at
+             unicorn_track_tiny_rt's 640x1024 shapes, MSDA and the serving
+             correlation at _rt's, each with its path in `per_shape`)
              of kernel, plain version and the PyTorch library call that
              computes the same function, and the bound; the gradients of
              the dw7x7, fused-block and MSDA autograd Functions against
@@ -163,6 +165,24 @@ Phases (each must pass, else the exit code is 1):
              launches 45 / 81 / 45; one unicorn_track_tiny uni step with
              backbone_map against without (fp32 with TF32 off: the loss
              within 1e-5; bf16 as trained: within 0.02)
+  backbones  the other trunks and exps, through unicorn_torch.exp.base
+             get_exp, seed 0, bf16: unicorn_track_r50 (ResNet-50) served,
+             one MOT frame (forward_whole) and one SOT frame kernels vs
+             plain, then 3 + 16 MOTDriver.update and 16 SOTDriver.track
+             on 1080x1920 frames (frames/s, per-stage ms, peak memory,
+             launches a frame: 9 dw7x7, the head's; 1 MSDA and 1
+             correlation a SOT frame); its uni step at B = 2 pairs kernels
+             vs plain at train_model's bounds and 2 + 8 timed, one det step
+             of unicorn_det_r50_800x1280 and one mask-only VOS + MOTS step
+             of unicorn_track_r50_mask, each kernels vs plain and 2 + 4
+             timed (ms/step, peak memory, launches 18 / 9 / 18 dw7x7 a
+             step); a Swin-T Unicorn (unicorn_track_tiny's exp with
+             backbone_name swin_tiny) forward_whole kernels vs plain and
+             its ms a frame, one uni step under remat False twice and True
+             with deterministic algorithms (loss and every gradient leaf
+             within the two-run spread); unicorn_track_tiny_rt at 640x1024
+             as unicorn_track_r50 (27 dw7x7 a frame); every one of the 18
+             exps' models built on the card, its parameters counted
 `--only profile` adds a torch.profiler breakdown of the paths.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the rest of the
@@ -328,6 +348,20 @@ def dw_beyond_tolerance_bf16(x, k, b, yk, yp) -> int:
     return int(((yk.float() - yp.float()).abs() > tol).sum().item())
 
 
+# dw7x7 shapes (H, W, C) and launches a frame of the other configurations:
+# the head's 3 levels x 3 blocks at width 0.5 (C = 128) on ResNet-50, whose
+# trunk has none (Swin-T at width 1.0 runs the ConvNeXt head's shapes); and
+# unicorn_track_tiny_rt's trunk and head at 640x1024, 4/5 of 800x1280
+DW_OTHER_SHAPES = {
+    "r50 head": (((100, 160, 128), 3), ((50, 80, 128), 3),
+                 ((25, 40, 128), 3)),
+    "tiny_rt 640x1024": (((160, 256, 96), 3), ((80, 128, 192), 3),
+                         ((40, 64, 384), 9), ((20, 32, 768), 3),
+                         ((80, 128, 256), 3), ((40, 64, 256), 3),
+                         ((20, 32, 256), 3)),
+}
+
+
 def kernels_dw7x7(report) -> bool:
     import torch
     import torch.nn.functional as F
@@ -440,6 +474,46 @@ def kernels_dw7x7(report) -> bool:
     print(f"dw7x7 per frame (bf16, 27 launches): kernel {tot['ms']:.4f} ms, "
           f"plain {tot['plain_ms']:.4f} ms, F.conv2d {tot['library_ms']:.4f} "
           f"ms, bound {tot['bound_ms']:.4f} ms")
+    # the shapes of the other configurations' frames (bf16, as served):
+    # each beside its plain version, timed; their sum a frame
+    for path, shapes in DW_OTHER_SHAPES.items():
+        frame = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        for (H, W, C), n in shapes:
+            x = torch.randn(1, H, W, C, device=dev,
+                            generator=g).to(torch.bfloat16)
+            k = 0.1 * torch.randn(7, 7, C, device=dev, generator=g)
+            b = 0.1 * torch.randn(C, device=dev, generator=g)
+            yk, yp = dw.dwconv7x7_cuda(x, k, b), dw.dwconv7x7_plain(x, k, b)
+            nbad = dw_beyond_tolerance_bf16(x, k, b, yk, yp)
+            good = nbad == 0 and bool(torch.isfinite(yk.float()).all())
+            ok &= good
+            err = (yk.float() - yp.float()).abs().max().item()
+            max_err[torch.bfloat16] = max(max_err[torch.bfloat16], err)
+            bound, _ = roofline((2 * x.numel() + 50 * C) * 2,
+                                2 * 49 * x.numel(), bw, fp32_peak)
+            taps, bt, y = k.to(x.dtype), b.to(x.dtype), torch.empty_like(x)
+            t_k = graph_time_ms(lambda: dw.launch(x, taps, bt, y))
+            t_p = graph_time_ms(lambda: dw.dwconv7x7_plain(x, k, b))
+            xc, wl = x.permute(0, 3, 1, 2), taps.permute(2, 0, 1).unsqueeze(
+                1).contiguous()
+            t_l = graph_time_ms(
+                lambda: F.conv2d(xc, wl, bt, padding=3, groups=C))
+            pl = dw.plan(1, H, W, C)
+            print(f"       {path}: {H:3d}x{W:3d}x{C:<4d} bf16 {n} {err:.2e}"
+                  f"  1ulp+sum  {t_k:.4f}    {t_p:.4f}   {t_l:.4f}    "
+                  f"{bound:.4f}   {pl['pairs']} pairs x {pl['columns']} "
+                  f"cols x {pl['rows']} rows{'' if good else '  FAIL'}")
+            per_shape.append(dict(shape=[H, W, C], path=path, launches=n,
+                                  ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                  bound_ms=bound))
+            for key, t in (("ms", t_k), ("plain_ms", t_p),
+                           ("library_ms", t_l), ("bound_ms", bound)):
+                frame[key] += n * t
+        print(f"dw7x7 per frame of {path} (bf16, "
+              f"{sum(n for _, n in shapes)} launches): kernel "
+              f"{frame['ms']:.4f} ms, plain {frame['plain_ms']:.4f} ms, "
+              f"F.conv2d {frame['library_ms']:.4f} ms, bound "
+              f"{frame['bound_ms']:.4f} ms")
     report.setdefault("kernels", {})["dwconv7x7"] = dict(
         name="dwconv7x7", route="cuda",
         source="unicorn_torch/csrc/dwconv7x7.cu",
@@ -732,17 +806,19 @@ def kernels_msda(report) -> bool:
     bw, fp32_peak, _ = report["peaks"]
     g = torch.Generator(device="cuda").manual_seed(1)
     served = (1, 2, 50, 80, 8, 32, 8000, 4)
+    rt = (1, 2, 40, 64, 8, 32, 5120, 4)       # unicorn_track_tiny_rt's
     window = (WINDOW,) + served[1:]           # a track_window chunk
     ragged = (2, 2, 13, 17, 3, 8, 29, 4)
     padded = (2, 2, 13, 17, 3, 6, 29, 4)      # D zero-padded by the wrapper
     ok = True
     print("msda   mode     shape (B,L,H,W,M,D,Lq,P)          dtype    "
           "max|err|  kernel_ms plain_ms  grid_sample_ms bound_ms bound_by")
+    per_shape = []
     for mode in ("factored", "direct"):
-        for shape in (served, window, ragged, padded):
+        for shape in (served, rt, window, ragged, padded):
             for dtype in (torch.bfloat16, torch.float32):
                 value, locs, attw = _msda_inputs(
-                    shape, dtype, g, shape in (served, window))
+                    shape, dtype, g, shape in (served, rt, window))
                 B, L, H, W, M, D, Lq, P = shape
                 yk = da.ms_deform_attn_cuda(value, locs, attw, mode)
                 yp = da.ms_deform_attn_plain(value, locs, attw, mode)
@@ -801,6 +877,12 @@ def kernels_msda(report) -> bool:
                       f"plain {lib_err:.1e}){'' if good else '  FAIL'}")
                 if nbad:
                     print(f"       {nbad} elements beyond tolerance")
+                if shape is rt and mode == "factored":
+                    per_shape.append(dict(
+                        shape=list(shape), path="tiny_rt 640x1024",
+                        dtype=str(dtype)[6:], max_abs_err=err, ms=t_k,
+                        plain_ms=t_p, bound_ms=bound, bound_by=bound_by,
+                        library_ms=t_l))
                 if shape is served and dtype == torch.bfloat16:
                     src = {"factored": "unicorn_tpu/ops/deform_attn.py:294",
                            "direct": "unicorn_tpu/ops/deform_attn.py:204"}
@@ -810,6 +892,9 @@ def kernels_msda(report) -> bool:
                         replaces=src[mode], launches=None, max_abs_err=err,
                         ms=t_k, plain_ms=t_p, bound_ms=bound,
                         bound_by=bound_by, library_ms=t_l)
+                    if mode == "factored":
+                        report["kernels"]["msda_factored"]["per_shape"] = \
+                            per_shape
     return ok
 
 
@@ -832,18 +917,22 @@ def kernels_correlation(report) -> bool:
     # (B, N, C, K, scale, rtol); the first is the SOT path's shape, the
     # second a track_window chunk's (and the VOS general path's at K = 4),
     # the third the timed VOS general path's; the VOS shared path's at K = 5
-    # and 17; K = 17 goes in two kernel calls
+    # and 17; K = 17 goes in two kernel calls; the last the SOT path's of
+    # unicorn_track_tiny_rt (640x1024: N = 80 x 128)
     vos_k = VOS_OBJECTS + 1
     cases = ((1, 16000, 128, 1, 0.3, 1e-4), (WINDOW, 16000, 128, 1, 0.3, 1e-4),
              (vos_k, 16000, 128, 1, 0.3, 1e-4),
              (1, 16000, 128, vos_k, 0.3, 1e-4),
              (1, 16000, 128, VOS_K_WIDE, 0.3, 1e-4),
              (1, 1000, 128, 3, 0.3, 1e-4), (2, 77, 16, 16, 1.0, 1e-4),
-             (1, 1000, 16, 3, 10.0, 1e-3), (2, 1000, 128, 17, 0.3, 1e-4))
-    paths = {(1, 1): "sot", (WINDOW, 1): f"sot window, vos general K = "
-             f"{WINDOW}", (vos_k, 1): f"vos general K = {vos_k}",
-             (1, vos_k): f"vos shared K = {vos_k}",
-             (1, VOS_K_WIDE): f"vos shared K = {VOS_K_WIDE}"}
+             (1, 1000, 16, 3, 10.0, 1e-3), (2, 1000, 128, 17, 0.3, 1e-4),
+             (1, 10240, 128, 1, 0.3, 1e-4))
+    paths = {(1, 16000, 1): "sot", (WINDOW, 16000, 1): f"sot window, vos "
+             f"general K = {WINDOW}",
+             (vos_k, 16000, 1): f"vos general K = {vos_k}",
+             (1, 16000, vos_k): f"vos shared K = {vos_k}",
+             (1, 16000, VOS_K_WIDE): f"vos shared K = {VOS_K_WIDE}",
+             (1, 10240, 1): "sot tiny_rt 640x1024"}
     per_shape = []
     ok = True
     print("corr   B N     C   K  scale bf16_dots max|err|  kernel_ms plain_ms "
@@ -912,9 +1001,10 @@ def kernels_correlation(report) -> bool:
                     launches=None, max_abs_err=err, ms=t_k, plain_ms=t_p,
                     bound_ms=bound, bound_by=bound_by, library_ms=t_l,
                     per_shape=per_shape)
-            elif N == 16000 and (B, K) in paths and bf16_dots:
+            elif (B, N, K) in paths and bf16_dots:
                 per_shape.append(dict(
-                    shape=[B, N, C, K], path=paths[B, K], kernel_calls=calls,
+                    shape=[B, N, C, K], path=paths[B, N, K],
+                    kernel_calls=calls,
                     max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bound,
                     bound_by=bound_by, library_ms=t_l))
     return ok
@@ -1201,23 +1291,20 @@ def _model(report, raised_priors=False):
         model = exp.get_model(torch.Generator().manual_seed(0))
         report["model"] = (exp, model.to(DEVICE).eval())
     if raised_priors and not report.get("raised_priors"):
-        with torch.no_grad():
-            for name, p in report["model"][1].head.named_parameters():
-                if name.startswith(("obj_preds.", "cls_preds.")) and \
-                        name.endswith(".bias"):
-                    p.add_(6.0)
+        _raise_priors(report["model"][1])
         report["raised_priors"] = True
     return report["model"]
 
 
 # ---------------------------------------------------------------- phase 3
-def phase_model(report):
-    """forward_whole through the kernel vs through the plain version, on the
-    same bf16 model and image. Tolerance, set before the first run: the two
-    dw7x7 forms differ by at most about an ulp at each of 27 blocks of
-    random weights, so the decoded scores (sigmoids) may move by up to
-    0.05, and the raw logits by up to 5% of their largest magnitude (the
-    bound the CPU tests hold bf16 PyTorch against bf16 JAX to)."""
+def _forward_whole_check(label, exp, model, n_dw):
+    """forward_whole of a bf16 model through the dw7x7 kernel vs through
+    the plain version, on the same image at the exp's test size; n_dw
+    kernel launches expected. Tolerance, set before the first run: the two
+    dw7x7 forms differ by at most about an ulp at each block of random
+    weights, so the decoded scores (sigmoids) may move by up to 0.05, and
+    the raw logits by up to 5% of their largest magnitude (the bound the
+    CPU tests hold bf16 PyTorch against bf16 JAX to)."""
     from unittest import mock
 
     import numpy as np
@@ -1227,7 +1314,6 @@ def phase_model(report):
     from unicorn_torch.models.heads import decode_for_inference
     from unicorn_torch.ops import dwconv7x7 as dw
 
-    exp, model = _model(report)
     H, W = exp.test_size
     rng = np.random.RandomState(0)
     img = torch.from_numpy((rng.rand(1, H, W, 3) * 255).round()
@@ -1254,54 +1340,62 @@ def phase_model(report):
     d_scores = (dec_k[..., 4:] - dec_p[..., 4:]).abs().max().item()
     d_boxes = ((dec_k[..., :4] - dec_p[..., :4]).abs()
                / dec_p[..., :4].abs().clamp_min(1.0)).max().item()
-    print(f"forward_whole {H}x{W} bf16: decoded {tuple(dec_k.shape)}, "
+    print(f"{label} {H}x{W} bf16: decoded {tuple(dec_k.shape)}, "
           f"kernel vs plain: max |d score| {d_scores:.3e} (tol 0.05), "
           f"max rel |d box| {d_boxes:.3e}, raw logits max |d| / max|plain| "
           f"{d_raw:.3e} (tol 0.05); dw7x7 launches {n_k}")
-    assert n_k == 27, n_k
+    assert n_k == n_dw, n_k
     assert d_scores <= 0.05 and d_raw <= 0.05
 
 
+def phase_model(report):
+    """forward_whole through the kernel vs through the plain version, on the
+    unicorn_track_tiny model (`_forward_whole_check`, 27 launches)."""
+    exp, model = _model(report)
+    _forward_whole_check("forward_whole", exp, model, 27)
+
+
 # ---------------------------------------------------------------- phase 4
-def phase_main(report):
-    """MOTDriver.update over N_FRAMES synthetic 1080x1920 uint8 frames (a
-    panning random texture), letterboxed on the card, conf_thre 0.0 so that
-    NMS sees its 512 candidates, on the model with raised priors."""
+def _mot_path(label, exp, model, n_frames, warmup=3, seed=1):
+    """MOTDriver.update over n_frames synthetic FRAME_HW uint8 frames (a
+    panning random texture) after `warmup` untimed ones, letterboxed on the
+    card, conf_thre 0.0 so that NMS sees its 512 candidates; then the same
+    frames with the stages synchronised apart. Prints frames/s, per-stage
+    ms, dets and tracks per frame and the peak memory of the timed run;
+    returns (frames/s, launch counts of the timed run, tracks per frame,
+    dets per frame)."""
     import numpy as np
     import torch
 
     from unicorn_torch.drivers.mot import MOTDriver
-    from unicorn_torch.ops import dwconv7x7 as dw
 
-    exp, model = _model(report, raised_priors=True)
     driver = MOTDriver(model, input_size=exp.test_size,
                        num_classes=exp.num_classes, conf_thre=0.0,
                        nms_thre=exp.nmsthre, device=DEVICE)
-    rng = np.random.RandomState(1)
+    rng = np.random.RandomState(seed)
     fh, fw = FRAME_HW
-    base = (rng.rand(fh, fw + 4 * N_FRAMES, 3) * 255).astype(np.uint8)
+    base = (rng.rand(fh, fw + 4 * n_frames, 3) * 255).astype(np.uint8)
     frames = [np.ascontiguousarray(base[:, 4 * t:4 * t + fw])
-              for t in range(N_FRAMES)]
-    for f in frames[:3]:                       # warm-up, not counted
+              for t in range(n_frames)]
+    for f in frames[:warmup]:                  # warm-up, not counted
         driver.update(f)
     driver.reset()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
-    dw.launches = 0
+    _reset_kernel_counts()
     tracks = []
     t0 = time.perf_counter()
     for f in frames:
         tracks.append(driver.update(f))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dw.launches
-    fps = N_FRAMES / wall
-    print(f"main path: {N_FRAMES} frames {fh}x{fw} -> {exp.test_size}, "
-          f"{fps:.2f} frames/s ({wall / N_FRAMES * 1e3:.2f} ms/frame); "
-          f"dw7x7 launches {launches} (27 x {N_FRAMES} = {27 * N_FRAMES})")
-    report.setdefault("kernels", {}).setdefault("dwconv7x7", {}).update(
-        launches=launches, launches_by_path={"mot": launches})
-    report["fps"] = fps
+    counts = _kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fps = n_frames / wall
+    print(f"{label}: {n_frames} frames {fh}x{fw} -> {exp.test_size}, "
+          f"{fps:.2f} frames/s ({wall / n_frames * 1e3:.2f} ms/frame); "
+          f"launches {counts}; peak memory {peak:.2f} GiB")
 
     # per-stage times: the same stages as update(), synchronised apart
     driver.reset()
@@ -1325,16 +1419,28 @@ def phase_main(report):
             stages[name].append((t[k + 1] - t[k]) * 1e3)
         dets_n.append(int(valid.sum()))
         tracks_n.append(len(views))
-    print("per-stage ms (median of %d, synchronised): " % N_FRAMES + ", ".join(
-        f"{k} {np.median(v):.3f}" for k, v in stages.items()))
-    print(f"dets/frame mean {np.mean(dets_n):.1f} (min {min(dets_n)}, "
+    print("  per-stage ms (median of %d, synchronised): " % n_frames
+          + ", ".join(f"{k} {np.median(v):.3f}" for k, v in stages.items()))
+    print(f"  dets/frame mean {np.mean(dets_n):.1f} (min {min(dets_n)}, "
           f"max {max(dets_n)}); tracks/frame mean {np.mean(tracks_n):.1f} "
-          f"(first {tracks_n[0]}, last {tracks_n[-1]}); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    ids = sorted({v.track_id for views in tracks for v in views})
-    assert launches == 27 * N_FRAMES, launches
+          f"(first {tracks_n[0]}, last {tracks_n[-1]})")
     assert all(np.isfinite(v.tlbr).all() for vs in tracks for v in vs)
-    assert min(dets_n) > 0 and ids, "the main path produced no tracks"
+    ids = sorted({v.track_id for views in tracks for v in views})
+    assert min(dets_n) > 0 and ids, f"{label} produced no tracks"
+    return fps, counts, tracks, dets_n
+
+
+def phase_main(report):
+    """MOTDriver.update over N_FRAMES synthetic 1080x1920 uint8 frames on
+    the model with raised priors (`_mot_path`): 27 dw7x7 launches a
+    frame."""
+    exp, model = _model(report, raised_priors=True)
+    fps, counts, _, _ = _mot_path("main path", exp, model, N_FRAMES)
+    launches = counts["dwconv7x7"]
+    report.setdefault("kernels", {}).setdefault("dwconv7x7", {}).update(
+        launches=launches, launches_by_path={"mot": launches})
+    report["fps"] = fps
+    assert launches == 27 * N_FRAMES, launches
 
 
 # ------------------------------------------------- fused block in the model
@@ -1683,15 +1789,16 @@ def _reset_kernel_counts():
     da.launches_by_mode.update(factored=0, direct=0)
 
 
-def phase_sot_model(report):
-    """One SOT frame on the served model through the three kernels vs the
-    same through their plain versions (the wrappers patched out).
-    Tolerances, set before the first run: the two dw7x7 forms differ by
-    about a bf16 ulp at each of 27 blocks and the two MSDA forms by an ulp
-    of their output, so the bf16 embeddings and the SOT branch's raw logits
-    may move by up to 5% of their largest magnitude (the bound of phase
-    model); the propagated prior is an average of labels in [0, 1] under a
-    softmax of scores that move with the embeddings: up to 0.05."""
+def _sot_frame_check(label, exp, model, expected):
+    """One SOT frame on a served model through the three kernels vs the
+    same through their plain versions (the wrappers patched out); the
+    launches as `expected`. Tolerances, set before the first run: the two
+    dw7x7 forms differ by about a bf16 ulp at each block and the two MSDA
+    forms by an ulp of their output, so the bf16 embeddings and the SOT
+    branch's raw logits may move by up to 5% of their largest magnitude
+    (the bound of phase model); the propagated prior is an average of
+    labels in [0, 1] under a softmax of scores that move with the
+    embeddings: up to 0.05."""
     from unittest import mock
 
     import torch
@@ -1703,7 +1810,6 @@ def phase_sot_model(report):
     from unicorn_torch.ops import deform_attn as da
     from unicorn_torch.ops import dwconv7x7 as dw
 
-    exp, model = _sot_model(report)
     driver = SOTDriver(model, input_size=exp.test_size, conf_thre=0.0,
                        nms_thre=exp.nmsthre, device=DEVICE)
     frames = _sot_frames(1, seed=3)
@@ -1748,15 +1854,62 @@ def phase_sot_model(report):
     for t in (*out_k[:3], *(lv[k] for lv in out_k[3]
                             for k in ("cls_sot", "reg_sot", "obj_sot"))):
         assert bool(torch.isfinite(t.float()).all())
-    print(f"sot frame {H}x{W}, bf16 trunk + bf16 interaction, kernel vs "
+    print(f"{label} {H}x{W}, bf16 trunk + bf16 interaction, kernel vs "
           f"plain: embeddings max |d| / max|plain| {d_emb:.3e} (tol 0.05), "
           f"prior max |d| {d_prior:.3e} (tol 0.05; prior in "
           f"[{out_k[2].min().item():.3f}, {out_k[2].max().item():.3f}]), "
           f"sot raw logits max |d| / max|plain| {d_raw:.3e} (tol 0.05); "
           f"launches {counts}")
-    assert counts == dict(dwconv7x7=27, msda_factored=1, msda_direct=0,
-                          correlation=1), counts
+    assert counts == expected, counts
     assert d_emb <= 0.05 and d_prior <= 0.05 and d_raw <= 0.05
+
+
+SOT_LAUNCHES = dict(dwconv7x7=27, msda_factored=1, msda_direct=0,
+                    correlation=1)   # a frame of unicorn_track_tiny's SOT
+
+
+def phase_sot_model(report):
+    """One SOT frame on the served unicorn_track_tiny model, kernels vs
+    plain (`_sot_frame_check`)."""
+    exp, model = _sot_model(report)
+    _sot_frame_check("sot frame", exp, model, SOT_LAUNCHES)
+
+
+def _sot_stage_ms(label, driver, frames):
+    """The stages of SOTDriver.track on each frame, synchronised apart:
+    prints their median ms; returns the last frame's packed output."""
+    import numpy as np
+    import torch
+
+    stages = {"letterbox": [], "backbone": [], "interaction+upsample": [],
+              "correlation+priors": [], "head": [], "decode+nms": [],
+              "fetch": []}
+    for f in frames:
+        t = [time.perf_counter()]
+
+        def lap():
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+
+        img, _ = driver.preprocess(f)
+        lap()
+        fpn_outs, feat_cur = driver.backbone(img)
+        lap()
+        emb_ref, emb_cur = driver.embed(feat_cur)
+        lap()
+        priors = driver.propagate(emb_ref, emb_cur, fpn_outs)
+        lap()
+        raw = driver.head(fpn_outs, priors)
+        lap()
+        packed = driver.postprocess(raw)
+        lap()
+        packed = packed.cpu().numpy()
+        lap()
+        for k, name in enumerate(stages):
+            stages[name].append((t[k + 1] - t[k]) * 1e3)
+    print(f"{label} per-stage ms (median of {len(frames)}, synchronised): "
+          + ", ".join(f"{k} {np.median(v):.3f}" for k, v in stages.items()))
+    return packed
 
 
 def phase_sot(report):
@@ -1812,35 +1965,7 @@ def phase_sot(report):
     dwk.setdefault("launches_by_path", {})["sot"] = counts["dwconv7x7"]
     dwk["launches"] = (dwk.get("launches") or 0) + counts["dwconv7x7"]
 
-    # per-stage times: the stages of track(), synchronised apart
-    stages = {"letterbox": [], "backbone": [], "interaction+upsample": [],
-              "correlation+priors": [], "head": [], "decode+nms": [],
-              "fetch": []}
-    for f in frames[1:1 + N_TRACK]:
-        t = [time.perf_counter()]
-
-        def lap():
-            torch.cuda.synchronize()
-            t.append(time.perf_counter())
-
-        img, _ = driver.preprocess(f)
-        lap()
-        fpn_outs, feat_cur = driver.backbone(img)
-        lap()
-        emb_ref, emb_cur = driver.embed(feat_cur)
-        lap()
-        priors = driver.propagate(emb_ref, emb_cur, fpn_outs)
-        lap()
-        raw = driver.head(fpn_outs, priors)
-        lap()
-        packed = driver.postprocess(raw)
-        lap()
-        packed = packed.cpu().numpy()
-        lap()
-        for k, name in enumerate(stages):
-            stages[name].append((t[k + 1] - t[k]) * 1e3)
-    print("sot per-stage ms (median of %d, synchronised): " % N_TRACK
-          + ", ".join(f"{k} {np.median(v):.3f}" for k, v in stages.items()))
+    packed = _sot_stage_ms("sot", driver, frames[1:1 + N_TRACK])
     print(f"sot peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB; last packed row {np.round(packed[0, 0], 3).tolist()}")
 
@@ -3299,12 +3424,13 @@ def _record_launches(report, path, counts):
             k["launches"] = (k.get("launches") or 0) + n
 
 
-def _timed_steps(step, state, batches, launches, label, unit):
-    """MASK_TRAIN_WARMUP steps, then MASK_TRAIN_STEPS timed ones over the
-    batches in turn: prints ms/step, units/s, peak memory and the launches;
-    returns (loss dicts, counts, ms/step)."""
+def _timed_steps(step, state, batches, launches, label, unit, steps=None):
+    """MASK_TRAIN_WARMUP steps, then `steps` (MASK_TRAIN_STEPS) timed ones
+    over the batches in turn: prints ms/step, units/s, peak memory and the
+    launches; returns (loss dicts, counts, ms/step)."""
     import torch
 
+    steps = steps or MASK_TRAIN_STEPS
     for t in range(MASK_TRAIN_WARMUP):
         step(state, *batches[t % len(batches)])
     torch.cuda.synchronize()
@@ -3312,22 +3438,21 @@ def _timed_steps(step, state, batches, launches, label, unit):
     _reset_all_counts()
     t0 = time.perf_counter()
     dicts = [step(state, *batches[t % len(batches)])[1]
-             for t in range(MASK_TRAIN_STEPS)]
+             for t in range(steps)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _all_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    ms = wall / MASK_TRAIN_STEPS * 1e3
-    print(f"{label}: {MASK_TRAIN_STEPS} steps, {ms:.1f} ms/step "
-          f"({MASK_TRAIN_STEPS * TRAIN_B / wall:.2f} {unit}/s); peak memory "
-          f"{peak:.2f} GiB; launches {counts} = {MASK_TRAIN_STEPS} x "
+    ms = wall / steps * 1e3
+    print(f"{label}: {steps} steps, {ms:.1f} ms/step "
+          f"({steps * TRAIN_B / wall:.2f} {unit}/s); peak memory "
+          f"{peak:.2f} GiB; launches {counts} = {steps} x "
           f"{launches}; lr of the next update {state.lr():.3e}")
     print("  last step: " + ", ".join(f"{k} {v.item():.4f}"
                                       for k, v in dicts[-1].items()))
     assert all(bool(torch.isfinite(v).all()) for d in dicts
                for v in d.values()), "a loss is not finite"
-    assert counts == {k: n * MASK_TRAIN_STEPS for k, n in launches.items()}, \
-        counts
+    assert counts == {k: n * steps for k, n in launches.items()}, counts
     return dicts, counts, ms
 
 
@@ -3615,7 +3740,8 @@ TRAINER_SAMPLES = 24             # pairs an epoch: 12 iterations at B = 2
 TRAINER_EPOCHS = 2               # the second without augmentation (L1)
 TRAINER_SHORT_SAMPLES = 8        # 4 iterations: the other runs
 TRAINER_SIGTERM_ITER = 3         # the SIGTERM lands after this iteration
-TRAINER_EXP_FIELDS = {}          # fields set on every exp of the phase
+TRAINER_EXP_FIELDS = {}          # fields set on every exp of the phases
+#                                  trainer, disk, det and backbones
 # the loss keys of JAX's uni step with mhs (its metrics.jsonl records hold
 # these beside epoch and iter; tests/test_torch_port_trainer.py holds the
 # port's against JAX's)
@@ -4745,6 +4871,344 @@ def _backbone_map(report):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------- other backbones, every exp
+BACKBONE_FRAMES = 16      # timed frames of each driver run of the phase
+BACKBONE_WARMUP = 3       # untimed frames before them
+BACKBONE_UNI_STEPS = 8    # timed uni steps of unicorn_track_r50
+BACKBONE_STEPS = 4        # timed det and mask-stage steps of the r50 exps
+BACKBONE_FORWARDS = 8     # timed forward_whole calls of the Swin-T model
+# Launches, predicted from the code before the first run. ResNet-50 and
+# Swin have no dw7x7 in the trunk; the head's 3 levels x 3 attention
+# blocks keep theirs: 9 a frame against ConvNeXt-Tiny's 27; a uni or a
+# VOS + MOTS step calls the head twice (18 against 36), a det step once.
+# The interaction and the correlation run as on ConvNeXt-Tiny.
+HEAD_ONLY_FRAME = dict(dwconv7x7=9, msda_factored=0, msda_direct=0,
+                       correlation=0)
+HEAD_ONLY_SOT = dict(SOT_LAUNCHES, dwconv7x7=9)
+HEAD_ONLY_UNI = dict(TRAIN_LAUNCHES, dwconv7x7=18)
+HEAD_ONLY_DET = dict(DET_LAUNCHES, dwconv7x7=9)
+HEAD_ONLY_MASK = dict(MASK_TRAIN_LAUNCHES, dwconv7x7=18)
+TINY_FRAME = dict(HEAD_ONLY_FRAME, dwconv7x7=27)   # unicorn_track_tiny_rt's
+
+
+def _backbone_exp(name, **fields):
+    """The port's copy of exps/default/<name>.py through get_exp, with
+    TRAINER_EXP_FIELDS and `fields` set on it."""
+    from unicorn_torch.exp.base import get_exp
+
+    exp = get_exp(exp_name=name)
+    for k, v in {**TRAINER_EXP_FIELDS, **fields}.items():
+        setattr(exp, k, v)
+    return exp
+
+
+def _raise_priors(model):
+    """The obj / cls prediction biases raised by 6, so that the
+    random-weight detector's scores clear ByteTrack's thresholds."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in model.head.named_parameters():
+            if name.startswith(("obj_preds.", "cls_preds.")) and \
+                    name.endswith(".bias"):
+                p.add_(6.0)
+
+
+def _sot_path(label, exp, model, n, seed=4):
+    """SOTDriver.initialize on a synthetic FRAME_HW frame, 2 untimed track
+    calls, initialize again, n timed track calls, then their stages
+    synchronised apart; prints frames/s, launches and peak memory; returns
+    (frames/s, launch counts)."""
+    import numpy as np
+    import torch
+
+    from unicorn_torch.drivers.sot import SOTDriver
+
+    driver = SOTDriver(model, input_size=exp.test_size, conf_thre=0.0,
+                       nms_thre=exp.nmsthre, device=DEVICE)
+    frames = _sot_frames(n, seed)
+    driver.initialize(frames[0], INIT_BOX)
+    for f in frames[1:3]:                      # warm-up, not counted
+        driver.track(f)
+    driver.initialize(frames[0], INIT_BOX)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_kernel_counts()
+    t0 = time.perf_counter()
+    boxes = [driver.track(f)["target_bbox"] for f in frames[1:]]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _kernel_counts()
+    print(f"{label}: track x {n}, {FRAME_HW[0]}x{FRAME_HW[1]} -> "
+          f"{exp.test_size}: {n / wall:.2f} frames/s ({wall / n * 1e3:.2f} "
+          f"ms/frame); launches {counts}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    _sot_stage_ms(label, driver, frames[1:])
+    for x, y, w, h in boxes:
+        assert np.isfinite([x, y, w, h]).all() and w > 0 and h > 0
+    return n / wall, counts
+
+
+def _serving_paths(report, name, label, frame, sot):
+    """The served model of exp `name` (bf16, seed 0): one MOT frame
+    (`_forward_whole_check`) and one SOT frame (`_sot_frame_check`) kernels
+    vs plain, then `_mot_path` and `_sot_path`; launches a frame as
+    `frame` / `sot`."""
+    import torch
+
+    exp = _backbone_exp(name)
+    model = exp.get_model(torch.Generator().manual_seed(0),
+                          serve=True).to(DEVICE).eval()
+    _forward_whole_check(f"{label} forward_whole", exp, model,
+                         frame["dwconv7x7"])
+    _sot_frame_check(f"{label} sot frame", exp, model, sot)
+    _raise_priors(model)
+    _, counts, _, _ = _mot_path(f"{label} mot path", exp, model,
+                                BACKBONE_FRAMES, BACKBONE_WARMUP)
+    print(f"  launches a frame predicted {frame}")
+    assert counts == {k: n * BACKBONE_FRAMES for k, n in frame.items()}, \
+        counts
+    _record_launches(report, f"{label}_mot", counts)
+    _, counts = _sot_path(f"{label} sot path", exp, model, BACKBONE_FRAMES)
+    print(f"  launches a frame predicted {sot}")
+    assert counts == {k: n * BACKBONE_FRAMES for k, n in sot.items()}, \
+        counts
+    _record_launches(report, f"{label}_sot", counts)
+    del model
+    torch.cuda.empty_cache()
+
+
+def _backbones_r50_training(report):
+    """unicorn_track_r50's uni step at B = 2 pairs (kernels vs plain at
+    train_model's bounds, 2 + BACKBONE_UNI_STEPS timed), then one det step
+    of unicorn_det_r50_800x1280 and one mask-only VOS + MOTS step of
+    unicorn_track_r50_mask (each kernels vs plain, 2 + BACKBONE_STEPS
+    timed)."""
+    import torch
+
+    from unicorn_torch.core.train_state import TrainState
+    from unicorn_torch.core.train_step import (det_loss_fn,
+                                               make_det_train_step,
+                                               uni_loss_fn, uni_mask_loss_fn)
+    from unicorn_torch.losses import uni as uni_mod
+    from unicorn_torch.losses import vos as vos_mod
+
+    gen = torch.Generator().manual_seed(0)
+    exp = _backbone_exp("unicorn_track_r50")
+    model = exp.get_model(gen).to(DEVICE).train()
+    H, W = exp.input_size
+    images, targets, task_ids = _train_batch(exp, 2, seed=50, n_obj=8)
+    task_ids[0] = 1
+    kw = _uni_loss_kwargs(exp)
+
+    def run():
+        return _loss_and_grads(model, lambda: uni_loss_fn(
+            model, images, targets, task_ids, **kw))
+
+    _kernel_check_report(f"r50 uni step {H}x{W}, B={TRAIN_B} pairs",
+                         *_kernels_vs_plain(run, (uni_mod,)), HEAD_ONLY_UNI)
+    state = TrainState.create(
+        model, exp.get_optimizer(TRAIN_B, TRAIN_ITERS_PER_EPOCH),
+        use_ema=exp.ema, device=DEVICE)
+    batches = [_train_batch(exp, 1, seed=51, n_obj=1),
+               _train_batch(exp, 2, seed=52, n_obj=12)]
+    _, counts, _ = _timed_steps(
+        exp.get_train_step(TRAIN_B), state, batches, HEAD_ONLY_UNI,
+        f"r50 uni train path, B={TRAIN_B} pairs of {H}x{W}, AdamW, "
+        f"grad_accum {state.tx.grad_accum}, EMA", "pairs",
+        BACKBONE_UNI_STEPS)
+    _record_launches(report, "r50_train", counts)
+    del state, model
+    torch.cuda.empty_cache()
+
+    exp = _backbone_exp("unicorn_det_r50_800x1280")
+    model = exp.get_model(gen.manual_seed(0)).to(DEVICE).train()
+    batches = [_det_batch(exp, seed) for seed in (53, 54)]
+
+    def run():
+        return _loss_and_grads(model, lambda: det_loss_fn(
+            model, *batches[0], exp.input_size))
+
+    _kernel_check_report(f"r50 det step {H}x{W}, B={TRAIN_B}",
+                         *_kernels_vs_plain(run, ()), HEAD_ONLY_DET)
+    state = TrainState.create(
+        model, exp.get_optimizer(TRAIN_B, MASK_TRAIN_ITERS_PER_EPOCH),
+        use_ema=exp.ema, device=DEVICE)
+    _, counts, _ = _timed_steps(
+        make_det_train_step(exp.input_size, exp.always_l1), state, batches,
+        HEAD_ONLY_DET, f"r50 det train path, B={TRAIN_B} images of "
+        f"{H}x{W}, SGD, EMA", "images", BACKBONE_STEPS)
+    _record_launches(report, "r50_det", counts)
+    del state, model
+    torch.cuda.empty_cache()
+
+    exp = _backbone_exp("unicorn_track_r50_mask")
+    model = exp.get_model(gen.manual_seed(0)).to(DEVICE).train()
+    state = TrainState.create(
+        model, exp.get_optimizer(TRAIN_B, MASK_TRAIN_ITERS_PER_EPOCH),
+        use_ema=exp.ema, device=DEVICE)
+    batches = [_mask_train_batch(exp, seed) for seed in (55, 56)]
+    kw = dict(mot_weight=float(exp.mot_weight) if exp.scale_all_mot else 1.0,
+              bidirect=exp.bidirect, use_l1=exp.always_l1,
+              up_rate=exp.up_rate)
+
+    def run():
+        return _loss_and_grads(model, lambda: uni_mask_loss_fn(
+            model, *batches[0], exp.input_size, **kw))
+
+    _kernel_check_report(
+        f"r50 mask step {H}x{W}, B={TRAIN_B} pairs (VOS, MOTS), mask-only",
+        *_kernels_vs_plain(run, (vos_mod,)), HEAD_ONLY_MASK)
+    _, counts, _ = _timed_steps(
+        exp.get_train_step(TRAIN_B), state, batches, HEAD_ONLY_MASK,
+        f"r50 mask train path, B={TRAIN_B} pairs of {H}x{W} (VOS, MOTS), "
+        f"AdamW, mask-only", "pairs", BACKBONE_STEPS)
+    _record_launches(report, "r50_mask_train", counts)
+    del state, model
+    torch.cuda.empty_cache()
+
+
+def _backbones_swin(report):
+    """A Swin-T Unicorn (unicorn_track_tiny's fields with backbone_name
+    swin_tiny: in_channels 192 / 384 / 768 at width 1.0, so no adjust
+    convs): forward_whole kernels vs plain and its ms a frame (bf16,
+    served); one uni step (bf16 as trained) under remat False twice and
+    True, with cuDNN and PyTorch's deterministic algorithms on (the ops
+    without one warn, and are named): the loss and every gradient leaf of
+    remat True within the two remat False runs' spread."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from unicorn_torch.core.train_step import uni_loss_fn
+
+    exp = _backbone_exp("unicorn_track_tiny", backbone_name="swin_tiny")
+    gen = torch.Generator().manual_seed(0)
+    model = exp.get_model(gen, serve=True).to(DEVICE).eval()
+    _forward_whole_check("swin-t forward_whole", exp, model,
+                         HEAD_ONLY_FRAME["dwconv7x7"])
+    H, W = exp.test_size
+    x = torch.from_numpy((np.random.RandomState(5).rand(1, 3, H, W) * 255)
+                         .astype(np.float32)).to(DEVICE)
+    times = []
+    with torch.inference_mode():
+        for t in range(BACKBONE_WARMUP + BACKBONE_FORWARDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.forward_whole(x)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    times = times[BACKBONE_WARMUP:]
+    print(f"swin-t forward_whole {H}x{W} bf16: median "
+          f"{np.median(times):.2f} ms a frame (min {min(times):.2f}, "
+          f"{len(times)} calls)")
+    del model
+    torch.cuda.empty_cache()
+
+    model = exp.get_model(gen.manual_seed(0)).to(DEVICE).train()
+    trunk = model.backbone.backbone
+    H, W = exp.input_size
+    images, targets, task_ids = _train_batch(exp, 2, seed=57, n_obj=8)
+    task_ids[0] = 1
+    kw = _uni_loss_kwargs(exp)
+    runs, flags = {}, (torch.backends.cudnn.deterministic,
+                       torch.are_deterministic_algorithms_enabled(),
+                       torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for key, remat in (("False", False), ("spread", False),
+                               ("True", True)):
+                trunk.remat = remat
+                _reset_all_counts()
+                t0 = time.perf_counter()
+                loss, _, grads = _loss_and_grads(model, lambda: uni_loss_fn(
+                    model, images, targets, task_ids, **kw))
+                ms = (time.perf_counter() - t0) * 1e3
+                counts = _all_counts()
+                runs[key] = (loss, {k: g.cpu() for k, g in grads.items()})
+                print(f"swin-t uni step {H}x{W}, B={TRAIN_B} pairs, remat "
+                      f"{remat}: loss {loss:.6f}, {ms:.1f} ms (forward + "
+                      f"backward, deterministic algorithms), launches "
+                      f"{counts} (predicted {HEAD_ONLY_UNI})")
+                assert counts == HEAD_ONLY_UNI, counts
+                assert np.isfinite(loss)
+    finally:
+        torch.backends.cudnn.deterministic = flags[0]
+        torch.use_deterministic_algorithms(flags[1], warn_only=flags[2])
+        trunk.remat = False
+    without = sorted({str(w.message).split(" does not have")[0][:80]
+                      for w in caught})
+    print(f"  ops without a deterministic algorithm: {without or 'none'}")
+    _record_launches(report, "swin_uni", counts)
+    loss0, grads0 = runs["False"]
+    spread_loss = abs(runs["spread"][0] - loss0)
+    spread = max(_grad_shares(grads0, runs["spread"][1])[0].values())
+    shares, worst, median = _grad_shares(grads0, runs["True"][1])
+    print(f"  remat True against False: loss {runs['True'][0] - loss0:+.3e} "
+          f"(two-run spread {spread_loss:.3e}); worst gradient leaf "
+          f"{shares[worst]:.3e} of its max at {worst}, median {median:.3e} "
+          f"(two-run spread {spread:.3e}, the bound)")
+    assert abs(runs["True"][0] - loss0) <= spread_loss
+    assert shares[worst] <= spread
+    del model, runs
+    torch.cuda.empty_cache()
+
+
+def _backbones_every_exp():
+    """Every exp of unicorn_torch/exp/ (the 18 of exps/default/) through
+    get_exp, its model built on the card (a generator on the card, so that
+    the init runs there) and its parameters counted."""
+    import torch
+
+    from unicorn_torch.exp.base import EXP_DIR, get_exp
+
+    names = sorted(f[:-3] for f in os.listdir(EXP_DIR)
+                   if f.startswith("unicorn_") and f.endswith(".py"))
+    assert len(names) == 18, names
+    for name in names:
+        exp = get_exp(exp_name=name)
+        t0 = time.perf_counter()
+        with torch.device(DEVICE):
+            model = exp.get_model(torch.Generator(DEVICE).manual_seed(0))
+        model.to(DEVICE)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = sum(p.numel() for p in model.parameters())
+        on_card = {p.device.type for p in model.parameters()} | {
+            b.device.type for b in model.buffers()}
+        print(f"  {name}: {type(model).__name__} on {exp.backbone_name} "
+              f"(in_channels {exp.in_channels}, width {exp.width}), "
+              f"{n:,} parameters, built in {ms:.0f} ms")
+        assert on_card == {torch.device(DEVICE).type}, on_card
+        del model
+        torch.cuda.empty_cache()
+
+
+def phase_backbones(report):
+    """The ResNet-50 and Swin backbones, the real-time setting and every
+    exp, all from seed 0, served in bf16 at the exps' sizes:
+    (a) unicorn_track_r50 through get_exp: one MOT and one SOT frame
+    kernels vs plain, MOTDriver and SOTDriver (BACKBONE_WARMUP +
+    BACKBONE_FRAMES 1080x1920 frames each): frames/s, per-stage ms,
+    launches a frame (9 dw7x7: the head's only), peak memory;
+    (b) `_backbones_r50_training`; (c) `_backbones_swin`;
+    (d) unicorn_track_tiny_rt at 640x1024 as (a), 27 dw7x7 a frame;
+    (e) `_backbones_every_exp`."""
+    print(f"backbones ({report.get('card', '')})")
+    _serving_paths(report, "unicorn_track_r50", "r50", HEAD_ONLY_FRAME,
+                   HEAD_ONLY_SOT)
+    _backbones_r50_training(report)
+    _backbones_swin(report)
+    _serving_paths(report, "unicorn_track_tiny_rt", "tiny_rt", TINY_FRAME,
+                   SOT_LAUNCHES)
+    print("every exp, its model built on the card:")
+    _backbones_every_exp()
+
+
 # ------------------------------------------------------ opt-in: profile
 def _profile(label, step, frames, show=()):
     """torch.profiler over step(frame) for each frame: CUDA time by kernel
@@ -4928,12 +5392,13 @@ PHASES = {
     "trainer": phase_trainer,
     "disk": phase_disk,
     "det": phase_det,
+    "backbones": phase_backbones,
     "profile": phase_profile,
 }
 DEFAULT_PHASES = ("build", "kernels", "model", "main", "block_model",
                   "stream", "sot_model", "sot", "inst", "vos", "omni",
                   "train_model", "train", "inst_train", "mask_train",
-                  "trainer", "disk", "det")
+                  "trainer", "disk", "det", "backbones")
 
 
 def main(argv=None) -> int:

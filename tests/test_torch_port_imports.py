@@ -14,7 +14,8 @@ the QDTrack / SORT / DeepSORT / MOTDT trackers and utils.boxes among them,
 and the training loop's checkpoints, trainer, logger, meters and host data
 path (preproc, transforms, the omni datasets, the loaders), the image
 reader, the on-disk datasets and the RLE codec, the mosaic augmentation,
-the dataset converters and the det / large exps.
+the dataset converters, the ResNet-50 and Swin trunks, the exp loader and
+every exp copy.
 """
 import os
 import subprocess
@@ -58,7 +59,17 @@ for n in ("ops.deform_attn", "ops.correlation", "ops.correlation_kernel",
           "data.mosaic", "tools", "tools.convert_datasets",
           "exp.unicorn_det_convnext_tiny_800x1280",
           "exp.unicorn_det_convnext_large_800x1280",
-          "exp.unicorn_track_large"):
+          "exp.unicorn_track_large", "models.resnet", "models.swin",
+          "exp.base", "exp.unicorn_det_r50_800x1280",
+          "exp.unicorn_track_r50", "exp.unicorn_track_r50_mask",
+          "exp.unicorn_track_tiny_rt", "exp.unicorn_track_tiny_rt_mask",
+          "exp.unicorn_track_tiny_sot_only",
+          "exp.unicorn_track_tiny_mot_only",
+          "exp.unicorn_track_tiny_vos_only",
+          "exp.unicorn_track_tiny_mots_only",
+          "exp.unicorn_track_large_mask",
+          "exp.unicorn_track_large_mot_challenge",
+          "exp.unicorn_track_large_mot_challenge_mask"):
     assert "unicorn_torch." + n in names, n
 print(len(names))
 """

@@ -220,10 +220,11 @@ def test_from_flax_reports_only_the_mask_branch():
 
 
 def test_constructor_fields_not_ported_raise():
-    for kw in (dict(backbone_name="swin_tiny"),
-               dict(backbone_name="resnet50")):
-        with pytest.raises(NotImplementedError):
-            TUnicorn(**{**CFG, **kw})
+    # the Swin and ResNet-50 trunks are ported now: they build
+    for kw, trunk in ((dict(backbone_name="swin_tiny"), "SwinTransformer"),
+                      (dict(backbone_name="resnet50"), "ResNet50")):
+        m = TUnicorn(**{**CFG, **kw})
+        assert type(m.backbone.backbone).__name__ == trunk
     # backbone remat is ported: the trunk's blocks take the mode, the
     # head's attention blocks do not; any other mode is refused
     for remat in (True, "dw"):

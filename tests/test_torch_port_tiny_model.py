@@ -255,6 +255,8 @@ def test_constructor_modes():
                 ).__name__ == "FullAttentionInteraction"
     with pytest.raises(ValueError):
         TUnicorn(**CFG, interact_mode="dense")
-    for name in ("swin_tiny", "resnet50"):
-        with pytest.raises(NotImplementedError):
-            TUnicorn(**dict(CFG, backbone_name=name))
+    # the Swin and ResNet-50 trunks are ported now: they build
+    for name, trunk in (("swin_tiny", "SwinTransformer"),
+                        ("resnet50", "ResNet50")):
+        tm = TUnicorn(**dict(CFG, backbone_name=name))
+        assert type(tm.backbone.backbone).__name__ == trunk

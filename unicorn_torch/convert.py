@@ -19,6 +19,17 @@ names (YOLOX darknet.py `stem`, `dark2`...`dark5`; Conv_Inter `conv1`,
 attention keeps the query, key and value projections in one tensor
 (`in_proj_weight`, rows [q; k; v]) where flax keeps three leaves, so those
 leaves are joined and split outside the one-leaf rules.
+
+The ResNet-50 and Swin trunks have no rules in the tool either. Theirs here
+use torchvision's ResNet names (conv1, bn1, layer{s}.{i}.{conv,bn}{1-3},
+layer{s}.{i}.downsample.{0,1}; flax numbers BottleneckRes_k flat across the
+stages) and the public Swin release's (patch_embed.{proj,norm},
+layers.{i}.blocks.{j}.*, layers.{i}.downsample.{norm,reduction}, norm{i}).
+These names were not checked against a reference checkpoint, and a public
+Swin checkpoint's downsample.norm / reduction would need their 4C axis
+permuted: the JAX model merges the 2x2 neighbours in another order
+(unicorn_torch/models/swin.py). Swin's output norms share the name norm{i}
+with ConvNeXt's; `to_flax` tells the trunks apart by their other tensors.
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ _QKV_FLAX = re.compile(r"interaction/layer(\d+)/MultiHeadDotProductAttention_0"
                        r"/(query|key|value)/(kernel|bias)$")
 _QKV_TORCH = re.compile(r"transformer\.encoder\.layers\.(\d+)\.self_attn"
                         r"\.in_proj_(weight|bias)$")
+_SWIN_TORCH = re.compile(r"backbone\.backbone\.(patch_embed|layers)\.")
 
 
 def t_conv(w):
@@ -137,8 +149,51 @@ def convnext_block_params_to_flax(p) -> dict:
     return tree
 
 
-def build_rules():
-    """Returns list of (regex, dst_template, transform) rules."""
+RESNET50_LAYERS = (3, 4, 6, 3)
+SWIN_BLOCK = (("norm1.weight", "norm1/scale", None),
+              ("norm1.bias", "norm1/bias", None),
+              ("attn.qkv.weight", "attn/qkv/kernel", t_linear),
+              ("attn.qkv.bias", "attn/qkv/bias", None),
+              ("attn.proj.weight", "attn/proj/kernel", t_linear),
+              ("attn.proj.bias", "attn/proj/bias", None),
+              ("attn.relative_position_bias_table",
+               "attn/relative_position_bias_table", None),
+              ("norm2.weight", "norm2/scale", None),
+              ("norm2.bias", "norm2/bias", None),
+              ("mlp.fc1.weight", "fc1/kernel", t_linear),
+              ("mlp.fc1.bias", "fc1/bias", None),
+              ("mlp.fc2.weight", "fc2/kernel", t_linear),
+              ("mlp.fc2.bias", "fc2/bias", None))
+
+
+def map_resnet(dst, layers=RESNET50_LAYERS):
+    """torchvision ResNet names -> (flax path under dst, transform), for
+    stages of `layers` blocks (flax numbers the blocks flat)."""
+    def gn(path):
+        return {"weight": (f"{path}/GroupNorm_0/scale", None),
+                "bias": (f"{path}/GroupNorm_0/bias", None)}
+
+    out = {"conv1.weight": (f"{dst}/Conv_0/kernel", t_conv)}
+    out.update({f"bn1.{k}": v for k, v in gn(f"{dst}/GroupNorm32_0").items()})
+    k = 0
+    for s, n in enumerate(layers):
+        for i in range(n):
+            src, blk = f"layer{s + 1}.{i}", f"{dst}/BottleneckRes_{k}"
+            convs = [(f"conv{j + 1}", f"bn{j + 1}", j) for j in range(3)]
+            if i == 0:
+                convs.append(("downsample.0", "downsample.1", 3))
+            for conv, norm, j in convs:
+                out[f"{src}.{conv}.weight"] = (f"{blk}/Conv_{j}/kernel",
+                                               t_conv)
+                out.update({f"{src}.{norm}.{p}": v for p, v in
+                            gn(f"{blk}/GroupNorm32_{j}").items()})
+            k += 1
+    return out
+
+
+def build_rules(swin: bool = False):
+    """Returns list of (regex, dst_template, transform) rules. The trunk's
+    output norms (norm{i}) are Swin's with `swin`, else ConvNeXt's."""
     rules = []
 
     def add(pat, dst, tf=None):
@@ -168,8 +223,31 @@ def build_rules():
     ]:
         add(r"backbone\.backbone\.stages\.(\d+)\.(\d+)\." +
             src.replace(".", r"\."), dst, tf)
-    add(r"backbone\.backbone\.norm(\d+)\.weight", f"{bb}/out_norm\\1/scale")
-    add(r"backbone\.backbone\.norm(\d+)\.bias", f"{bb}/out_norm\\1/bias")
+    sw = "backbone/SwinTransformer_0"
+    out_norm = sw if swin else bb
+    add(r"backbone\.backbone\.norm(\d+)\.weight",
+        f"{out_norm}/out_norm\\1/scale")
+    add(r"backbone\.backbone\.norm(\d+)\.bias", f"{out_norm}/out_norm\\1/bias")
+
+    # --- Swin (the public release's names) ---
+    pe = r"backbone\.backbone\.patch_embed\."
+    add(pe + r"proj\.weight", f"{sw}/patch_embed/kernel", t_conv)
+    add(pe + r"proj\.bias", f"{sw}/patch_embed/bias")
+    add(pe + r"norm\.weight", f"{sw}/patch_norm/scale")
+    add(pe + r"norm\.bias", f"{sw}/patch_norm/bias")
+    for src, dst, tf in SWIN_BLOCK:
+        add(r"backbone\.backbone\.layers\.(\d+)\.blocks\.(\d+)\."
+            + src.replace(".", r"\."), f"{sw}/stage\\1_block\\2/{dst}", tf)
+    add(r"backbone\.backbone\.layers\.(\d+)\.downsample\.norm\.weight",
+        f"{sw}/merge_norm\\1/scale")
+    add(r"backbone\.backbone\.layers\.(\d+)\.downsample\.norm\.bias",
+        f"{sw}/merge_norm\\1/bias")
+    add(r"backbone\.backbone\.layers\.(\d+)\.downsample\.reduction\.weight",
+        f"{sw}/merge_reduce\\1/kernel", t_linear)
+
+    # --- ResNet-50 (torchvision's names) ---
+    for src, (dst, tf) in map_resnet("backbone/ResNet50_0").items():
+        add(r"backbone\.backbone\." + src.replace(".", r"\."), dst, tf)
 
     # --- CSPDarknet backbone (flax names its stages' modules in order) ---
     cd, tb = "backbone/CSPDarknet_0", r"backbone\.backbone\."
@@ -300,10 +378,10 @@ def build_rules():
     return rules
 
 
-def _inverse_rules():
+def _inverse_rules(swin: bool = False):
     """(flax path regex, torch name template, inverse transform) per rule."""
     inv = []
-    for pat, dst, tf in build_rules():
+    for pat, dst, tf in build_rules(swin):
         flax_re = re.compile(re.escape(dst).replace(r"\\1", r"(\d+)")
                              .replace(r"\\2", r"(\d+)") + "$")
         groups = iter(range(1, 10))
@@ -327,7 +405,7 @@ def from_flax(params):
     names raises."""
     if set(params) == {"params"}:
         params = params["params"]
-    rules = _inverse_rules()
+    rules = _inverse_rules("SwinTransformer_0" in params.get("backbone", {}))
     state, qkv = {}, {}
     for path, leaf in _flatten(params):
         w = np.asarray(leaf, np.float32)
@@ -359,8 +437,9 @@ def to_flax(named_tensors):
     names (parameters, or their gradients) -> a nested dict of fp32 numpy
     arrays under the flax paths and in the flax layouts, so that a gradient
     can be compared with the JAX package's leaf by leaf. A name that no rule
-    matches raises."""
-    rules = build_rules()
+    matches raises. The trunk's output norms go to Swin's leaves when a
+    Swin tensor (patch_embed.*, layers.*) is among the names."""
+    rules = build_rules(any(_SWIN_TORCH.match(n) for n in named_tensors))
     tree = {}
 
     def put(path, w):

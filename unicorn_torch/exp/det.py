@@ -18,6 +18,7 @@ from ..data.loader import DetLoader
 from ..data.mosaic import MosaicDetection
 from ..data.transforms import TrainTransform
 from ..models.unicorn import YOLOXDet
+from .base import BaseExp
 
 NOT_PORTED_EVAL = ("the evaluators are not ported yet (ROADMAP Queue 1 "
                    "item 7)")
@@ -31,8 +32,9 @@ def get_unicorn_datadir() -> str:
         os.environ.get("YOLOX_DATADIR", os.path.join(os.getcwd(), "datasets")))
 
 
-class ExpDet:
+class ExpDet(BaseExp):
     def __init__(self):
+        super().__init__()
         self.task = "det"
         self.exp_name = "unicorn_det"
         # ---------------- model config ---------------- #

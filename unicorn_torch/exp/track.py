@@ -25,11 +25,13 @@ from ..data.datasets.sot import COCOSOT, Got10k, Lasot, TrackingNet
 from ..data.loader import UniLoader
 from ..data.transforms import TrainTransformOmni
 from ..models.unicorn import Unicorn
+from .base import BaseExp
 from .det import NOT_PORTED_EVAL, get_unicorn_datadir
 
 
-class ExpTrack:
+class ExpTrack(BaseExp):
     def __init__(self):
+        super().__init__()
         self.task = "uni"
         self.exp_name = "unicorn_track"
         # ---------------- model config ---------------- #

@@ -1,0 +1,13 @@
+"""Unified SOT-MOT, ResNet-50 @ 800x1280 (the port's copy of
+exps/default/unicorn_track_r50.py)."""
+from .track import ExpTrack
+
+
+class Exp(ExpTrack):
+    def __init__(self):
+        super().__init__()
+        self.exp_name = "unicorn_track_r50"
+        self.backbone_name = "resnet50"
+        self.in_channels = [512, 1024, 2048]
+        self.width = 0.5
+        self.pretrain_name = "unicorn_det_r50_800x1280"

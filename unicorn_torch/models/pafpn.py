@@ -1,6 +1,7 @@
-"""YOLO PAFPN neck over a ConvNeXt or CSPDarknet backbone, PyTorch (port of
-unicorn_tpu/models/pafpn.py). forward returns (pan_out2, pan_out1, pan_out0)
-at strides (8, 16, 32), and optionally the raw backbone features."""
+"""YOLO PAFPN neck over a ConvNeXt, Swin, ResNet-50 or CSPDarknet backbone,
+PyTorch (port of unicorn_tpu/models/pafpn.py). forward returns (pan_out2,
+pan_out1, pan_out0) at strides (8, 16, 32), and optionally the raw backbone
+features."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -12,13 +13,16 @@ from .blocks import BaseConv, CSPLayer, DWConv, upsample_nearest_2x
 from .convnext import (CONVNEXT_OUT_CHANNELS, convnext_base, convnext_large,
                        convnext_tiny)
 from .csp_darknet import CSPDarknet
+from .resnet import RESNET_OUT_CHANNELS, ResNet50
+from .swin import SWIN_BUILDERS, SWIN_OUT_CHANNELS
 
 
 def build_backbone(name: str, depth: float = 1.0, width: float = 1.0,
                    dtype=torch.float32, exact_gelu: bool = True, remat=False):
-    """(module, raw stride-8/16/32 channel counts): ConvNeXt (its blocks
-    rematerialised under `remat`) or CSPDarknet (at the model's depth and
-    width; remat does not apply, as in the JAX package)."""
+    """(module, raw stride-8/16/32 channel counts): ConvNeXt or Swin (their
+    blocks rematerialised under `remat`; any swin* name the table lacks is
+    Swin-Tiny), ResNet-50 or CSPDarknet (at the model's depth and width);
+    remat does not apply to the last two, as in the JAX package."""
     if name.startswith("convnext"):
         fn = {
             "convnext": convnext_tiny,
@@ -31,8 +35,12 @@ def build_backbone(name: str, depth: float = 1.0, width: float = 1.0,
     if name == "csp_darknet":
         ch = (int(256 * width), int(512 * width), int(1024 * width))
         return CSPDarknet(dep_mul=depth, wid_mul=width, dtype=dtype), ch
-    if name.startswith("swin") or name == "resnet50":
-        raise NotImplementedError(f"backbone {name!r} is not yet ported")
+    if name.startswith("swin"):
+        key = name if name in SWIN_BUILDERS else "swin_tiny"
+        return (SWIN_BUILDERS[key](dtype=dtype, remat=remat),
+                SWIN_OUT_CHANNELS[key])
+    if name == "resnet50":
+        return ResNet50(dtype=dtype), RESNET_OUT_CHANNELS[name]
     raise ValueError(f"unsupported backbone: {name}")
 
 

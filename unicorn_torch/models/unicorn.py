@@ -10,8 +10,9 @@ use_mask, the CondInst mask branch (`forward_mask_branch`, with the RAFT
 up-mask under use_raft). YOLOXDet: PAFPN + detection head without the SOT
 branch or priors, and with use_mask the controllers and the mask branch.
 `remat` (False, True or "dw") rematerialises the ConvNeXt trunk's blocks
-in training (models/blocks.py ConvNeXtBlock); the head's attention blocks
-are not rematerialised, as in the JAX package.
+in training (models/blocks.py ConvNeXtBlock), and Swin's blocks whole under
+any truthy value; ResNet-50 and CSPDarknet ignore it, and the head's
+attention blocks are not rematerialised, as in the JAX package.
 """
 from __future__ import annotations
 
