@@ -6,8 +6,10 @@
 Phases (each must pass, else the exit code is 1):
   build      the card's name and power limit; every CUDA source of csrc/
              built with nvcc (dwconv7x7, convnext_block, msda, correlation,
-             correlation_train) and the host image codec (imcodec.cpp)
-             with the system C++ compiler, in parallel
+             correlation_train) and the host libraries (the image codec
+             imcodec.cpp, the evaluators' RLE codec rle.cpp and COCOeval
+             matcher cocoeval.cpp) with the system C++ compiler, in
+             parallel
   kernels    each kernel against its plain PyTorch version at the main
              paths' shapes and at ragged ones (the training correlation at
              K = 1 and at the VOS + MOTS step's K = 3, both timed; the
@@ -116,7 +118,7 @@ Phases (each must pass, else the exit code is 1):
              in-memory omni dataset of seeded 1080x1920 uint8 frames (SOT
              sequences of one box, MOT of 8-12 with ids): 2 epochs of 12
              iterations (a multiscale draw at iteration 10 of each, the L1
-             switch at epoch 1, eval tried and skipped), ms / iteration,
+             switch at epoch 1, no eval: phase eval runs it), ms / iteration,
              pairs/s, data against step ms an iteration, peak memory,
              launches (36 / 1 / 2 / 2 / 2 a step), metrics.jsonl's keys,
              the sizes of the batches run; at each multiscale size run
@@ -183,6 +185,22 @@ Phases (each must pass, else the exit code is 1):
              within the two-run spread); unicorn_track_tiny_rt at 640x1024
              as unicorn_track_r50 (27 dw7x7 a frame); every one of the 18
              exps' models built on the card, its parameters counted
+  eval       the evaluators, on val sets written under
+             chiprun_out/eval_data (8 copies of the 1080x1920 fixture
+             frames with seeded boxes and masks; BDD100K seg_track, 2
+             videos of 4 720x1280 frames): (a) the native rle / cocoeval
+             codecs against their plain forms, bit for bit; (b)
+             unicorn_track_tiny's get_trainer_evaluator (COCO box AP over
+             the MOT val set) at 800x1280: a ground-truth forward scores
+             AP 1.0, the served bf16 model (biases raised) 27 dw7x7
+             launches an image, its decoded outputs kernel vs plain, images/s
+             and ms an image of load, forward, NMS and mAP; (c) the inst
+             exp's get_evaluator (box and mask AP): AP 1.0 from the ground
+             truth, the model's ms and launches; (d) BDDEvaluator
+             evaluate_mot and evaluate_seg_mot with MOTOmniDriver on the
+             served unicorn_track_tiny_mask (27 dw7x7, 1 MSDA a frame), the
+             bitmask PNGs read back; (e) Trainer.train of 2 iterations with
+             eval_interval 1: an eval record and `best`
 `--only profile` adds a torch.profiler breakdown of the paths.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the rest of the
@@ -300,12 +318,13 @@ def phase_card_and_build(report):
           f"{bf16 / 1e12:.0f} TFLOP/s bf16 | "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
+    host = ("imcodec", "rle", "cocoeval")
     logs = build.build(["dwconv7x7", "convnext_block", "msda", "correlation",
-                        "correlation_train", "imcodec"])
+                        "correlation_train", *host])
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for n, log in logs.items():
         for line in log.strip().splitlines():
-            print(f"  {'c++' if n == 'imcodec' else 'nvcc'} {n}: {line}")
+            print(f"  {'c++' if n in host else 'nvcc'} {n}: {line}")
     report["card"] = card
     report["peaks"] = (bw, fp32, bf16)
 
@@ -3992,7 +4011,7 @@ def phase_trainer(report):
         # -- two epochs at full width
         exp = _trainer_exp(track.Exp, out, TRAINER_SAMPLES, TRAINER_EPOCHS,
                            _uni_datasets(40), no_aug_epochs=1,
-                           multiscale_range=2, eval_interval=1)
+                           multiscale_range=2)
         tr = Trainer(exp, {"batch_size": TRAIN_B}, device=DEVICE)
         sizes = _record_sizes(tr)
         counts, iters, _ = _trainer_run(tr, "trainer, 2 epochs",
@@ -4028,7 +4047,8 @@ def phase_trainer(report):
         del seeded
         for name in ("latest", "last_mosaic_epoch"):
             assert os.path.isfile(os.path.join(tr.output_dir, name)), name
-        # no evaluator is ported: eval was tried each epoch and skipped
+        # eval_interval (10) lies beyond the run: no eval, no `best`
+        # (phase eval runs the in-training eval)
         assert not os.path.exists(os.path.join(tr.output_dir, "best"))
         # save times: blocking, and the return of an asynchronous save
         t0 = time.perf_counter()
@@ -5209,6 +5229,560 @@ def phase_backbones(report):
     _backbones_every_exp()
 
 
+# ------------------------------------------------------------ phase eval
+EVAL_ROOT = os.path.join(ROOT, "chiprun_out", "eval_data")
+EVAL_IMAGES = 8           # 1080x1920 images of the COCO-format val sets
+EVAL_BDD_VIDEOS = 2       # BDD100K seg_track videos ...
+EVAL_BDD_FRAMES = 4       # ... of this many 720x1280 frames
+EVAL_BDD_HW = (720, 1280)
+EVAL_TRAIN_SAMPLES = 4    # pairs of the trainer run: 2 iterations at B = 2
+EVAL_EXP_FIELDS = {}      # fields set on every exp of the phase
+# launches an image (COCO box and inst eval) and a BDD frame
+EVAL_LAUNCHES = dict(dwconv7x7=27, msda_factored=0, msda_direct=0,
+                     correlation=0)
+EVAL_OMNI_LAUNCHES = dict(EVAL_LAUNCHES, msda_factored=1)
+
+
+def _eval_boxes(rng, h, w):
+    """2-4 boxes an image, one to a quadrant (no two overlap, so that the
+    NMS keeps every ground-truth box), 300-534 px on a 6-px grid: the
+    1080x1920 -> 800x1280 letterbox maps them onto the stride-4 mask grid
+    exactly, and a mask decoded from that grid overlaps its box at IoU >=
+    0.95 (the ground-truth forwards score AP 1.0)."""
+    boxes = []
+    for q in rng.permutation(4)[:rng.randint(2, 5)]:
+        qy, qx = (q // 2) * h // 2, (q % 2) * w // 2
+        bh, bw = 6 * rng.randint(50, 90, 2)
+        y = qy + 6 * rng.randint(0, (h // 2 - bh) // 6)
+        x = qx + 6 * rng.randint(0, (w // 2 - bw) // 6)
+        boxes.append((int(x), int(y), int(bw), int(bh)))
+    return boxes
+
+
+def _write_eval_sets(root):
+    """The COCO-format MOT val set (mot/annotations/test.json, mot/test/)
+    and the COCO val set (coco/annotations/instances_val2017.json with RLE
+    masks, coco/val2017/) on EVAL_IMAGES copies of the fixture frames with
+    seeded boxes (`_eval_boxes`), and the BDD100K seg_track layout (PNG
+    frames of the fixture resized to 720x1280 and panning, labels with
+    box2d and RLE) under root. Returns {image id: boxes}."""
+    import shutil
+
+    import numpy as np
+
+    from unicorn_torch.data.image_io import imread, write_png
+    from unicorn_torch.data.preproc import resize_linear
+    from unicorn_torch.evaluators import rle
+
+    H, W = 1080, 1920
+    rng = np.random.RandomState(21)
+    images, anns, gt = [], [], {}
+    for i in range(EVAL_IMAGES):
+        name = f"{i + 1:06d}.jpg"
+        for sub in (("mot", "test"), ("coco", "val2017")):
+            os.makedirs(os.path.join(root, *sub), exist_ok=True)
+            shutil.copyfile(os.path.join(FIXTURES, DISK_FRAMES[i % 2]),
+                            os.path.join(root, *sub, name))
+        images.append({"id": i + 1, "file_name": name, "height": H,
+                       "width": W, "frame_id": i + 1, "video_id": 1})
+        gt[i + 1] = _eval_boxes(rng, H, W)
+        for x, y, w, h in gt[i + 1]:
+            m = np.zeros((H, W), np.uint8)
+            m[y:y + h, x:x + w] = 1
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": 1, "bbox": [x, y, w, h],
+                         "area": w * h, "iscrowd": 0, "track_id": len(anns),
+                         "segmentation": rle.encode(m)})
+    cats = [{"id": 1, "name": "pedestrian"}]
+    for sub, ann in (("mot", "test.json"),
+                     ("coco", "instances_val2017.json")):
+        os.makedirs(os.path.join(root, sub, "annotations"), exist_ok=True)
+        with open(os.path.join(root, sub, "annotations", ann), "w") as f:
+            json.dump({"images": images, "annotations": anns,
+                       "categories": cats}, f)
+    # BDD100K seg_track: panning frames, three moving objects
+    bh, bw = EVAL_BDD_HW
+    big = resize_linear(imread(os.path.join(FIXTURES, DISK_FRAMES[0])),
+                        (bw + 8 * EVAL_BDD_FRAMES, bh))
+    frames = []
+    for v in range(EVAL_BDD_VIDEOS):
+        video = f"bdd{v}"
+        os.makedirs(os.path.join(root, "bdd", "images", "track", "val",
+                                 video), exist_ok=True)
+        for t in range(EVAL_BDD_FRAMES):
+            name = f"{video}-{t:07d}.png"
+            img = big[:, 8 * t:8 * t + bw, ::-1]   # written RGB, read BGR
+            write_png(os.path.join(root, "bdd", "images", "track", "val",
+                                   video, name), np.ascontiguousarray(img))
+            labels = []
+            for k, cat in enumerate(("car", "pedestrian", "car")):
+                x, y = 100 + 350 * k + 6 * t + 40 * v, 200 + 60 * k
+                m = np.zeros((bh, bw), np.uint8)
+                m[y:y + 180, x:x + 240] = 1
+                labels.append({"id": 10 * v + k + 1, "category": cat,
+                               "box2d": {"x1": float(x), "y1": float(y),
+                                         "x2": float(x + 240),
+                                         "y2": float(y + 180)},
+                               "rle": rle.encode(m)})
+            frames.append({"name": name, "videoName": video,
+                           "frameIndex": t, "labels": labels})
+    lbl = os.path.join(root, "bdd", "labels", "seg_track_20", "rles")
+    os.makedirs(lbl, exist_ok=True)
+    with open(os.path.join(lbl, "val.json"), "w") as f:
+        json.dump(frames, f)
+    return gt
+
+
+def _eval_exp(name, **fields):
+    """The port's exp `name` with EVAL_EXP_FIELDS and `fields` set."""
+    return _backbone_exp(name, **{**EVAL_EXP_FIELDS, **fields})
+
+
+def _eval_native(report):
+    """(a) The native codecs against their plain forms, bit for bit, on
+    seeded 720x1280 masks (encode, string, decode, merge, IoU) and IoU
+    matrices (COCOeval's matcher); the encode and IoU ms each way."""
+    import numpy as np
+
+    from unicorn_torch.csrc import native
+    from unicorn_torch.evaluators import coco_map, rle
+
+    rng = np.random.RandomState(3)
+    H, W = 720, 1280
+    masks = []
+    for _ in range(6):
+        m = np.zeros((H, W), np.uint8)
+        for _ in range(rng.randint(1, 4)):
+            y, x = rng.randint(0, H), rng.randint(0, W)
+            m[y:y + rng.randint(1, H), x:x + rng.randint(1, W)] = 1
+        m ^= (rng.rand(H, W) < 0.01).astype(np.uint8)
+        masks.append(m)
+    t_n = t_p = 0.0
+    enc = []
+    for m in masks:
+        t0 = time.perf_counter()
+        c = rle.encode(m)
+        t1 = time.perf_counter()
+        p = rle.compress_plain(rle.encode_counts_plain(m))
+        t_n += t1 - t0
+        t_p += time.perf_counter() - t1
+        assert c == p
+        assert rle.decompress(c) == rle.decompress_plain(c)
+        assert np.array_equal(rle.decode(c), m)
+        assert np.array_equal(rle.decode_plain(c), m)
+        assert rle.area(c) == rle.area_plain(c) == int(m.sum())
+        enc.append(c)
+    for inter in (False, True):
+        assert rle.merge(enc[:3], inter) == rle.merge_plain(enc[:3], inter)
+    t0 = time.perf_counter()
+    iou = rle.iou_rle(enc[:3], enc[3:], [0, 1, 0])
+    t1 = time.perf_counter()
+    iou_p = rle.iou_rle_plain(enc[:3], enc[3:], [0, 1, 0])
+    t2 = time.perf_counter()
+    assert np.array_equal(iou.view(np.int64), iou_p.view(np.int64))
+    n_cases = 0
+    for _ in range(40):
+        D, G = rng.randint(1, 60), rng.randint(1, 30)
+        ious = rng.rand(D, G)
+        gt_ig = np.sort(rng.rand(G) < 0.3)
+        crowd = gt_ig & (rng.rand(G) < 0.5)
+        a = native.evaluate_img(ious, gt_ig, crowd, coco_map.IOU_THRS)
+        b = coco_map.match_plain(ious, gt_ig, crowd, coco_map.IOU_THRS)
+        assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+        n_cases += 1
+    print(f"  (a) native rle / cocoeval equal to the plain forms on "
+          f"{len(masks)} masks of {H}x{W} and {n_cases} matcher cases; "
+          f"encode {t_n / len(masks) * 1e3:.2f} ms a mask native vs "
+          f"{t_p / len(masks) * 1e3:.2f} plain; IoU 3x3 "
+          f"{(t1 - t0) * 1e3:.2f} ms native vs {(t2 - t1) * 1e3:.2f} plain "
+          f"(host, {report.get('card', '')})")
+
+
+def _gt_decoded(ev, gt, num_classes):
+    """A forward_fn for COCOEvaluator `ev` that decodes to the ground truth
+    of each image of the batch (cxcywh in letterbox coordinates, obj 1,
+    class 0 at 1), the other anchors zero."""
+    import torch
+
+    H, W = ev.img_size
+    A = sum((H // s) * (W // s) for s in (8, 16, 32))
+    order = [ev.dataset.ids[i] for i in range(len(ev.dataset))]
+
+    def forward(images):
+        B = images.shape[0]
+        out = torch.zeros(B, A, 5 + num_classes, device=images.device)
+        for b in range(B):
+            img_id = order[forward.n + b]
+            im = ev.dataset.coco.imgs[img_id]
+            r = min(H / im["height"], W / im["width"])
+            for k, (x, y, w, h) in enumerate(gt[img_id]):
+                out[b, k] = torch.tensor([(x + w / 2) * r, (y + h / 2) * r,
+                                          w * r, h * r, 1.0, 1.0]
+                                         + [0.0] * (num_classes - 1))
+        forward.n += B
+        return out
+    forward.n = 0
+    return forward
+
+
+def _eval_coco(report, gt):
+    """(b) ExpTrack.get_trainer_evaluator of unicorn_track_tiny (COCO box
+    AP over the MOT val set) at 800x1280: the ground-truth forward scores
+    AP 1.0; the served bf16 model (seed 0, biases raised) through the
+    dw7x7 kernel: finite metrics, 27 launches an image, its decoded
+    outputs against the plain version's (phase model's bound, 0.05 on the
+    scores); images/s and ms an image of load, forward, NMS and mAP."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from unicorn_torch.device import images_to_device
+    from unicorn_torch.evaluators.coco_evaluator import decode_forward
+    from unicorn_torch.models import blocks
+    from unicorn_torch.ops import dwconv7x7 as dw
+
+    exp = _eval_exp("unicorn_track_tiny")
+    ev = exp.get_trainer_evaluator(device=DEVICE)
+    m_gt = ev.evaluate(_gt_decoded(ev, gt, exp.num_classes))
+    print(f"  (b) ground-truth forward: AP {m_gt['AP']}, AP50 "
+          f"{m_gt['AP50']}, AR {m_gt['AR']}, {m_gt['n_images']} images")
+    assert m_gt["AP"] == 1.0 and m_gt["n_images"] == EVAL_IMAGES, m_gt
+
+    model = exp.get_model(torch.Generator().manual_seed(0), serve=True)
+    _raise_priors(model)
+    model = model.to(DEVICE).eval()
+    forward = decode_forward(model)
+    decs = {"kernel": [], "plain": []}
+
+    def recording(key):
+        def f(images):
+            d = forward(images)
+            decs[key].append(d.float().clone())
+            return d
+        return f
+
+    ev.evaluate(forward, max_images=1)          # warm-up
+    torch.cuda.synchronize()
+    _reset_kernel_counts()
+    t0 = time.perf_counter()
+    metrics = ev.evaluate(recording("kernel"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _kernel_counts()
+    n0 = dw.launches
+    with mock.patch.object(blocks, "dwconv7x7", dw.dwconv7x7_plain):
+        m_plain = ev.evaluate(recording("plain"))
+    assert dw.launches == n0, "the plain run launched the kernel"
+    d_score = max((a[..., 4:] - b[..., 4:]).abs().max().item()
+                  for a, b in zip(decs["kernel"], decs["plain"]))
+    d_box = max(((a[..., :4] - b[..., :4]).abs()
+                 / b[..., :4].abs().clamp_min(1.0)).max().item()
+                for a, b in zip(decs["kernel"], decs["plain"]))
+    # the stages apart, synchronised
+    stages = {"load": [], "forward": [], "nms": []}
+    results = []
+    with torch.inference_mode():
+        for i in range(EVAL_IMAGES):
+            t = [time.perf_counter()]
+            imgs, infos, ids = ev.load([i])
+            x = images_to_device(imgs, ev.device)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            dec = forward(x)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            results += ev.to_coco(ev.nms(dec), infos, ids)
+            t.append(time.perf_counter())
+            for k, name in enumerate(stages):
+                stages[name].append((t[k + 1] - t[k]) * 1e3)
+    t0 = time.perf_counter()
+    m_stage = ev.score(results, EVAL_IMAGES)
+    t_map = (time.perf_counter() - t0) * 1e3
+    keys = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR")
+    print(f"  (b) model ({report.get('card', '')}): {EVAL_IMAGES} images "
+          f"1080x1920 -> {ev.img_size}, {EVAL_IMAGES / wall:.2f} images/s "
+          f"({wall / EVAL_IMAGES * 1e3:.1f} ms an image, evaluate() "
+          f"whole); per image (median, synchronised): "
+          + ", ".join(f"{k} {np.median(v):.2f} ms" for k, v in stages.items())
+          + f", mAP {t_map / EVAL_IMAGES:.2f} ms ({t_map:.1f} ms for the "
+          f"set); {len(results)} results; launches {counts}")
+    print(f"  (b) kernel vs plain: max |d score| {d_score:.3e} (tol 0.05), "
+          f"max rel |d box| {d_box:.3e}; AP {metrics['AP']:.4f} vs "
+          f"{m_plain['AP']:.4f}; metrics {({k: metrics[k] for k in keys})}")
+    assert all(np.isfinite(metrics[k]) for k in keys)
+    assert metrics["n_images"] == EVAL_IMAGES
+    assert {k: m_stage[k] for k in keys} == {k: metrics[k] for k in keys}
+    assert counts == {k: v * EVAL_IMAGES for k, v in EVAL_LAUNCHES.items()}, \
+        counts
+    assert d_score <= 0.05, d_score
+    _record_launches(report, "eval_coco", counts)
+    del model
+    torch.cuda.empty_cache()
+
+
+def _eval_inst(report, gt):
+    """(c) ExpDetMask.get_evaluator of unicorn_inst_convnext_tiny_800x1280
+    (box and mask AP) over the COCO val set of the same images with
+    masks: the ground-truth forward scores box and mask AP 1.0; the bf16
+    inst model (seed 0, biases raised) through get_inst_forward: finite
+    metrics, 27 dw7x7 launches an image, ms an image."""
+    import numpy as np
+    import torch
+
+    exp = _eval_exp("unicorn_inst_convnext_tiny_800x1280")
+    ev = exp.get_evaluator(device=DEVICE)
+    H, W = ev.img_size
+    Hm, Wm = H // exp.d_rate, W // exp.d_rate
+    order = [ev.dataset.ids[i] for i in range(len(ev.dataset))]
+    n = {"i": 0}
+
+    def gt_forward(images):
+        img_id = order[n["i"]]
+        n["i"] += 1
+        im = ev.dataset.coco.imgs[img_id]
+        r = min(H / im["height"], W / im["width"])
+        boxes = gt[img_id]
+        dets = torch.zeros(8, 7, device=images.device)
+        masks = torch.zeros(8, Hm, Wm, device=images.device)
+        for k, (x, y, w, h) in enumerate(boxes):
+            dets[k] = torch.tensor([x * r, y * r, (x + w) * r, (y + h) * r,
+                                    1.0, 1.0, 0.0])
+            g = r / exp.d_rate            # image px -> mask grid
+            masks[k, round(y * g):round((y + h) * g),
+                  round(x * g):round((x + w) * g)] = 1.0
+        valid = torch.arange(8, device=images.device) < len(boxes)
+        return dets, valid, masks
+
+    m_gt = ev.evaluate(gt_forward)
+    print(f"  (c) ground-truth forward: box AP {m_gt['box_AP']}, mask AP "
+          f"{m_gt['mask_AP']}, {m_gt['n_images']} images")
+    assert m_gt["box_AP"] == 1.0 and m_gt["mask_AP"] == 1.0, m_gt
+
+    model = exp.get_model(torch.Generator().manual_seed(0))
+    _raise_priors(model)
+    forward = exp.get_inst_forward(model, device=DEVICE)
+    ev.evaluate(forward, max_images=1)          # warm-up
+    torch.cuda.synchronize()
+    _reset_kernel_counts()
+    t0 = time.perf_counter()
+    metrics = ev.evaluate(forward)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _kernel_counts()
+    keys = [k for k in metrics if k.startswith(("box_", "mask_"))]
+    print(f"  (c) model ({report.get('card', '')}): {EVAL_IMAGES} images, "
+          f"{EVAL_IMAGES / wall:.2f} images/s ({wall / EVAL_IMAGES * 1e3:.1f}"
+          f" ms an image: forward, decode + NMS, masks, the host resize and "
+          f"RLE of every kept mask); launches {counts}; box AP "
+          f"{metrics['box_AP']:.4f}, mask AP {metrics['mask_AP']:.4f}")
+    assert all(np.isfinite(metrics[k]) for k in keys)
+    assert metrics["n_images"] == EVAL_IMAGES
+    assert counts == {k: v * EVAL_IMAGES for k, v in EVAL_LAUNCHES.items()}, \
+        counts
+    _record_launches(report, "eval_inst", counts)
+    del model, forward
+    torch.cuda.empty_cache()
+
+
+def _bitmask(labels, shape):
+    """The seg_track bitmask write_bdd_bitmask paints from scalabel labels
+    (ascending score, R = class + 1, B / A = the id's bytes)."""
+    import numpy as np
+
+    from unicorn_torch.evaluators import bdd_evaluator as bdd
+    from unicorn_torch.evaluators import rle
+
+    bm = np.zeros(shape + (4,), np.uint8)
+    order = np.argsort([lab["score"] for lab in labels], kind="stable")
+    for k in order:
+        lab = labels[k]
+        tid = int(lab["id"])
+        bm[rle.decode(lab["rle"]).astype(bool)] = (
+            bdd.BDD_CLASSES.index(lab["category"]) + 1, 0, (tid >> 8) & 255,
+            tid & 255)
+    return bm
+
+
+def _eval_bdd(report, out_dir):
+    """(d) BDDEvaluator.evaluate_mot and evaluate_seg_mot on the
+    BDD100K layout (EVAL_BDD_VIDEOS x EVAL_BDD_FRAMES frames of
+    720x1280) with MOTOmniDriver as `_omni_driver` builds it on the served
+    unicorn_track_tiny_mask model (without and with masks): launches a
+    frame (27 dw7x7, 1 MSDA, as phase omni), every bitmask PNG read back
+    by the port's reader equal to the labels it was painted from, the
+    scalabel scores finite; ms a frame."""
+    import numpy as np
+    import torch
+
+    from unicorn_torch.data.datasets.bdd import BDDEvalDataset
+    from unicorn_torch.data.image_io import read_png
+    from unicorn_torch.drivers.mot import MOTOmniDriver
+    from unicorn_torch.evaluators.bdd_evaluator import (
+        BDDEvaluator, score_scalabel, score_scalabel_seg)
+
+    root = os.path.join(EVAL_ROOT, "bdd")
+    ds = BDDEvalDataset(root, split="val", label_path=os.path.join(
+        root, "labels", "seg_track_20", "rles", "val.json"))
+    n = len(ds)
+    assert n == EVAL_BDD_VIDEOS * EVAL_BDD_FRAMES
+    # the served mask model, as `_vos_model` builds it
+    exp, model = _served_model(
+        report, "vos_model", lambda: _eval_exp("unicorn_track_tiny_mask"))
+    for with_mask in (False, True):
+        drv = MOTOmniDriver(model, exp.test_size, num_classes=exp.num_classes,
+                            conf_thre=exp.test_conf, nms_thre=exp.nmsthre,
+                            max_out=128, with_mask=with_mask, tracker="qd",
+                            device=DEVICE)
+        ev = BDDEvaluator(ds, exp.test_size, device=DEVICE)
+        run = ev.evaluate_seg_mot if with_mask else ev.evaluate_mot
+        run(drv, max_frames=1)                  # warm-up
+        torch.cuda.synchronize()
+        _reset_kernel_counts()
+        t0 = time.perf_counter()
+        results, frames = run(drv, out_dir=out_dir)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _kernel_counts()
+        if with_mask:
+            scores = score_scalabel_seg(frames, ds.gt_frames())
+            n_png = 0
+            for f in frames:
+                path = os.path.join(out_dir, "seg_track", f["videoName"],
+                                    os.path.splitext(f["name"])[0] + ".png")
+                got = read_png(path)
+                want = (_bitmask(f["labels"], EVAL_BDD_HW) if f["labels"]
+                        else np.zeros((1, 1, 4), np.uint8))
+                assert np.array_equal(got, want), path
+                n_png += 1
+            assert n_png == n
+            keys = ("mMOTSA", "msMOTSA", "mIDF1")
+        else:
+            scores = score_scalabel(frames, ds.gt_frames())
+            keys = ("mMOTA", "mIDF1")
+        n_tracks = sum(len(fr["labels"]) for fr in frames)
+        print(f"  (d) {'evaluate_seg_mot' if with_mask else 'evaluate_mot'} "
+              f"({report.get('card', '')}): {n} frames {EVAL_BDD_HW} -> "
+              f"{exp.test_size}, {wall / n * 1e3:.1f} ms a frame (with the "
+              f"host's json{' and PNG' if with_mask else ''} writes); "
+              f"{n_tracks} tracked labels; launches {counts} "
+              f"({counts['dwconv7x7'] / n:.0f} dw7x7, "
+              f"{counts['msda_factored'] / n:.0f} MSDA a frame; phase omni: "
+              f"27 / 1); {({k: scores[k] for k in keys})}"
+              + (f"; {n} bitmask PNGs read back equal" if with_mask else ""))
+        assert all(np.isfinite(scores[k]) for k in keys)
+        assert counts == {k: v * n for k, v in EVAL_OMNI_LAUNCHES.items()}, \
+            counts
+        _record_launches(report, "eval_bdd_seg" if with_mask else "eval_bdd",
+                         counts)
+
+
+def _eval_trainer(report, out_dir):
+    """(e) Trainer.train on unicorn_track_tiny, one epoch of 2 iterations
+    (B = 2 pairs of 800x1280 from the in-memory omni sets) with
+    eval_interval 1, the model's obj and class-0 biases raised: the
+    in-training eval runs get_trainer_evaluator over the MOT val images,
+    whose ground truth here is the seeded model's own detections (score
+    above 0.3), so that the EMA model after 2 small steps scores AP > 0;
+    it must write an eval record to metrics.jsonl and `best`."""
+    import numpy as np
+    import torch
+
+    from unicorn_torch.core.trainer import Trainer
+    from unicorn_torch.device import images_to_device
+    from unicorn_torch.evaluators.coco_evaluator import decode_forward
+    from unicorn_torch.exp import unicorn_track_tiny as track
+
+    class Raised(track.Exp):
+        def get_model(self, generator=None, serve=False,
+                      msda_method="auto"):
+            model = super().get_model(generator, serve, msda_method)
+            with torch.no_grad():
+                for name, p in model.head.named_parameters():
+                    if name.endswith(".bias"):
+                        if name.startswith("obj_preds."):
+                            p.add_(6.0)
+                        elif name.startswith("cls_preds."):
+                            p[0] += 6.0
+            return model
+
+    exp = _trainer_exp(Raised, out_dir, EVAL_TRAIN_SAMPLES, 1,
+                       _uni_datasets(43), eval_interval=1,
+                       test_data_dir=os.path.join(EVAL_ROOT, "mot"),
+                       **EVAL_EXP_FIELDS)
+    # the val json: the seeded model's detections as ground truth
+    model = exp.get_model(torch.Generator().manual_seed(exp.seed or 0))
+    model = model.to(DEVICE).eval()
+    ev = exp.get_trainer_evaluator(device=DEVICE)
+    forward = decode_forward(model)
+    anns = []
+    with torch.inference_mode():
+        for i in range(len(ev.dataset)):
+            imgs, infos, ids = ev.load([i])
+            for r in ev.to_coco(ev.nms(forward(images_to_device(
+                    imgs, ev.device))), infos, ids):
+                if r["score"] > 0.3 and r["category_id"] == 1:
+                    x, y, w, h = r["bbox"]
+                    anns.append({"id": len(anns) + 1, "image_id": ids[0],
+                                 "category_id": 1, "bbox": [x, y, w, h],
+                                 "area": w * h, "iscrowd": 0})
+    del model, forward
+    d = dict(ev.dataset.coco.dataset, annotations=anns)
+    with open(os.path.join(EVAL_ROOT, "mot", "annotations", "trainer.json"),
+              "w") as f:
+        json.dump(d, f)
+    exp.test_ann = "trainer.json"
+    tr = Trainer(exp, {"batch_size": TRAIN_B}, device=DEVICE)
+    t0 = time.perf_counter()
+    tr.train()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(tr.output_dir, "metrics.jsonl")) as f:
+        evals = [r for r in map(json.loads, f) if r.get("eval")]
+    print(f"  (e) Trainer.train ({report.get('card', '')}): "
+          f"{EVAL_TRAIN_SAMPLES // TRAIN_B} iterations and the in-training "
+          f"eval ({len(anns)} ground-truth boxes from the seeded model) in "
+          f"{wall:.1f} s; eval record {evals}; best written: "
+          f"{os.path.isfile(os.path.join(tr.output_dir, 'best'))}")
+    assert len(evals) == 1 and evals[0]["n_images"] == EVAL_IMAGES
+    assert np.isfinite(evals[0]["AP"]) and evals[0]["AP"] > 0
+    assert os.path.isfile(os.path.join(tr.output_dir, "best"))
+    assert all(m.training for m in tr.state.model.modules())
+    del tr
+    torch.cuda.empty_cache()
+
+
+def phase_eval(report):
+    """The evaluators: (a) `_eval_native`, (b) `_eval_coco`, (c)
+    `_eval_inst`, (d) `_eval_bdd`, (e) `_eval_trainer`, on the val sets
+    that `_write_eval_sets` writes under chiprun_out/eval_data (removed
+    when the phase passes)."""
+    import shutil
+    import tempfile
+
+    print(f"eval ({report.get('card', '')})")
+    shutil.rmtree(EVAL_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    gt = _write_eval_sets(EVAL_ROOT)
+    print(f"  val sets written under {EVAL_ROOT} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    env = os.environ.get("UNICORN_DATADIR")
+    os.environ["UNICORN_DATADIR"] = EVAL_ROOT
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_eval_")
+    try:
+        _eval_native(report)
+        _eval_coco(report, gt)
+        _eval_inst(report, gt)
+        _eval_bdd(report, os.path.join(tmp.name, "bdd"))
+        _eval_trainer(report, os.path.join(tmp.name, "trainer"))
+    finally:
+        tmp.cleanup()
+        if env is None:
+            os.environ.pop("UNICORN_DATADIR", None)
+        else:
+            os.environ["UNICORN_DATADIR"] = env
+    shutil.rmtree(EVAL_ROOT)
+
+
 # ------------------------------------------------------ opt-in: profile
 def _profile(label, step, frames, show=()):
     """torch.profiler over step(frame) for each frame: CUDA time by kernel
@@ -5393,12 +5967,13 @@ PHASES = {
     "disk": phase_disk,
     "det": phase_det,
     "backbones": phase_backbones,
+    "eval": phase_eval,
     "profile": phase_profile,
 }
 DEFAULT_PHASES = ("build", "kernels", "model", "main", "block_model",
                   "stream", "sot_model", "sot", "inst", "vos", "omni",
                   "train_model", "train", "inst_train", "mask_train",
-                  "trainer", "disk", "det", "backbones")
+                  "trainer", "disk", "det", "backbones", "eval")
 
 
 def main(argv=None) -> int:

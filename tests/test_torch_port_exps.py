@@ -24,11 +24,6 @@ NAMES = sorted(os.path.basename(f)[:-3] for f in
 # fields only the JAX exps have, and why the port has none
 JAX_ONLY = {
     "grid_sample": "set at unicorn_tpu/exp/track.py:82 and read nowhere",
-    "test_ann": "the in-training COCO evaluator's annotation file "
-                "(unicorn_tpu/exp/track.py:339-343); the evaluators are "
-                "not ported (ROADMAP Queue 1 item 7)",
-    "test_name": "that evaluator's image folder, as test_ann",
-    "test_data_dir": "that evaluator's root, as test_ann",
 }
 # fields only the port's exps have
 PORT_ONLY = {}

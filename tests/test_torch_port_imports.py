@@ -15,8 +15,12 @@ and the training loop's checkpoints, trainer, logger, meters and host data
 path (preproc, transforms, the omni datasets, the loaders), the image
 reader, the on-disk datasets and the RLE codec, the mosaic augmentation,
 the dataset converters, the ResNet-50 and Swin trunks, the exp loader and
-every exp copy.
+every exp copy, the evaluators with their native codecs' bindings and the
+eval tool. A second test reads every source file of unicorn_torch and
+finds no import statement of cv2, PIL, JAX or the JAX package anywhere in
+it, inside functions too (where an import happens only when called).
 """
+import ast
 import os
 import subprocess
 import sys
@@ -69,7 +73,12 @@ for n in ("ops.deform_attn", "ops.correlation", "ops.correlation_kernel",
           "exp.unicorn_track_tiny_mots_only",
           "exp.unicorn_track_large_mask",
           "exp.unicorn_track_large_mot_challenge",
-          "exp.unicorn_track_large_mot_challenge_mask"):
+          "exp.unicorn_track_large_mot_challenge_mask",
+          "csrc.native", "evaluators.coco_map", "evaluators.coco_evaluator",
+          "evaluators.coco_inst_evaluator", "evaluators.voc_eval",
+          "evaluators.voc_evaluator", "evaluators.mot_metrics",
+          "evaluators.mots_metrics", "evaluators.mot_evaluator",
+          "evaluators.bdd_evaluator", "tools.eval"):
     assert "unicorn_torch." + n in names, n
 print(len(names))
 """
@@ -83,3 +92,26 @@ def test_port_imports_no_jax_nor_jax_package():
     assert proc.returncode == 0, proc.stderr
     # the package, its subpackages and the modules of slices 1 to 4
     assert int(proc.stdout.strip().splitlines()[-1]) >= 36
+
+
+def test_port_sources_import_no_cv2_pil_nor_jax():
+    blocked = {"cv2", "PIL", "jax", "jaxlib", "flax", "optax", "unicorn_tpu"}
+    found, n_files = [], 0
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "unicorn_torch")):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, f)
+            n_files += 1
+            with open(path) as fh:
+                tree = ast.parse(fh.read(), path)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    mods = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and not node.level:
+                    mods = [node.module or ""]
+                else:
+                    continue
+                found += [(os.path.relpath(path, ROOT), node.lineno, m)
+                          for m in mods if m.split(".")[0] in blocked]
+    assert n_files > 100 and not found, found

@@ -452,27 +452,45 @@ def test_trainer_needs_the_card_without_device_cpu(tmp_path):
 
 
 def test_eval_skipped_without_evaluator_and_best_ckpt(tmp_path):
-    """The port's exps have no evaluator yet: after_epoch skips eval and
-    goes on. With one, a better AP writes `best`."""
+    """An exp without an evaluator (get_trainer_evaluator raises
+    NotImplementedError): after_epoch skips eval and goes on. With one,
+    evaluate gets the EMA model's decoded forward and max_images=1000,
+    and a better AP writes `best`."""
+    from unicorn_torch.models.heads import decode_for_inference
+
     tr = _trainer(tmp_path, eval_interval=1)
     tr.before_train()
-    tr.after_epoch()  # get_trainer_evaluator raises NotImplementedError
+
+    def no_evaluator(batch_size=1, device="cuda"):
+        raise NotImplementedError("no evaluator")
+
+    tr.exp.get_trainer_evaluator = no_evaluator
+    tr.after_epoch()
     ck.wait_for_checkpoints()
     out = tmp_path / "tiny_test"
     assert not (out / "best").exists() and (out / "latest").is_file()
 
     seen = []
+    img = torch.from_numpy(np.random.RandomState(0).rand(
+        1, 3, H, W).astype(np.float32) * 255)
 
     class Evaluator:
-        def evaluate(self, model):
-            seen.append(model)
+        def evaluate(self, forward, max_images=None):
+            seen.append((forward(img), max_images))
             return {"AP": 0.25, "AP50": 0.5}
 
-    tr.exp.get_trainer_evaluator = lambda batch_size=1: Evaluator()
+    tr.exp.get_trainer_evaluator = lambda batch_size=1, device="cuda": \
+        Evaluator()
     tr.after_epoch()
     ck.wait_for_checkpoints()
-    assert seen == [tr.state.ema_model] and tr.best_ap == 0.25
+    with torch.no_grad():
+        want = decode_for_inference(tr.state.ema_model.eval()(img)[0],
+                                    (8, 16, 32))
+    (dec, max_images), = seen
+    assert max_images == 1000 and torch.equal(dec, want)
+    assert tr.best_ap == 0.25
     assert ck.load_checkpoint(str(out), "best")["best_ap"] == 0.25
+    tr.loader.stop()
 
 
 def test_debug_only_and_on_disk_data_raise(tmp_path, monkeypatch):

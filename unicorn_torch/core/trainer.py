@@ -4,8 +4,9 @@ Keeps the JAX trainer's protocol: the loader's task alternation, a
 multiscale size drawn every 10 iterations from (epoch, iter) alone, EMA and
 gradient accumulation in the TrainState, checkpoints with resume (a
 mid-epoch preemption checkpoint rewinds the counters to the epoch
-boundary), the no-aug switch to L1, in-training eval where the exp has an
-evaluator, and metrics.jsonl / train_log.txt.
+boundary), the no-aug switch to L1, in-training eval and the `best`
+checkpoint where the exp has an evaluator (every eval_interval epochs), and
+metrics.jsonl / train_log.txt.
 
 One card, rank 0: no mesh and no process count (data parallelism is
 ROADMAP Queue 1 item 5). The model, the state and every batch live on
@@ -26,6 +27,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..evaluators.coco_evaluator import decode_forward
+from ..evaluators.coco_inst_evaluator import COCOInstEvaluator
 from ..utils.logger import setup_logger
 from ..utils.meters import MeterBuffer
 from .checkpoint import (load_checkpoint, load_matching, save_checkpoint,
@@ -294,20 +297,36 @@ class Trainer:
     def after_epoch(self):
         self.save_ckpt("latest")
         if (self.epoch + 1) % self.exp.eval_interval == 0:
-            try:
-                self.evaluate_and_save_best()
-            except NotImplementedError:
-                # the exp has no evaluator: in-training eval does not apply
-                self.logger.debug("exp has no evaluator; skipping "
-                                  "in-training eval")
+            self.evaluate_and_save_best()
 
     def evaluate_and_save_best(self):
-        """In-training eval of the EMA model (the model without EMA) with
-        the exp's evaluator, `evaluate(model) -> {metric: value}`; a new
-        best AP writes `best`."""
-        evaluator = self.exp.get_trainer_evaluator()
+        """In-training eval of the EMA model (the model without EMA) on the
+        exp's trainer evaluator, its first 1000 images, under
+        inference_mode, the model in eval mode and every module's mode
+        restored afterwards; a new best AP writes `best`. An exp without an
+        evaluator (get_trainer_evaluator raises NotImplementedError) skips
+        the eval; any other failure propagates."""
+        try:
+            evaluator = self.exp.get_trainer_evaluator(device=self.device)
+        except NotImplementedError:
+            self.logger.debug("exp has no evaluator; skipping in-training "
+                              "eval")
+            return
         model = self.state.ema_model or self.state.model
-        metrics = evaluator.evaluate(model)
+        modes = [(m, m.training) for m in model.modules()]
+        try:
+            if isinstance(evaluator, COCOInstEvaluator):
+                # the mask exps' evaluator takes decode + NMS + the CondInst
+                # mask decode, (dets, valid, masks) an image
+                forward = self.exp.get_inst_forward(model, device=self.device)
+            else:
+                model.eval()
+                forward = decode_forward(model)
+            with torch.inference_mode():
+                metrics = evaluator.evaluate(forward, max_images=1000)
+        finally:
+            for m, training in modes:
+                m.training = training
         # det evals report "AP"; the inst evaluator "mask_AP" or "box_AP"
         ap = metrics.get("AP", metrics.get("mask_AP",
                                            metrics.get("box_AP", 0.0)))

@@ -1012,7 +1012,8 @@ int imc_jpeg_decode(const uint8_t* buf, int64_t n, int gray, uint8_t* out,
 // PNG after inflate: `raw` holds h rows of (filter byte + stride bytes) and
 // is unfiltered in place. mode 0: (h, w, 3) BGR; 1: (h, w) gray; 2: the
 // first channel of the stored samples (palette indices, gray, or red), as
-// PIL gives it. `orientation` is applied to modes 0 and 1 (cv2.imread's).
+// PIL gives it; 3: every stored 8-bit sample, (h, w, channels).
+// `orientation` is applied to modes 0 and 1 (cv2.imread's).
 int imc_png_decode(uint8_t* raw, int64_t rawlen, int w, int h, int depth,
                    int ctype, const uint8_t* plte, int npal, int mode,
                    int orientation, uint8_t* out, char* err, int errlen) {
@@ -1060,6 +1061,13 @@ int imc_png_decode(uint8_t* raw, int64_t rawlen, int w, int h, int depth,
       default:
         return e.fail(INVALID, "bad PNG filter type");
     }
+  }
+  if (mode == 3) {
+    // the stored 8-bit samples as they are (image_io.read_png; the caller
+    // checks the depth): no palette, conversion or orientation
+    for (int y = 0; y < h; y++)
+      memcpy(out + (size_t)y * w * ch, raw + y * (stride + 1) + 1, (size_t)w * ch);
+    return OK;
   }
   uint8_t pal[768];
   memset(pal, 0, sizeof(pal));

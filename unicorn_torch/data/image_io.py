@@ -9,6 +9,11 @@ on an OpenCV built with libjpeg-turbo and libpng, bit for bit.
     imdecode(buf, flags)               the same from the file's bytes
     read_indexed_mask(path)            a palette PNG's raw indices (H, W)
                                        uint8, as PIL gives them
+    read_png(path)                     an 8-bit PNG's stored samples, as
+                                       np.asarray(PIL.Image.open(path))
+                                       gives them
+    write_png(path, array)             (H, W) gray, (H, W, 3) RGB or
+                                       (H, W, 4) RGBA uint8 to a PNG file
     fill_poly(mask, polys, value)      cv2.fillPoly(mask, [p.astype(int32)
                                        for p in polys], value), LINE_8
 
@@ -26,6 +31,7 @@ parallel.
 from __future__ import annotations
 
 import ctypes
+import os
 import struct
 import threading
 import zlib
@@ -187,6 +193,9 @@ def _png(data: np.ndarray, mode: int, what: str) -> np.ndarray:
     if mode == 2 and ctype != 3 and depth != 8:
         raise NotImplementedError(f"{what}: read_indexed_mask of a {depth}-bit "
                                   f"non-palette PNG is not supported")
+    if mode == 3 and depth != 8:
+        raise NotImplementedError(f"{what}: read_png of a {depth}-bit PNG is "
+                                  f"not supported")
     try:
         raw = np.frombuffer(zlib.decompress(idat), np.uint8).copy()
     except zlib.error as e:
@@ -196,11 +205,12 @@ def _png(data: np.ndarray, mode: int, what: str) -> np.ndarray:
         raise ValueError(f"{what}: truncated PNG image data")
     lib = _library()
     orientation = 1
-    if exif is not None and mode != 2:
+    if exif is not None and mode < 2:
         e = np.frombuffer(exif, np.uint8)
         orientation = lib.imc_tiff_orientation(_ptr(e), len(e))
     shape = (h, w) if orientation < 5 or orientation > 8 else (w, h)
-    out = np.empty(shape + ((3,) if mode == 0 else ()), np.uint8)
+    out = np.empty(shape + ((3,) if mode == 0 else (channels,)
+                            if mode == 3 and channels > 1 else ()), np.uint8)
     pal = np.frombuffer(plte or b"\0", np.uint8)
     err = ctypes.create_string_buffer(_ERRLEN)
     code = lib.imc_png_decode(_ptr(raw), len(raw), w, h, depth, ctype,
@@ -226,6 +236,49 @@ def read_indexed_mask(path) -> np.ndarray:
         raise NotImplementedError(f"{path}: read_indexed_mask reads PNG "
                                   f"files only")
     return _png(data, 2, str(path))
+
+
+def read_png(path) -> np.ndarray:
+    """The stored samples of an 8-bit PNG, uint8: (H, W) for gray or
+    palette indices, (H, W, 2 / 3 / 4) for gray + alpha / RGB / RGBA, in
+    the file's channel order and without EXIF orientation; what
+    `np.asarray(PIL.Image.open(path))` gives."""
+    try:
+        with open(path, "rb") as f:
+            buf = f.read()
+    except OSError as e:
+        raise FileNotFoundError(f"cannot read PNG {path}: {e}") from e
+    data = np.frombuffer(buf, np.uint8)
+    if bytes(data[:8]) != _PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    return _png(data, 3, str(path))
+
+
+def _chunk(kind: bytes, payload: bytes) -> bytes:
+    return (struct.pack(">I", len(payload)) + kind + payload
+            + struct.pack(">I", zlib.crc32(kind + payload) & 0xFFFFFFFF))
+
+
+def write_png(path, array: np.ndarray) -> None:
+    """Write an (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA uint8 array as
+    an 8-bit, non-interlaced PNG, every row with filter type 0 (none),
+    zlib level 6. read_png and PIL read back the same array. The parent
+    directory is created."""
+    a = np.ascontiguousarray(array)
+    ctype = {2: 0, 3: {3: 2, 4: 6}.get(a.shape[-1])}.get(a.ndim)
+    if a.dtype != np.uint8 or ctype is None or 0 in a.shape[:2]:
+        raise ValueError(f"write_png takes an (H, W), (H, W, 3) or (H, W, "
+                         f"4) uint8 array, got {a.dtype} {a.shape}")
+    h, w = a.shape[:2]
+    rows = a.reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], 1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)
+    png = (_PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
+           + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+           + _chunk(b"IEND", b""))
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(png)
 
 
 def fill_poly(mask: np.ndarray, polys, value: int) -> np.ndarray:

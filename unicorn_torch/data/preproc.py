@@ -16,6 +16,10 @@ package's:
 The source coordinate is (d + 0.5) * scale - 0.5 in float32 with scale =
 1 / (dst / src); columns are clamped with their weights (the edge pixel
 alone), rows only in index, keeping both weights, as OpenCV does.
+
+`resize_nearest` is cv2's INTER_NEAREST (its legacy rule, resizeNN): the
+source index of output coordinate d is floor(d * (1 / (dst / src))) in
+double, clamped to src - 1.
 """
 from __future__ import annotations
 
@@ -74,6 +78,23 @@ def resize_linear(img: np.ndarray, dsize) -> np.ndarray:
     else:
         raise TypeError(f"resize_linear: uint8 or float32, got {x.dtype}")
     return out[:, :, 0] if squeeze else out
+
+
+def _nearest_index(src: int, dst: int) -> np.ndarray:
+    inv = 1.0 / (dst / src)
+    return np.minimum(np.floor(np.arange(dst) * inv).astype(np.int64),
+                      src - 1)
+
+
+def resize_nearest(img: np.ndarray, dsize) -> np.ndarray:
+    """cv2.resize(img, dsize=(w, h), interpolation=INTER_NEAREST) for an
+    (H, W) or (H, W, C) array of any dtype."""
+    dw, dh = int(dsize[0]), int(dsize[1])
+    if dw <= 0 or dh <= 0 or img.shape[0] == 0 or img.shape[1] == 0:
+        raise ValueError(f"resize_nearest of {img.shape[:2]} to {dh}x{dw}")
+    ys = _nearest_index(img.shape[0], dh)
+    xs = _nearest_index(img.shape[1], dw)
+    return np.ascontiguousarray(img[ys[:, None], xs[None, :]])
 
 
 def letterbox(img: np.ndarray, input_size) -> tuple[np.ndarray, float]:

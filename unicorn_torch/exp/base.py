@@ -1,14 +1,16 @@
 """The experiment base class and the loaders of experiment files (port of
 unicorn_tpu/exp/base.py): BaseExp with the command line's `merge` (values
 coerced by literal_eval to the field's type, a leading "--" stripped,
-unknown keys ignored), get_exp_by_file, get_exp_by_name (the port's copies
-in unicorn_torch/exp/, which import no JAX; the JAX package's loader reads
-exps/default/, whose files import unicorn_tpu) and get_exp."""
+unknown keys ignored) and the evaluator factories, get_exp_by_file,
+get_exp_by_name (the port's copies in unicorn_torch/exp/, which import no
+JAX; the JAX package's loader reads exps/default/, whose files import
+unicorn_tpu) and get_exp."""
 from __future__ import annotations
 
 import ast
 import importlib
 import importlib.util
+import inspect
 import os
 import pprint
 import sys
@@ -28,6 +30,27 @@ class BaseExp(ABC):
     @abstractmethod
     def get_model(self):
         ...
+
+    def get_trainer_evaluator(self, batch_size=1, device="cuda"):
+        """The evaluator of the Trainer's in-training eval and `best`
+        checkpoint: get_evaluator() with those of batch_size and device that
+        it takes. The track exps override it with a COCO box evaluator: the
+        reference evaluates detection AP during uni training
+        (unicorn_track.py:402-443), not MOT metrics."""
+        accepted = inspect.signature(self.get_evaluator).parameters
+        kw = {k: v for k, v in (("batch_size", batch_size),
+                                ("device", device)) if k in accepted}
+        return self.get_evaluator(**kw)
+
+    def get_evaluator(self):
+        """The exp's evaluator (tools/eval.py); an exp without one raises,
+        which the Trainer reads as "no in-training eval"."""
+        raise NotImplementedError(f"{type(self).__name__} has no evaluator")
+
+    def eval(self, model, evaluator, max_images=None):
+        """evaluator.evaluate on `model` through the forward the exp's
+        evaluator takes (tools/eval.py)."""
+        raise NotImplementedError(f"{type(self).__name__} has no eval")
 
     def __repr__(self):
         return "\n".join(f"{k:25s}: {pprint.pformat(v)}"

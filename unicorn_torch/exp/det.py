@@ -4,7 +4,8 @@ YOLOXDet, the training factories get_lr_fn / get_optimizer (SGD with
 Nesterov momentum), the fields the trainer reads, get_unicorn_datadir (the
 root of the on-disk datasets), and the mosaic pretraining data
 (get_dataset: the on-disk COCO set; get_data_loader: a DetLoader over
-MosaicDetection with MixUp). Its evaluator is not ported yet."""
+MosaicDetection with MixUp), and its COCO evaluator over the val set
+(get_eval_dataset, get_evaluator)."""
 from __future__ import annotations
 
 import os
@@ -16,12 +17,10 @@ from ..core.train_state import default_wd_mask, make_optimizer
 from ..data.datasets.coco import COCODataset
 from ..data.loader import DetLoader
 from ..data.mosaic import MosaicDetection
-from ..data.transforms import TrainTransform
+from ..data.transforms import TrainTransform, ValTransform
+from ..evaluators.coco_evaluator import COCOEvaluator, decode_forward
 from ..models.unicorn import YOLOXDet
 from .base import BaseExp
-
-NOT_PORTED_EVAL = ("the evaluators are not ported yet (ROADMAP Queue 1 "
-                   "item 7)")
 
 
 def get_unicorn_datadir() -> str:
@@ -155,6 +154,27 @@ class ExpDet(BaseExp):
         return DetLoader(dataset, batch_size, seed=self.seed or 0,
                          workers=self.data_num_workers)
 
-    def get_trainer_evaluator(self, batch_size=1):
-        """The trainer's in-training COCO evaluator: not ported yet."""
-        raise NotImplementedError(NOT_PORTED_EVAL)
+    def get_eval_dataset(self) -> COCODataset:
+        """The COCO val set under data_dir (else <datadir>/coco) through
+        ValTransform at test_size."""
+        data_dir = self.data_dir or os.path.join(get_unicorn_datadir(), "coco")
+        return COCODataset(data_dir=data_dir, json_file=self.val_ann,
+                           name=self.val_name, img_size=self.test_size,
+                           preproc=ValTransform())
+
+    def get_evaluator(self, batch_size=1, device="cuda") -> COCOEvaluator:
+        """COCO box AP over the val set at the test thresholds, batches of
+        batch_size on `device` (the card unless the caller asks for the
+        CPU)."""
+        return COCOEvaluator(
+            dataset=self.get_eval_dataset(), img_size=self.test_size,
+            conf_thre=self.test_conf, nms_thre=self.nmsthre,
+            num_classes=self.num_classes, batch_size=batch_size,
+            device=device)
+
+    def eval(self, model, evaluator, max_images=None):
+        """get_evaluator()'s evaluator on `model` (moved to the
+        evaluator's device, in eval mode) through its head's decode."""
+        model = model.to(evaluator.device).eval()
+        return evaluator.evaluate(decode_forward(model),
+                                  max_images=max_images)

@@ -3,9 +3,10 @@ unicorn_tpu/exp/det_mask.py ExpDetMask, get_model() building the port's
 YOLOXDet with the CondInst controllers and mask branch, get_inst_forward(),
 the training factories get_optimizer (SGD; with train_mask_only only
 the controllers and the mask branch train) and get_train_step, and
-load_pretrained (the detector's weights), and get_data_loader: InstLoader
-over the on-disk COCO instances (COCOMOTSDataset, polygon and RLE masks).
-Its evaluator is not ported yet."""
+load_pretrained (the detector's weights), get_data_loader: InstLoader
+over the on-disk COCO instances (COCOMOTSDataset, polygon and RLE masks),
+and get_evaluator: box and mask AP over the COCO val set
+(COCOInstEvaluator)."""
 from __future__ import annotations
 
 import os
@@ -19,6 +20,7 @@ from ..data.datasets.vos import COCOMOTSDataset
 from ..data.loader import InstLoader
 from ..data.transforms import TrainTransformIns
 from ..drivers.inst import InstForward, make_inst_forward
+from ..evaluators.coco_inst_evaluator import COCOInstEvaluator
 from ..models.unicorn import YOLOXDet
 from .det import ExpDet, get_unicorn_datadir
 
@@ -66,6 +68,22 @@ class ExpDetMask(ExpDet):
             nms_thre=self.nmsthre, use_raft=getattr(self, "use_raft", False),
             up_rate=getattr(self, "up_rate", 8 // self.d_rate),
             device=device)
+
+    def get_evaluator(self, batch_size=1, device="cuda") -> COCOInstEvaluator:
+        """Box and mask AP over the val set at the test thresholds, one
+        image at a time (the per-instance mask decode runs at batch 1;
+        batch_size is taken for the exps' common signature)."""
+        return COCOInstEvaluator(
+            dataset=self.get_eval_dataset(), img_size=self.test_size,
+            conf_thre=self.test_conf, nms_thre=self.nmsthre,
+            num_classes=self.num_classes, d_rate=self.d_rate, device=device)
+
+    def eval(self, model, evaluator, max_images=None):
+        """get_evaluator()'s evaluator on `model` through the CondInst
+        forward (get_inst_forward)."""
+        return evaluator.evaluate(
+            self.get_inst_forward(model, device=evaluator.device),
+            max_images=max_images)
 
     def get_optimizer(self, batch_size, iters_per_epoch=1000):
         """The parent's update rule, mask-only with train_mask_only."""

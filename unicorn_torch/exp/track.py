@@ -4,8 +4,9 @@ Unicorn (any of its interaction modes, `interact_mode`), the training
 factories get_lr_fn / get_optimizer / get_train_step, the omni dataset and
 its loader (get_dataset: the reference's on-disk mix under
 get_unicorn_datadir(), or sub-datasets the caller passes;
-get_data_loader), and load_pretrained (detector -> tracker weight surgery).
-The evaluators are not ported yet."""
+get_data_loader), load_pretrained (detector -> tracker weight surgery), and
+the evaluators: get_evaluator (MOT metrics, tools/track.py's) and
+get_trainer_evaluator (COCO box AP over the COCO-format MOT val set)."""
 from __future__ import annotations
 
 import logging
@@ -23,10 +24,12 @@ from ..data.datasets.mot import MOTOmniDataset
 from ..data.datasets.omni import OmniDataset, OmniDatasetPlus
 from ..data.datasets.sot import COCOSOT, Got10k, Lasot, TrackingNet
 from ..data.loader import UniLoader
-from ..data.transforms import TrainTransformOmni
+from ..data.transforms import TrainTransformOmni, ValTransform
+from ..evaluators.coco_evaluator import COCOEvaluator
+from ..evaluators.mot_evaluator import MOTEvaluator
 from ..models.unicorn import Unicorn
 from .base import BaseExp
-from .det import NOT_PORTED_EVAL, get_unicorn_datadir
+from .det import get_unicorn_datadir
 
 
 class ExpTrack(BaseExp):
@@ -107,6 +110,12 @@ class ExpTrack(BaseExp):
         self.test_size = (800, 1280)
         self.test_conf = 0.01
         self.nmsthre = 0.65
+        self.test_ann = "test.json"
+        self.test_name = "test"
+        # the in-training eval's root (the reference's unicorn_track.py:109:
+        # the MOT Challenge COCO-format val, BDD-trained exps too); None:
+        # <datadir>/mot
+        self.test_data_dir = None
         # -----------------  other config ------------------ #
         self.sot_only = False
         self.mot_only = False
@@ -304,7 +313,23 @@ class ExpTrack(BaseExp):
             batch_size, self.input_size, alter_every=self.alter_step,
             seed=self.seed or 0, workers=self.data_num_workers)
 
-    def get_trainer_evaluator(self, batch_size=1):
-        """The trainer's in-training evaluator (the reference's COCO box AP
-        over the MOT val set): not ported yet."""
-        raise NotImplementedError(NOT_PORTED_EVAL)
+    def get_evaluator(self, batch_size=1, device="cuda") -> MOTEvaluator:
+        """The MOT-metrics evaluator (tools/track.py's path; sequential per
+        video, so batch_size is unused)."""
+        return MOTEvaluator(exp=self, device=device)
+
+    def get_trainer_evaluator(self, batch_size=1, device="cuda"
+                              ) -> COCOEvaluator:
+        """In-training box AP over the COCO-format MOT val set
+        (test_data_dir, else <datadir>/mot; test_ann, test_name): the
+        reference's uni trainer runs a COCOEvaluator on its MOT val set
+        (unicorn_track.py:402-443)."""
+        data_dir = self.test_data_dir or os.path.join(get_unicorn_datadir(),
+                                                      "mot")
+        ds = COCODataset(data_dir=data_dir, json_file=self.test_ann,
+                         name=self.test_name, img_size=self.test_size,
+                         preproc=ValTransform())
+        return COCOEvaluator(ds, self.test_size, conf_thre=self.test_conf,
+                             nms_thre=self.nmsthre,
+                             num_classes=self.num_classes,
+                             batch_size=batch_size, device=device)
