@@ -8,8 +8,8 @@ Phases (each must pass, else the exit code is 1):
              built with nvcc (dwconv7x7, convnext_block, msda, correlation,
              correlation_train) and the host libraries (the image codec
              imcodec.cpp, the evaluators' RLE codec rle.cpp and COCOeval
-             matcher cocoeval.cpp) with the system C++ compiler, in
-             parallel
+             matcher cocoeval.cpp, the ingest's space-to-depth packer
+             pack.cpp) with the system C++ compiler, in parallel
   kernels    each kernel against its plain PyTorch version at the main
              paths' shapes and at ragged ones (the training correlation at
              K = 1 and at the VOS + MOTS step's K = 3, both timed; the
@@ -201,6 +201,23 @@ Phases (each must pass, else the exit code is 1):
              served unicorn_track_tiny_mask (27 dw7x7, 1 MSDA a frame), the
              bitmask PNGs read back; (e) Trainer.train of 2 iterations with
              eval_interval 1: an eval record and `best`
+  harness    the SOT / VOS benchmark harness, with UNICORN_DATADIR at
+             layouts written under chiprun_out/harness_data from the
+             fixtures (GOT-10k val and LaSOT: copies of the 1080x1920
+             JPEG, seeded boxes; DAVIS 2017 val: the 480x854 JPEG and its
+             3-object mask; YouTube-VOS 2018: an object entering on frame
+             3): (a) tools/test.py unicorn_sot on GOT-10k val (a result txt
+             a sequence; AUC 20/21 from the ground truth; the GOT-10k and
+             TrackingNet zips read back); LaSOT through run_sequence_sot on
+             phase sot's model; (b) tools/test.py unicorn_vos on DAVIS and
+             YT-VOS (a PNG a frame read back equal; MSDA at batch K after
+             the entry; J&F 1.0 from the ground truth); (c) one SOT and one
+             DAVIS sequence through the runners with the kernels vs their
+             plain versions; (d) launches a frame (27 / 1 / 1), runner
+             frames/s at window 8 and 1, the frame reads' share, VOS
+             frames/s, J&F ms a frame; (e) csrc/pack.cpp vs numpy at
+             800x1280x3, utils.profiling.trace around one SOT frame,
+             device_memory_stats, utils.model_utils.get_model_info
 `--only profile` adds a torch.profiler breakdown of the paths.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the rest of the
@@ -318,7 +335,7 @@ def phase_card_and_build(report):
           f"{bf16 / 1e12:.0f} TFLOP/s bf16 | "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    host = ("imcodec", "rle", "cocoeval")
+    host = ("imcodec", "rle", "cocoeval", "pack")
     logs = build.build(["dwconv7x7", "convnext_block", "msda", "correlation",
                         "correlation_train", *host])
     print(f"build: {time.perf_counter() - t0:.1f} s")
@@ -1808,6 +1825,36 @@ def _reset_kernel_counts():
     da.launches_by_mode.update(factored=0, direct=0)
 
 
+@contextlib.contextmanager
+def _plain_serving_kernels(which=("dwconv7x7", "msda", "correlation")):
+    """The serving path's wrappers named in `which` patched to their plain
+    versions, as phases sot_model and vos patch them."""
+    from unittest import mock
+
+    from unicorn_torch.drivers import sot as sot_mod
+    from unicorn_torch.drivers import vos as vos_mod
+    from unicorn_torch.models import blocks, interaction
+    from unicorn_torch.ops import correlation_kernel as ck
+    from unicorn_torch.ops import deform_attn as da
+    from unicorn_torch.ops import dwconv7x7 as dw
+
+    def corr(e0, e1, v):
+        return ck.correlation_propagate_plain(e0, e1, v, bf16_dots=True)
+
+    patches = {
+        "dwconv7x7": [(blocks, "dwconv7x7", dw.dwconv7x7_plain)],
+        "msda": [(interaction, "ms_deform_attn",
+                  lambda v, l, a, method: da.ms_deform_attn_plain(
+                      v, l, a, "factored"))],
+        "correlation": [(sot_mod, "correlation_propagate_auto", corr),
+                        (vos_mod, "correlation_propagate_auto", corr)]}
+    with contextlib.ExitStack() as stack:
+        for name in which:
+            for mod, attr, fn in patches[name]:
+                stack.enter_context(mock.patch.object(mod, attr, fn))
+        yield
+
+
 def _sot_frame_check(label, exp, model, expected):
     """One SOT frame on a served model through the three kernels vs the
     same through their plain versions (the wrappers patched out); the
@@ -1818,16 +1865,9 @@ def _sot_frame_check(label, exp, model, expected):
     (the bound of phase model); the propagated prior is an average of
     labels in [0, 1] under a softmax of scores that move with the
     embeddings: up to 0.05."""
-    from unittest import mock
-
     import torch
 
-    from unicorn_torch.drivers import sot as sot_mod
     from unicorn_torch.drivers.sot import SOTDriver
-    from unicorn_torch.models import blocks, interaction
-    from unicorn_torch.ops import correlation_kernel as ck
-    from unicorn_torch.ops import deform_attn as da
-    from unicorn_torch.ops import dwconv7x7 as dw
 
     driver = SOTDriver(model, input_size=exp.test_size, conf_thre=0.0,
                        nms_thre=exp.nmsthre, device=DEVICE)
@@ -1846,15 +1886,7 @@ def _sot_frame_check(label, exp, model, expected):
     _reset_kernel_counts()
     out_k = one_frame()
     counts = _kernel_counts()
-    with mock.patch.object(blocks, "dwconv7x7", dw.dwconv7x7_plain), \
-            mock.patch.object(
-                interaction, "ms_deform_attn",
-                lambda v, l, a, method: da.ms_deform_attn_plain(
-                    v, l, a, "factored")), \
-            mock.patch.object(
-                sot_mod, "correlation_propagate_auto",
-                lambda e0, e1, v: ck.correlation_propagate_plain(
-                    e0, e1, v, bf16_dots=True)):
+    with _plain_serving_kernels():
         out_p = one_frame()
     assert _kernel_counts() == counts, "a plain version launched a kernel"
 
@@ -2349,17 +2381,11 @@ def phase_vos(report):
     shared-path frame at K = 17 (the correlation in two groups of label
     maps) and one general-path frame at K = 17 (MSDA at batch 17): shapes,
     finite values, launches."""
-    from unittest import mock
-
     import numpy as np
     import torch
 
-    from unicorn_torch.drivers import vos as vos_mod
-    from unicorn_torch.models import blocks, interaction
     from unicorn_torch.models.heads import decode_boxes
     from unicorn_torch.ops import correlation_kernel as ck
-    from unicorn_torch.ops import deform_attn as da
-    from unicorn_torch.ops import dwconv7x7 as dw
 
     frames = _sot_frames(VOS_WARMUP + VOS_SHARED + VOS_GENERAL + 2, seed=6,
                          hw=VOS_FRAME_HW)
@@ -2385,15 +2411,7 @@ def phase_vos(report):
     _reset_kernel_counts()
     out_k = one()
     counts = _kernel_counts()
-    with mock.patch.object(blocks, "dwconv7x7", dw.dwconv7x7_plain), \
-            mock.patch.object(
-                interaction, "ms_deform_attn",
-                lambda v, l, a, method: da.ms_deform_attn_plain(
-                    v, l, a, "factored")), \
-            mock.patch.object(
-                vos_mod, "correlation_propagate_auto",
-                lambda e0, e1, v: ck.correlation_propagate_plain(
-                    e0, e1, v, bf16_dots=True)):
+    with _plain_serving_kernels():
         out_p = one()
         # the masks of the kernel run's top anchors, from each run's
         # controllers (the mask branch runs the trunk's maps, no kernel)
@@ -5178,10 +5196,11 @@ def _backbones_swin(report):
     torch.cuda.empty_cache()
 
 
-def _backbones_every_exp():
+def _backbones_every_exp(report):
     """Every exp of unicorn_torch/exp/ (the 18 of exps/default/) through
     get_exp, its model built on the card (a generator on the card, so that
-    the init runs there) and its parameters counted."""
+    the init runs there) and its parameters counted (kept in
+    report["exp_params"])."""
     import torch
 
     from unicorn_torch.exp.base import EXP_DIR, get_exp
@@ -5198,6 +5217,7 @@ def _backbones_every_exp():
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         n = sum(p.numel() for p in model.parameters())
+        report.setdefault("exp_params", {})[name] = n
         on_card = {p.device.type for p in model.parameters()} | {
             b.device.type for b in model.buffers()}
         print(f"  {name}: {type(model).__name__} on {exp.backbone_name} "
@@ -5226,7 +5246,7 @@ def phase_backbones(report):
     _serving_paths(report, "unicorn_track_tiny_rt", "tiny_rt", TINY_FRAME,
                    SOT_LAUNCHES)
     print("every exp, its model built on the card:")
-    _backbones_every_exp()
+    _backbones_every_exp(report)
 
 
 # ------------------------------------------------------------ phase eval
@@ -5783,6 +5803,575 @@ def phase_eval(report):
     shutil.rmtree(EVAL_ROOT)
 
 
+# ------------------------------------------------------------ phase harness
+HARNESS_ROOT = os.path.join(ROOT, "chiprun_out", "harness_data")
+HARNESS_GOT_FRAMES = 9      # frames of each GOT-10k val sequence (2)
+HARNESS_LASOT = ("airplane-1", "basketball-1")
+HARNESS_LASOT_FRAMES = 17   # frames of each LaSOT sequence: 2 windows of 8
+HARNESS_DAVIS_FRAMES = 6    # frames of each DAVIS 2017 val sequence (2)
+HARNESS_YT_FRAMES = 6       # frames of the YouTube-VOS sequence ...
+HARNESS_YT_ENTRY = 3        # ... whose frame 3 annotation adds object 4
+HARNESS_PACK_REPS = 20      # timed packs of an 800x1280x3 frame each way
+HARNESS_CLI_EXPS = {"unicorn_sot": "unicorn_track_tiny",
+                    "unicorn_vos": "unicorn_track_tiny_mask"}
+# launches of a tracked frame (or a window of frames) and of the trunk alone
+# (SOTDriver / VOSDriver initialize, VOSDriver add_objects)
+HARNESS_FRAME = dict(SOT_LAUNCHES)
+HARNESS_TRUNK = dict(dwconv7x7=18, msda_factored=0, msda_direct=0,
+                     correlation=0)
+
+
+def _harness_expect(n_trunk, n_frames):
+    return {k: n_trunk * HARNESS_TRUNK[k] + n_frames * HARNESS_FRAME[k]
+            for k in HARNESS_FRAME}
+
+
+def _harness_box(rng):
+    """An integer xywh box inside a 1080x1920 frame."""
+    w, h = rng.randint(80, 400, 2)
+    return [int(rng.randint(0, 1920 - w)), int(rng.randint(0, 1080 - h)),
+            int(w), int(h)]
+
+
+def _write_harness_layouts(root):
+    """The benchmark layouts the harness reads, from the fixtures: GOT-10k
+    val (list.txt, 2 sequences of HARNESS_GOT_FRAMES copies of the
+    1080x1920 JPEG, seeded integer ground truth), LaSOT (HARNESS_LASOT,
+    HARNESS_LASOT_FRAMES frames each), DAVIS 2017 val (2 sequences of
+    HARNESS_DAVIS_FRAMES copies of the 480x854 JPEG and its 3-object
+    palette mask) and YouTube-VOS 2018 valid (one sequence, objects 1-3
+    annotated on frame 0, object 4 entering on frame HARNESS_YT_ENTRY, with
+    meta.json). Returns {sequence name: (N, 4) ground truth} of the SOT
+    sequences."""
+    import shutil
+
+    import numpy as np
+
+    from unicorn_torch.data.image_io import read_indexed_mask, write_png
+
+    rng = np.random.RandomState(19)
+    jpg = os.path.join(FIXTURES, DISK_FRAMES[0])
+    gts = {}
+
+    def sot_seq(sdir, names, gt):
+        os.makedirs(sdir, exist_ok=True)
+        for name in names:
+            shutil.copyfile(jpg, os.path.join(sdir, name))
+        return np.asarray(gt, np.float64)
+
+    got = os.path.join(root, "GOT10K", "val")
+    names = [f"GOT-10k_Val_{k:06d}" for k in (7, 3)]   # list.txt's order
+    for name in names:
+        gt = [_harness_box(rng) for _ in range(HARNESS_GOT_FRAMES)]
+        gts[name] = sot_seq(os.path.join(got, name), [
+            f"{i + 1:08d}.jpg" for i in range(HARNESS_GOT_FRAMES)], gt)
+        np.savetxt(os.path.join(got, name, "groundtruth.txt"), gts[name],
+                   delimiter=",", fmt="%d")
+    with open(os.path.join(got, "list.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    for name in HARNESS_LASOT:
+        sdir = os.path.join(root, "LaSOT", name.split("-")[0], name)
+        gt = [_harness_box(rng) for _ in range(HARNESS_LASOT_FRAMES)]
+        gts[name] = sot_seq(os.path.join(sdir, "img"), [
+            f"{i + 1:08d}.jpg" for i in range(HARNESS_LASOT_FRAMES)], gt)
+        np.savetxt(os.path.join(sdir, "groundtruth.txt"), gts[name],
+                   delimiter=",", fmt="%d")
+    davis = os.path.join(root, "DAVIS")
+    os.makedirs(os.path.join(davis, "ImageSets", "2017"))
+    with open(os.path.join(davis, "ImageSets", "2017", "val.txt"), "w") as f:
+        f.write("dogs\nhorses\n")
+    src_jpg = os.path.join(FIXTURES, "davis_480x854.jpg")
+    src_png = os.path.join(FIXTURES, "davis_480x854_mask.png")
+    for name in ("dogs", "horses"):
+        for t in range(HARNESS_DAVIS_FRAMES):
+            for sub, src, ext in (("JPEGImages", src_jpg, "jpg"),
+                                  ("Annotations", src_png, "png")):
+                d = os.path.join(davis, sub, "480p", name)
+                os.makedirs(d, exist_ok=True)
+                shutil.copyfile(src, os.path.join(d, f"{t:05d}.{ext}"))
+    yt = os.path.join(root, "ytbvos18", "valid")
+    vid = "0062f687f1"
+    stems = [f"{5 * t:05d}" for t in range(HARNESS_YT_FRAMES)]
+    for stem in stems:
+        d = os.path.join(yt, "JPEGImages", vid)
+        os.makedirs(d, exist_ok=True)
+        shutil.copyfile(src_jpg, os.path.join(d, f"{stem}.jpg"))
+    mask = read_indexed_mask(src_png)
+    entry = np.zeros_like(mask)                   # object 4: a new region
+    entry[300:420, 600:780] = 4
+    write_png(os.path.join(yt, "Annotations", vid, f"{stems[0]}.png"), mask)
+    write_png(os.path.join(yt, "Annotations", vid,
+                           f"{stems[HARNESS_YT_ENTRY]}.png"), entry)
+    objs = {str(i): {"frames": [stems[0]]} for i in (1, 2, 3)}
+    objs["4"] = {"frames": [stems[HARNESS_YT_ENTRY]]}
+    with open(os.path.join(yt, "meta.json"), "w") as f:
+        json.dump({"videos": {vid: {"objects": objs}}}, f)
+    return gts
+
+
+@contextlib.contextmanager
+def _timed_reads(running, tally):
+    """harness/running.py's frame reads timed into tally[0] (seconds)."""
+    from unittest import mock
+
+    read = running.imread
+
+    def timed(path):
+        t0 = time.perf_counter()
+        img = read(path)
+        tally[0] += time.perf_counter() - t0
+        return img
+
+    with mock.patch.object(running, "imread", timed):
+        yield
+
+
+def _harness_cli(tracker, dataset, out):
+    """tools/test.py main on the exp of HARNESS_CLI_EXPS -> (its return,
+    the launches it made, seconds)."""
+    import torch
+
+    from unicorn_torch.tools import test as test_tool
+
+    _reset_kernel_counts()
+    t0 = time.perf_counter()
+    res = test_tool.main([tracker, "--dataset", dataset, "-n",
+                          HARNESS_CLI_EXPS[tracker], "--result-dir", out,
+                          "--device", DEVICE])
+    torch.cuda.synchronize()
+    return res, _kernel_counts(), time.perf_counter() - t0
+
+
+def _zip_numbers(path, delimiter):
+    import zipfile
+
+    import numpy as np
+
+    with zipfile.ZipFile(path) as z:
+        return {n: np.loadtxt(z.read(n).decode().splitlines(),
+                              delimiter=delimiter, ndmin=1)
+                for n in z.namelist()}
+
+
+def _harness_sot(report, gts, out):
+    """(a) tools/test.py unicorn_sot on GOT-10k val (the CLI's own seeded
+    unicorn_track_tiny, 800x1280, bf16): a result txt of the sequence's
+    frame count each, launches (18 dw7x7 at initialize, then 27 / 1 / 1 a
+    window of 8), AUC exactly 20/21 with the ground truth as the
+    prediction, the GOT-10k and TrackingNet zips read back; then LaSOT
+    through the runners on phase sot's served model (conf_thre 0): (c) one
+    sequence with the kernels and with their plain versions, the boxes
+    within 5% of the box's larger side + 2 letterbox px; (d)
+    run_dataset_sot (window 8) against run_sequence_sot at window 1,
+    frames/s, the share of runner time spent reading frames, launches a
+    frame (27 / 1 / 1) recorded as harness_sot."""
+    import numpy as np
+    import torch
+
+    from unicorn_torch.drivers.sot import SOTDriver
+    from unicorn_torch.harness import analysis, datasets, running, submission
+
+    res, counts, wall = _harness_cli("unicorn_sot", "got10k_val", out)
+    seqs = datasets.get_dataset("got10k_val")
+    rdir = os.path.join(out, "unicorn_sot", "got10k_val")
+    chunks = -(-(HARNESS_GOT_FRAMES - 1) // 8)
+    n = len(seqs)
+    assert [s.name for s in seqs] == list(res["results"]) and n == 2
+    for s in seqs:
+        txt = np.loadtxt(os.path.join(rdir, f"{s.name}.txt"), delimiter="\t")
+        assert txt.shape == (len(s.frames), 4), txt.shape
+        assert np.array_equal(txt[0], gts[s.name][0])
+        assert np.isfinite(res["results"][s.name]).all()
+    assert counts == _harness_expect(n, n * chunks), counts
+    exact = analysis.evaluate_sot(gts, gts)
+    assert exact["AUC"] == 20 / 21 and exact["Precision@20"] == 1.0, exact
+    t0 = time.perf_counter()
+    zg = submission.transform_got10k(rdir, os.path.join(out, "sub_got"))
+    t1 = time.perf_counter()
+    zt = submission.transform_trackingnet(rdir, os.path.join(out, "sub_tn"))
+    t2 = time.perf_counter()
+    members_g, members_t = _zip_numbers(zg, ","), _zip_numbers(zt, ",")
+    for s in seqs:
+        txt = np.loadtxt(os.path.join(rdir, f"{s.name}.txt"), delimiter="\t")
+        assert np.array_equal(members_g[f"{s.name}/{s.name}_001.txt"], txt)
+        assert len(members_g[f"{s.name}/{s.name}_time.txt"]) == len(txt)
+        assert np.array_equal(members_t[f"{s.name}.txt"], txt)
+    print(f"  (a) tools/test.py unicorn_sot got10k_val "
+          f"({report.get('card', '')}): {n} sequences of "
+          f"{HARNESS_GOT_FRAMES} 1080x1920 frames in {wall:.1f} s (the "
+          f"model's build included); launches {counts}; metrics "
+          f"{res['metrics']}; ground truth as prediction {exact}; packers: "
+          f"GOT-10k {(t1 - t0) * 1e3:.2f} ms ({len(members_g)} members), "
+          f"TrackingNet {(t2 - t1) * 1e3:.2f} ms ({len(members_t)})")
+
+    exp, model = _sot_model(report)
+    H, W = exp.test_size
+
+    def driver():
+        return SOTDriver(model, exp.test_size, conf_thre=0.0,
+                         nms_thre=exp.nmsthre, device=DEVICE)
+
+    lasot = datasets.load_lasot(names=list(HARNESS_LASOT))
+    # (c) kernels against plain versions through the runner (window 8; the
+    # kernel run is also the warm-up of the batch of 8)
+    boxes_k = running.run_sequence_sot(driver(), lasot[0])[0]
+    _reset_kernel_counts()
+    with _plain_serving_kernels():
+        boxes_p = running.run_sequence_sot(driver(), lasot[0])[0]
+    torch.cuda.synchronize()
+    assert sum(_kernel_counts().values()) == 0, "a plain version launched"
+    r = min(H / 1080, W / 1920)
+    tol = 0.05 * boxes_p[:, 2:].max(1, keepdims=True) + 2.0 / r
+    d_box = np.abs(boxes_k - boxes_p)
+    print(f"  (c) sot sequence {lasot[0].name}, {len(boxes_k)} frames, "
+          f"kernels vs plain through run_sequence_sot: boxes max |d| "
+          f"{d_box.max():.3f} px, {int((d_box > tol).sum())} coordinates "
+          f"beyond 5% of the larger side + {2.0 / r:.2f} px")
+    assert (d_box <= tol).all()
+    # (d) window 1 (run_sequence_sot) against window 8 (run_dataset_sot,
+    # its default), the reads timed; frames/s over every frame, the
+    # initialize included
+    runs = {}
+    n_all = sum(len(s.frames) for s in lasot)
+    for window in (1, 8):
+        reads = [0.0]
+        _reset_kernel_counts()
+        t0 = time.perf_counter()
+        with _timed_reads(running, reads):
+            if window == 8:
+                boxes = list(running.run_dataset_sot(driver, lasot,
+                                                     verbose=False).values())
+            else:
+                boxes = [running.run_sequence_sot(driver(), s, window=1)[0]
+                         for s in lasot]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[window] = dict(
+            fps=n_all / wall, read_share=reads[0] / wall,
+            counts=_kernel_counts(), boxes=np.concatenate(boxes), wall=wall,
+            read_ms=reads[0] / n_all * 1e3)
+    tracked = HARNESS_LASOT_FRAMES - 1
+    nl = len(lasot)
+    chunks = -(-tracked // 8)
+    assert runs[1]["counts"] == _harness_expect(nl, nl * tracked), \
+        runs[1]["counts"]
+    assert runs[8]["counts"] == _harness_expect(nl, nl * chunks), \
+        runs[8]["counts"]
+    _record_launches(report, "harness_sot", runs[1]["counts"])
+    d_win = np.abs(runs[8]["boxes"] - runs[1]["boxes"]).max()
+    print(f"  (d) the SOT runners on LaSOT ({report.get('card', '')}): "
+          f"{nl} sequences of {HARNESS_LASOT_FRAMES} 1080x1920 frames, "
+          f"frames/s with initialize; "
+          + "; ".join(f"window {w}: {v['fps']:.2f} frames/s, reading "
+                      f"frames {v['read_share'] * 100:.1f}% of "
+                      f"{v['wall']:.2f} s ({v['read_ms']:.1f} ms a frame), "
+                      f"launches {v['counts']}" for w, v in runs.items())
+          + f"; window 8 vs 1 boxes max |d| {d_win:.3f} px; 27 / 1 / 1 "
+          f"launches a frame at window 1")
+    report["harness_sot_fps"] = {w: v["fps"] for w, v in runs.items()}
+
+
+def _harness_vos(report, out):
+    """(b) tools/test.py unicorn_vos on DAVIS 2017 val and YouTube-VOS 2018
+    (the CLI's own seeded unicorn_track_tiny_mask): a PNG a frame, read
+    back equal to the returned label map; launches (18 dw7x7 at initialize
+    and add_objects, 27 / 1 / 1 a frame; MSDA at batch K on the YT-VOS
+    general path), recorded as harness_vos; the ground truth scores J&F
+    exactly 1.0. Then DAVIS through run_sequence_vos on the served mask
+    model with raised biases (phase vos's): (c) one sequence with the
+    kernels and with their plain versions (all three, then each alone):
+    each slot's top score within 0.05 and its top box within 5% of the
+    box's larger side + 2 px (phase vos's bounds); its mask probabilities
+    within 0.01 on average and beyond 0.05 on at most 1% of the pixels
+    (the maximum and the label maps' agreement printed); the MSDA kernel
+    against its plain version on the run's own inputs at phase kernels'
+    bound; (d) frames/s; J&F scoring ms a frame at 480x854."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from unicorn_torch.data.image_io import read_indexed_mask
+    from unicorn_torch.drivers.vos import VOSDriver
+    from unicorn_torch.harness import datasets, davis_metrics, running
+    from unicorn_torch.models import interaction
+    from unicorn_torch.ops import deform_attn as da
+
+    def stem(p):
+        return os.path.splitext(os.path.basename(p))[0]
+
+    msda_batch = []
+    msda = interaction.ms_deform_attn
+
+    def recorded(v, locs, attw, method):
+        msda_batch.append(v.shape[0])
+        return msda(v, locs, attw, method)
+
+    total = {}
+    for dataset in ("dv2017", "yt2018"):
+        msda_batch.clear()
+        with mock.patch.object(interaction, "ms_deform_attn", recorded):
+            res, counts, wall = _harness_cli("unicorn_vos", dataset, out)
+        seqs = datasets.get_dataset(dataset)
+        K = max(len({int(i) for m in s.masks
+                     for i in np.unique(read_indexed_mask(m)) if i})
+                for s in seqs)
+        n_frames = sum(len(s.frames) for s in seqs)
+        entries = (1 if dataset == "yt2018" else 0)
+        for s in seqs:
+            preds = res["preds"][s.name]
+            assert len(preds) == len(s.frames)
+            for p, m in zip(s.frames, preds):
+                png = os.path.join(out, "unicorn_vos", dataset, s.name,
+                                   stem(p) + ".png")
+                assert np.array_equal(read_indexed_mask(png), m), png
+        tracked = n_frames - len(seqs)
+        assert counts == _harness_expect(len(seqs) + entries, tracked), \
+            counts
+        if dataset == "yt2018":
+            # shared path until the entry, then the general path at batch K
+            n_shared = HARNESS_YT_ENTRY - 1
+            assert msda_batch == [1] * n_shared + [K] * (
+                tracked - n_shared), msda_batch
+        gts = {s.name: [read_indexed_mask(m) for m in s.masks] for s in seqs}
+        skip = dataset != "yt2018"   # YT-VOS: 2 sparse annotations
+        exact = davis_metrics.evaluate_davis(gts, gts, skip_first_last=skip)
+        assert exact["J&F"] == 1.0, exact
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        print(f"  (b) tools/test.py unicorn_vos {dataset} "
+              f"({report.get('card', '')}): {len(seqs)} sequences, "
+              f"{n_frames} 480x854 frames, K = {K}, in {wall:.1f} s (the "
+              f"model's build included); launches {counts} (MSDA batches "
+              f"{msda_batch}); {res['metrics']}; every PNG read back "
+              f"equal; ground truth as prediction J&F {exact['J&F']} over "
+              f"{exact['n_objects']} objects")
+    _record_launches(report, "harness_vos", total)
+
+    exp, model = _vos_model(report)
+
+    def driver():
+        return VOSDriver(model, exp.test_size, max_objects=3,
+                         use_raft=exp.use_raft, up_rate=exp.up_rate,
+                         device=DEVICE)
+
+    davis = datasets.get_dataset("dv2017")
+    # (c) one sequence, kernels against plain versions: each frame's top
+    # detection and mask probabilities of every slot, as the tail
+    # receives them; then each wrapper plain alone, to attribute them
+    def run(which):
+        d = driver()
+        seen = []
+        tail = d.postprocess_masks_host
+
+        def watch(dets, valid, masks, r):
+            seen.append((dets[:, 0].float().cpu(), masks.float().cpu()))
+            return tail(dets, valid, masks, r)
+
+        d.postprocess_masks_host = watch
+        _reset_kernel_counts()
+        with _plain_serving_kernels(which):
+            labels = running.run_sequence_vos(d, davis[0])
+        torch.cuda.synchronize()
+        if len(which) == 3:
+            assert sum(_kernel_counts().values()) == 0, "plain launched"
+        return (labels, torch.stack([t for t, _ in seen]),
+                torch.stack([m for _, m in seen]))
+
+    def compare(a, b):
+        (lab_a, top_a, m_a), (lab_b, top_b, m_b) = a, b
+        d_score = (top_a[..., 4] * top_a[..., 5]
+                   - top_b[..., 4] * top_b[..., 5]).abs().max().item()
+        side = (top_b[..., 2:4] - top_b[..., 0:2]).amax(-1, keepdim=True)
+        d_box = (top_a[..., :4] - top_b[..., :4]).abs()
+        d_m = (m_a - m_b).abs()
+        agree = [float((x == y).mean()) for x, y in zip(lab_a[1:], lab_b[1:])]
+        return dict(score=d_score, box=d_box.max().item(),
+                    box_bad=int((d_box > 0.05 * side + 2.0).sum()),
+                    mask=d_m.max().item(), mask_mean=d_m.mean().item(),
+                    mask_over=float((d_m > 0.05).float().mean()),
+                    labels=min(agree))
+
+    captured = []
+
+    def capture(v, locs, attw, method):
+        if not captured:
+            captured.append((v.clone(), locs.clone(), attw.clone(), method))
+        return msda(v, locs, attw, method)
+
+    with mock.patch.object(interaction, "ms_deform_attn", capture):
+        kern = run(())
+    cmp = {"all three": compare(kern, run(("dwconv7x7", "msda",
+                                            "correlation")))}
+    for name in ("dwconv7x7", "msda", "correlation"):
+        cmp[name] = compare(kern, run((name,)))
+    for name, c in cmp.items():
+        print(f"  (c) vos sequence {davis[0].name}, "
+              f"{len(davis[0].frames) - 1} tracked frames x 3 slots, "
+              f"kernels vs plain ({name}) through run_sequence_vos: top "
+              f"score max |d| {c['score']:.3e} (tol 0.05), top box max |d| "
+              f"{c['box']:.3f} px ({c['box_bad']} coordinates beyond 5% of "
+              f"the larger side + 2 px), mask probabilities max |d| "
+              f"{c['mask']:.3e} (tol 0.05), mean {c['mask_mean']:.3e}, "
+              f"{c['mask_over'] * 100:.4f}% beyond 0.05; label maps equal "
+              f"on {c['labels'] * 100:.3f}% of a frame's pixels at least")
+    # the MSDA kernel against its plain version on the first frame's
+    # inputs, at phase kernels' bound (accumulation order, and a bf16 ulp of
+    # the output)
+    v, locs, attw, method = captured[0]
+    yk = msda(v, locs, attw, method)
+    yp = da.ms_deform_attn_plain(v, locs, attw, "factored")
+    mag = da.ms_deform_attn_plain(v.float().abs(), locs, attw.float(),
+                                  "direct")
+    L, P = locs.shape[3], locs.shape[4]
+    tol = L * P * 4 * 2.0 ** -24 * mag + 1e-7
+    if yk.dtype == torch.bfloat16:
+        tol = tol + bf16_ulp(torch.maximum(yk.float().abs(),
+                                           yp.float().abs()))
+    diff = (yk.float() - yp.float()).abs()
+    msda_bad = int((diff > tol).sum())
+    print(f"  (c) the MSDA kernel vs its plain version on that run's first "
+          f"frame ({tuple(v.shape)} {v.dtype}): max |d| "
+          f"{diff.max().item():.3e}, {msda_bad} outputs beyond phase "
+          f"kernels' bound")
+    # scores and boxes at phase vos's bounds; the mask probabilities, which
+    # the bf16 mask head moves by up to 0.065 under the MSDA kernel's
+    # ulp-level difference alone, by their mean and the share beyond 0.05
+    c = cmp["all three"]
+    assert msda_bad == 0 and c["score"] <= 0.05 and c["box_bad"] == 0
+    assert c["mask_mean"] <= 0.01 and c["mask_over"] <= 0.01
+    # (d) VOS frames/s through the runner, then J&F's cost
+    _reset_kernel_counts()
+    reads = [0.0]
+    t0 = time.perf_counter()
+    with _timed_reads(running, reads):
+        preds = {s.name: running.run_sequence_vos(driver(), s)
+                 for s in davis}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _kernel_counts()
+    n_frames = sum(len(s.frames) for s in davis)
+    tracked = n_frames - len(davis)
+    assert counts == _harness_expect(len(davis), tracked), counts
+    gts = {s.name: [read_indexed_mask(m) for m in s.masks] for s in davis}
+    t0 = time.perf_counter()
+    scores = davis_metrics.evaluate_davis(preds, gts)
+    jf_s = time.perf_counter() - t0
+    scored = sum(len(g) - 2 for g in gts.values())
+    print(f"  (d) run_sequence_vos on DAVIS ({report.get('card', '')}): "
+          f"{n_frames} frames of 480x854 -> {exp.test_size}, "
+          f"{n_frames / wall:.2f} frames/s with initialize, reading frames "
+          f"{reads[0] / wall * 100:.1f}% of {wall:.2f} s; launches "
+          f"{counts}; J&F {scores} in {jf_s * 1e3:.1f} ms, "
+          f"{jf_s / scored * 1e3:.1f} ms a scored frame "
+          f"({scores['n_objects']} objects, host dilation)")
+    report["harness_vos_fps"] = n_frames / wall
+
+
+def _harness_utils(report, out):
+    """(e) csrc/pack.cpp against the numpy form at 800x1280x3, ms each;
+    utils.profiling.trace around one SOT frame (a Chrome trace with the
+    annotated region; its CUDA kernel events counted); device_memory_stats;
+    utils.model_utils.get_model_info on phase sot's served
+    unicorn_track_tiny at 800x1280, its parameter count equal to phase
+    backbones' count of the exp."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from unicorn_torch.csrc import native
+    from unicorn_torch.data.image_io import imread
+    from unicorn_torch.drivers.sot import SOTDriver
+    from unicorn_torch.drivers.stream import pack_frames_np, pack_frames_plain
+    from unicorn_torch.utils import model_utils, profiling
+
+    frame = imread(os.path.join(FIXTURES, DISK_FRAMES[0]))[None, :800, :1280]
+    frame = np.ascontiguousarray(frame)
+    packed = native.pack_frames_s2d4(frame)
+    assert np.array_equal(packed, pack_frames_plain(frame))
+    assert np.array_equal(pack_frames_np(frame), packed)
+    ms = {}
+    for name, fn in (("native", native.pack_frames_s2d4),
+                     ("numpy", pack_frames_plain)):
+        t = []
+        for _ in range(HARNESS_PACK_REPS):
+            t0 = time.perf_counter()
+            fn(frame)
+            t.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = float(np.median(t))
+    print(f"  (e) pack 1x800x1280x3 -> {packed.shape}: native equal to the "
+          f"numpy form bit for bit; median of {HARNESS_PACK_REPS}: native "
+          f"{ms['native']:.3f} ms, numpy {ms['numpy']:.3f} ms (host, "
+          f"{report.get('card', '')})")
+
+    exp, model = _sot_model(report)
+    drv = SOTDriver(model, exp.test_size, conf_thre=0.0, device=DEVICE)
+    frames = _sot_frames(2, seed=19)
+    drv.initialize(frames[0], INIT_BOX)
+    drv.track(frames[1])
+    log_dir = os.path.join(out, "trace")
+    with profiling.trace(log_dir):
+        with profiling.annotate("harness_sot_frame"):
+            drv.track(frames[2])
+            torch.cuda.synchronize()
+    files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    assert len(files) == 1, files
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert any(e.get("name") == "harness_sot_frame" for e in events)
+    stats = profiling.device_memory_stats()
+    s0 = stats["cuda:0"]
+    assert 0 < s0["bytes_in_use"] <= s0["peak_bytes_in_use"] <= \
+        s0["bytes_limit"], s0
+    t0 = time.perf_counter()
+    info = model_utils.get_model_info(model, (1, *exp.test_size, 3))
+    torch.cuda.synchronize()
+    info_ms = (time.perf_counter() - t0) * 1e3
+    n = model_utils.count_params(model)
+    want = report.get("exp_params", {}).get("unicorn_track_tiny")
+    print(f"  (e) trace of one SOT frame: {os.path.basename(files[0])}, "
+          f"{os.path.getsize(files[0]) / 1e6:.2f} MB, {len(events)} events, "
+          f"{len(kernels)} CUDA kernel events; device_memory_stats {stats}; "
+          f"get_model_info: {info} ({n:,} parameters; phase backbones "
+          f"counted {want if want is None else f'{want:,}'}), "
+          f"{info_ms:.0f} ms")
+    assert want is None or n == want
+    assert info.startswith(f"Params: {n / 1e6:.2f}M, GFLOPs: ")
+
+
+def phase_harness(report):
+    """The SOT / VOS benchmark harness on layouts written under
+    chiprun_out/harness_data from the fixtures (`_write_harness_layouts`,
+    removed when the phase passes), with UNICORN_DATADIR there: (a) and the
+    SOT halves of (c), (d) `_harness_sot`; (b) and the VOS halves
+    `_harness_vos`; (e) `_harness_utils`."""
+    import shutil
+    import tempfile
+
+    print(f"harness ({report.get('card', '')})")
+    shutil.rmtree(HARNESS_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    gts = _write_harness_layouts(HARNESS_ROOT)
+    print(f"  layouts written under {HARNESS_ROOT} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    env = os.environ.get("UNICORN_DATADIR")
+    os.environ["UNICORN_DATADIR"] = HARNESS_ROOT
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_harness_")
+    try:
+        _harness_sot(report, gts, tmp.name)
+        _harness_vos(report, tmp.name)
+        _harness_utils(report, tmp.name)
+    finally:
+        tmp.cleanup()
+        if env is None:
+            os.environ.pop("UNICORN_DATADIR", None)
+        else:
+            os.environ["UNICORN_DATADIR"] = env
+    shutil.rmtree(HARNESS_ROOT)
+
+
 # ------------------------------------------------------ opt-in: profile
 def _profile(label, step, frames, show=()):
     """torch.profiler over step(frame) for each frame: CUDA time by kernel
@@ -5968,12 +6557,13 @@ PHASES = {
     "det": phase_det,
     "backbones": phase_backbones,
     "eval": phase_eval,
+    "harness": phase_harness,
     "profile": phase_profile,
 }
 DEFAULT_PHASES = ("build", "kernels", "model", "main", "block_model",
                   "stream", "sot_model", "sot", "inst", "vos", "omni",
                   "train_model", "train", "inst_train", "mask_train",
-                  "trainer", "disk", "det", "backbones", "eval")
+                  "trainer", "disk", "det", "backbones", "eval", "harness")
 
 
 def main(argv=None) -> int:

@@ -16,7 +16,10 @@ path (preproc, transforms, the omni datasets, the loaders), the image
 reader, the on-disk datasets and the RLE codec, the mosaic augmentation,
 the dataset converters, the ResNet-50 and Swin trunks, the exp loader and
 every exp copy, the evaluators with their native codecs' bindings and the
-eval tool. A second test reads every source file of unicorn_torch and
+eval tool, the SOT / VOS benchmark harness with the test and analysis
+tools, and the host utils (setup_env, label_ops, model_utils, profiling).
+matplotlib is refused too: the harness's plot_results imports it only when
+it is called (the card's machine has none). A second test reads every source file of unicorn_torch and
 finds no import statement of cv2, PIL, JAX or the JAX package anywhere in
 it, inside functions too (where an import happens only when called).
 """
@@ -31,7 +34,7 @@ SCRIPT = r"""
 import importlib, pkgutil, sys
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "unicorn_tpu", "tools", "cv2",
-           "PIL")
+           "PIL", "matplotlib")
 
 class Blocker:
     def find_spec(self, name, path=None, target=None):
@@ -78,7 +81,11 @@ for n in ("ops.deform_attn", "ops.correlation", "ops.correlation_kernel",
           "evaluators.coco_inst_evaluator", "evaluators.voc_eval",
           "evaluators.voc_evaluator", "evaluators.mot_metrics",
           "evaluators.mots_metrics", "evaluators.mot_evaluator",
-          "evaluators.bdd_evaluator", "tools.eval"):
+          "evaluators.bdd_evaluator", "tools.eval", "harness",
+          "harness.datasets", "harness.running", "harness.analysis",
+          "harness.davis_metrics", "harness.submission", "tools.test",
+          "tools.analysis_results", "utils.setup_env", "utils.label_ops",
+          "utils.model_utils", "utils.profiling"):
     assert "unicorn_torch." + n in names, n
 print(len(names))
 """

@@ -1,11 +1,14 @@
-"""ctypes bindings of the evaluators' native host libraries (the port's
-counterpart of unicorn_tpu/csrc/bindings.py): the COCO RLE mask codec
-`csrc/rle.cpp` and COCOeval's matcher `csrc/cocoeval.cpp`.
+"""ctypes bindings of the port's native host libraries (its counterpart
+of unicorn_tpu/csrc/bindings.py): the COCO RLE mask codec
+`csrc/rle.cpp` and COCOeval's matcher `csrc/cocoeval.cpp` of the
+evaluators, and the serving ingest's 4x4 space-to-depth packer
+`csrc/pack.cpp`.
 
 Each is built on first use by csrc/build.py with the system C++ compiler
 into `csrc/_build/`. A failed build raises: nothing falls back to the
-numpy / Python forms, which stay in unicorn_torch/evaluators/rle.py and
-coco_map.py as the plain reference the tests hold these against.
+numpy / Python forms, which stay in unicorn_torch/evaluators/rle.py,
+coco_map.py and drivers/stream.py `pack_frames_plain` as the plain
+reference the tests hold these against.
 """
 from __future__ import annotations
 
@@ -48,12 +51,18 @@ def _declare_cocoeval(lib):
                                           _f64p, _i64, _i64p, _u8p]
 
 
-_DECLARE = {"rle": _declare_rle, "cocoeval": _declare_cocoeval}
+def _declare_pack(lib):
+    lib.pack_frames_s2d4.restype = None
+    lib.pack_frames_s2d4.argtypes = [_u8p, _i64, _i64, _i64, _i64, _u8p]
+
+
+_DECLARE = {"rle": _declare_rle, "cocoeval": _declare_cocoeval,
+            "pack": _declare_pack}
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded csrc/<name>.cpp ("rle" or "cocoeval"), built first if
-    needed, its functions declared."""
+    """The loaded csrc/<name>.cpp ("rle", "cocoeval" or "pack"), built
+    first if needed, its functions declared."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -189,3 +198,21 @@ def evaluate_img(ious: np.ndarray, gt_ignore: np.ndarray,
         _ptr(gt_iscrowd, ctypes.c_uint8), _ptr(thresholds, ctypes.c_double),
         T, _ptr(dt_match, ctypes.c_int64), _ptr(dt_ignore, ctypes.c_uint8))
     return dt_match, dt_ignore.astype(bool)
+
+
+def pack_frames_s2d4(frames: np.ndarray) -> np.ndarray:
+    """(N, H, W, C) uint8 -> (N, H/4, W/4, 16 * C) uint8, the 4x4
+    space-to-depth in patch-major (dy, dx, c) order; H and W multiples of
+    4."""
+    if frames.dtype != np.uint8 or frames.ndim != 4:
+        raise ValueError(f"pack_frames_s2d4 takes (N, H, W, C) uint8 frames, "
+                         f"got {frames.dtype} {frames.shape}")
+    n, h, w, c = frames.shape
+    if h % 4 or w % 4:
+        raise ValueError(f"pack_frames_s2d4 needs H, W divisible by 4 "
+                         f"(letterboxed input), got {h}x{w}")
+    frames = np.ascontiguousarray(frames)
+    out = np.empty((n, h // 4, w // 4, 16 * c), np.uint8)
+    library("pack").pack_frames_s2d4(_ptr(frames, ctypes.c_uint8), n, h, w,
+                                     c, _ptr(out, ctypes.c_uint8))
+    return out

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..csrc.native import pack_frames_s2d4
 from ..device import resolve_device
 from ..models.heads import decode_for_inference
 from ..models.unicorn import Unicorn
@@ -24,10 +25,9 @@ from ..ops.nms import postprocess_device
 from ..tracker.device_tracker import init_state, tracker_step
 
 
-def pack_frames_np(frames: np.ndarray) -> np.ndarray:
-    """Host-side 4x4 space-to-depth: (N, H, W, 3) -> (N, H/4, W/4, 48), the
-    ingest format the ConvNeXt stem consumes as one matmul. Patch-major
-    (dy, dx, c) order, as models.convnext.space_to_depth_4x4."""
+def pack_frames_plain(frames: np.ndarray) -> np.ndarray:
+    """Host-side 4x4 space-to-depth in numpy: (N, H, W, C) -> (N, H/4, W/4,
+    16 * C), any dtype; the plain form of csrc/pack.cpp."""
     n, h, w, c = frames.shape
     if h % 4 or w % 4:
         raise ValueError(f"pack_frames_np needs H, W divisible by 4 "
@@ -35,6 +35,18 @@ def pack_frames_np(frames: np.ndarray) -> np.ndarray:
     xp = frames.reshape(n, h // 4, 4, w // 4, 4, c)
     return np.ascontiguousarray(xp.transpose(0, 1, 3, 2, 4, 5)).reshape(
         n, h // 4, w // 4, 16 * c)
+
+
+def pack_frames_np(frames: np.ndarray) -> np.ndarray:
+    """Host-side 4x4 space-to-depth: (N, H, W, 3) -> (N, H/4, W/4, 48), the
+    ingest format the ConvNeXt stem consumes as one matmul. Patch-major
+    (dy, dx, c) order, as models.convnext.space_to_depth_4x4. uint8 frames
+    go through the native packer (csrc/pack.cpp, bit-equal to the numpy
+    form; a packer that cannot be built raises), frames of another dtype
+    through `pack_frames_plain`."""
+    if frames.dtype == np.uint8 and frames.ndim == 4:
+        return pack_frames_s2d4(frames)
+    return pack_frames_plain(frames)
 
 
 class StreamingMOTPipeline:
