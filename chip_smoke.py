@@ -218,6 +218,24 @@ Phases (each must pass, else the exit code is 1):
              frames/s, J&F ms a frame; (e) csrc/pack.cpp vs numpy at
              800x1280x3, utils.profiling.trace around one SOT frame,
              device_memory_stats, utils.model_utils.get_model_info
+  tools      the command-line tools (python -m unicorn_torch.tools.*), with
+             UNICORN_DATADIR at sets written under chiprun_out/tools_data
+             (phase disk's layouts, phase eval's BDD100K seg_track set, a
+             MOT17-style test set of 2 videos x 8 copies of the 1080x1920
+             JPEG with seeded moving boxes), unicorn_track_tiny and
+             unicorn_track_tiny_mask at full width, bf16, seed 0, biases
+             raised, saved as port checkpoints for -c: (a) track on the
+             host path and --fused --chunk 8 (27 dw7x7 a frame, frames/s,
+             the frame reads' and letterbox's share); (b) track_omni with
+             QDTrack, and --dataset bdd --mots (27 dw7x7 + 1 MSDA a
+             frame, seg_scores.json); (c) demo image on 2 frames and video
+             on a 4-frame directory (PNGs); (d) export_model whole and
+             decode (27 unicorn_torch.dwconv7x7 nodes, the reloaded
+             program 27 launches a call and bit-equal to eager, export
+             seconds, ms a frame against eager); (e) train 2 iterations on
+             phase disk's layout (36 / 1 / 2 / 2 / 2 a step); (f)
+             analysis_results --plot without matplotlib; (g) debug_only's
+             PNGs, no step
 `--only profile` adds a torch.profiler breakdown of the paths.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the rest of the
@@ -5910,19 +5928,24 @@ def _write_harness_layouts(root):
 
 
 @contextlib.contextmanager
-def _timed_reads(running, tally):
-    """harness/running.py's frame reads timed into tally[0] (seconds)."""
+def _timed_attrs(pairs, tally):
+    """Each (module, attribute) function of `pairs` timed into
+    tally[attribute] (seconds)."""
     from unittest import mock
 
-    read = running.imread
+    def timed(fn, key):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                tally[key] = tally.get(key, 0.0) + time.perf_counter() - t0
+        return wrapper
 
-    def timed(path):
-        t0 = time.perf_counter()
-        img = read(path)
-        tally[0] += time.perf_counter() - t0
-        return img
-
-    with mock.patch.object(running, "imread", timed):
+    with contextlib.ExitStack() as stack:
+        for mod, attr in pairs:
+            stack.enter_context(mock.patch.object(
+                mod, attr, timed(getattr(mod, attr), attr)))
         yield
 
 
@@ -6034,10 +6057,10 @@ def _harness_sot(report, gts, out):
     runs = {}
     n_all = sum(len(s.frames) for s in lasot)
     for window in (1, 8):
-        reads = [0.0]
+        reads = {}
         _reset_kernel_counts()
         t0 = time.perf_counter()
-        with _timed_reads(running, reads):
+        with _timed_attrs([(running, "imread")], reads):
             if window == 8:
                 boxes = list(running.run_dataset_sot(driver, lasot,
                                                      verbose=False).values())
@@ -6047,9 +6070,9 @@ def _harness_sot(report, gts, out):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         runs[window] = dict(
-            fps=n_all / wall, read_share=reads[0] / wall,
+            fps=n_all / wall, read_share=reads.get("imread", 0.0) / wall,
             counts=_kernel_counts(), boxes=np.concatenate(boxes), wall=wall,
-            read_ms=reads[0] / n_all * 1e3)
+            read_ms=reads.get("imread", 0.0) / n_all * 1e3)
     tracked = HARNESS_LASOT_FRAMES - 1
     nl = len(lasot)
     chunks = -(-tracked // 8)
@@ -6242,9 +6265,9 @@ def _harness_vos(report, out):
     assert c["mask_mean"] <= 0.01 and c["mask_over"] <= 0.01
     # (d) VOS frames/s through the runner, then J&F's cost
     _reset_kernel_counts()
-    reads = [0.0]
+    reads = {}
     t0 = time.perf_counter()
-    with _timed_reads(running, reads):
+    with _timed_attrs([(running, "imread")], reads):
         preds = {s.name: running.run_sequence_vos(driver(), s)
                  for s in davis}
     torch.cuda.synchronize()
@@ -6261,7 +6284,8 @@ def _harness_vos(report, out):
     print(f"  (d) run_sequence_vos on DAVIS ({report.get('card', '')}): "
           f"{n_frames} frames of 480x854 -> {exp.test_size}, "
           f"{n_frames / wall:.2f} frames/s with initialize, reading frames "
-          f"{reads[0] / wall * 100:.1f}% of {wall:.2f} s; launches "
+          f"{reads.get('imread', 0.0) / wall * 100:.1f}% of {wall:.2f} s; "
+          f"launches "
           f"{counts}; J&F {scores} in {jf_s * 1e3:.1f} ms, "
           f"{jf_s / scored * 1e3:.1f} ms a scored frame "
           f"({scores['n_objects']} objects, host dilation)")
@@ -6370,6 +6394,397 @@ def phase_harness(report):
         else:
             os.environ["UNICORN_DATADIR"] = env
     shutil.rmtree(HARNESS_ROOT)
+
+
+# --------------------------------------------------------------- phase tools
+TOOLS_ROOT = os.path.join(ROOT, "chiprun_out", "tools_data")
+TOOLS_VIDEOS = 2          # videos of the MOT17-style test set ...
+TOOLS_FRAMES = 8          # ... of this many copies of the 1080x1920 JPEG
+TOOLS_DEMO_VIDEO = 4      # frames of the demo's video directory
+TOOLS_TIMED = 10          # timed calls of the exported program and eager
+TOOLS_TRAIN_ITERS = 2     # iterations of tools.train at B = 2
+TOOLS_TEST = ["test_ann", "tools_test.json", "test_name", "tools_test"]
+# launches a frame of the detection tools (forward_whole) and of the omni
+# driver (MSDA once a frame)
+TOOLS_FRAME = dict(dwconv7x7=27, msda_factored=0, msda_direct=0,
+                   correlation=0)
+TOOLS_OMNI = dict(TOOLS_FRAME, msda_factored=1)
+TOOLS_DW_NODES = 27       # unicorn_torch.dwconv7x7 nodes of the export
+
+
+def _write_tools_sets(root):
+    """Under root: phase disk's reference layouts (`_write_disk_layouts`),
+    phase eval's BDD100K seg_track set (`_write_eval_sets`) moved to
+    bdd100k/ with its labels also as box_track_20/val.json (the tools'
+    default), and a MOT17-style COCO-video test set mot/tools_test/ of
+    TOOLS_VIDEOS videos x TOOLS_FRAMES copies of the 1080x1920 JPEG with
+    seeded moving boxes and track ids (mot/annotations/tools_test.json).
+    Returns the number of test frames."""
+    import shutil
+
+    import numpy as np
+
+    _write_disk_layouts(root)
+    _write_eval_sets(root)
+    shutil.move(os.path.join(root, "bdd"), os.path.join(root, "bdd100k"))
+    labels = os.path.join(root, "bdd100k", "labels")
+    os.makedirs(os.path.join(labels, "box_track_20"))
+    shutil.copyfile(os.path.join(labels, "seg_track_20", "rles", "val.json"),
+                    os.path.join(labels, "box_track_20", "val.json"))
+    rng = np.random.RandomState(20)
+    images, anns = [], []
+    for v in range(TOOLS_VIDEOS):
+        video = f"MOT17-{v + 2:02d}-FRCNN"
+        os.makedirs(os.path.join(root, "mot", "tools_test", video))
+        start = rng.randint(100, 1400, (5, 2))
+        for t in range(TOOLS_FRAMES):
+            name = f"{video}/{t + 1:06d}.jpg"
+            shutil.copyfile(os.path.join(FIXTURES, DISK_FRAMES[0]),
+                            os.path.join(root, "mot", "tools_test", name))
+            images.append({"id": len(images) + 1, "file_name": name,
+                           "height": 1080, "width": 1920,
+                           "frame_id": t + 1, "video_id": v + 1})
+            for k, (x, y) in enumerate(start + 8 * t):
+                anns.append({"id": len(anns) + 1, "image_id": len(images),
+                             "category_id": 1,
+                             "bbox": [int(x), int(y) // 2, 90, 240],
+                             "area": 90 * 240, "iscrowd": 0,
+                             "track_id": 10 * v + k})
+    with open(os.path.join(root, "mot", "annotations", "tools_test.json"),
+              "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": 1, "name": "pedestrian"}]}, f)
+    got = os.path.join(root, "GOT10K", "val")
+    seq = os.path.join(got, "GOT-10k_Val_000001")
+    os.makedirs(seq)
+    for t in range(3):
+        shutil.copyfile(os.path.join(FIXTURES, DISK_FRAMES[0]),
+                        os.path.join(seq, f"{t + 1:08d}.jpg"))
+    np.savetxt(os.path.join(seq, "groundtruth.txt"),
+               [[400 + 20 * t, 300, 240, 180] for t in range(3)],
+               delimiter=",", fmt="%d")
+    with open(os.path.join(got, "list.txt"), "w") as f:
+        f.write("GOT-10k_Val_000001\n")
+    return TOOLS_VIDEOS * TOOLS_FRAMES
+
+
+def _tools_ckpt(name, path):
+    """The port's seed-0 init of exp `name`, its obj / cls biases raised
+    (`_raise_priors`), saved as a port checkpoint at path; returns path."""
+    import torch
+
+    from unicorn_torch.exp.base import get_exp
+
+    model = get_exp(exp_name=name).get_model(torch.Generator().manual_seed(0))
+    _raise_priors(model)
+    torch.save({"model": model.state_dict()}, path)
+    return path
+
+
+def _tool(main, argv):
+    """main(argv) with the launch counts zeroed just before and read after
+    -> (its return, counts, wall seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    out = main(argv)
+    torch.cuda.synchronize()
+    return out, _all_counts(), time.perf_counter() - t0
+
+
+def _expect(per_frame, n):
+    return {k: n * per_frame.get(k, 0) for k in _all_counts()}
+
+
+def _tools_track(report, ckpt, out, n_frames):
+    """(a) tools.track on the host path and --fused --chunk 8: a txt a
+    video, 27 dw7x7 launches a frame, frames/s of the tracking loop and
+    the share of it spent reading (imread) and letterboxing frames."""
+    import numpy as np
+
+    from unicorn_torch.data import transforms
+    from unicorn_torch.data.datasets import mot as mot_ds
+    from unicorn_torch.tools import track
+
+    for mode, extra in (("host", []), ("fused", ["--fused", "--chunk", "8"])):
+        rdir = os.path.join(out, f"track_{mode}")
+        tally = {}
+        loop = (track, "run_fused") if mode == "fused" else (
+            track.MOTEvaluator, "evaluate")
+        with _timed_attrs([(mot_ds, "imread"), (transforms, "letterbox"),
+                           loop], tally):
+            res, counts, wall = _tool(track.main, [
+                "-n", "unicorn_track_tiny", "-c", ckpt, "--result-dir", rdir,
+                "--device", DEVICE, *extra, *TOOLS_TEST])
+        assert counts == _expect(TOOLS_FRAME, n_frames), counts
+        assert sorted(os.listdir(rdir)) == sorted(f"{v}.txt" for v in res)
+        assert len(res) == TOOLS_VIDEOS
+        rows = sum(len(np.loadtxt(os.path.join(rdir, f), delimiter=",",
+                                  ndmin=2)) for f in os.listdir(rdir))
+        n_tracks = sum(len(f[1]) for v in res.values() for f in v)
+        assert rows == n_tracks > 0, (rows, n_tracks)
+        t_loop = tally[loop[1]]
+        print(f"  (a) tools.track {mode} ({report.get('card', '')}): "
+              f"{n_frames} 1080x1920 frames in {wall:.2f} s with the "
+              f"model's build, the tracking loop {t_loop:.2f} s = "
+              f"{n_frames / t_loop:.2f} frames/s, reading frames "
+              f"{tally['imread'] / t_loop * 100:.1f}% "
+              f"({tally['imread'] / n_frames * 1e3:.1f} ms a frame) and the "
+              f"host letterbox {tally['letterbox'] / t_loop * 100:.1f}% "
+              f"({tally['letterbox'] / n_frames * 1e3:.1f} ms) of it; "
+              f"{n_tracks} track rows; launches {counts}")
+        _record_launches(report, f"tools_track_{mode}", counts)
+        report.setdefault("tools_fps", {})[mode] = n_frames / t_loop
+
+
+def _tools_omni(report, ckpt, mask_ckpt, out, n_frames):
+    """(b) tools.track_omni with QDTrack on the MOT17-style set
+    (unicorn_track_tiny) and --dataset bdd --mots
+    (unicorn_track_tiny_mask): 27 dw7x7 + 1 MSDA a frame, the txts and
+    seg_scores.json written."""
+    import numpy as np
+
+    from unicorn_torch.tools import track_omni
+
+    rdir = os.path.join(out, "omni_mot")
+    res, counts, wall = _tool(track_omni.main, [
+        "-n", "unicorn_track_tiny", "-c", ckpt, "--result-dir", rdir,
+        "--device", DEVICE, *TOOLS_TEST])
+    assert counts == _expect(TOOLS_OMNI, n_frames), counts
+    assert sorted(os.listdir(rdir)) == sorted(f"{v}.txt" for v in res)
+    n_tracks = sum(len(f[1]) for v in res.values() for f in v)
+    assert n_tracks > 0
+    print(f"  (b) tools.track_omni qd ({report.get('card', '')}): "
+          f"{n_frames} frames in {wall:.2f} s with the model's build; "
+          f"{n_tracks} track rows; launches {counts}")
+    _record_launches(report, "tools_track_omni", counts)
+    rdir = os.path.join(out, "omni_bdd")
+    n_bdd = EVAL_BDD_VIDEOS * EVAL_BDD_FRAMES
+    scores, counts, wall = _tool(track_omni.main, [
+        "-n", "unicorn_track_tiny_mask", "-c", mask_ckpt, "--dataset", "bdd",
+        "--mots", "--result-dir", rdir, "--device", DEVICE])
+    assert counts == _expect(TOOLS_OMNI, n_bdd), counts
+    with open(os.path.join(rdir, "seg_scores.json")) as f:
+        written = json.load(f)
+    assert all(np.isfinite(written[k]) for k in ("mMOTSA", "mIDF1"))
+    assert written["mMOTSA"] == float(scores["mMOTSA"])
+    print(f"  (b) tools.track_omni --dataset bdd --mots: {n_bdd} 720x1280 "
+          f"frames in {wall:.2f} s with the model's build; seg_scores.json "
+          f"mMOTSA {written['mMOTSA']:.4f} mIDF1 {written['mIDF1']:.4f}; "
+          f"launches {counts}")
+    _record_launches(report, "tools_track_omni_bdd_mots", counts)
+
+
+def _tools_demo(report, ckpt, out):
+    """(c) tools.demo image on 2 frames and video on a TOOLS_DEMO_VIDEO
+    frame directory: the drawn PNGs written, 27 dw7x7 a frame."""
+    import shutil
+
+    from unicorn_torch.data.image_io import read_png
+    from unicorn_torch.tools import demo
+
+    src = os.path.join(TOOLS_ROOT, "mot", "tools_test", "MOT17-02-FRCNN")
+    for sub, n in (("demo_images", 2), ("demo_video", TOOLS_DEMO_VIDEO)):
+        os.makedirs(os.path.join(out, sub))
+        for t in range(n):
+            shutil.copyfile(os.path.join(src, f"{t + 1:06d}.jpg"),
+                            os.path.join(out, sub, f"{t:04d}.jpg"))
+    for mode, path, n, save in (
+            ("image", "demo_images", 2, "demo_image_out"),
+            ("video", "demo_video", TOOLS_DEMO_VIDEO, "demo_video_out")):
+        save = os.path.join(out, save)
+        dets, counts, wall = _tool(demo.main, [
+            mode, "-n", "unicorn_track_tiny", "-c", ckpt, "--path",
+            os.path.join(out, path), "--save-dir", save, "--device", DEVICE])
+        assert counts == _expect(TOOLS_FRAME, n), counts
+        pngs = (sorted(os.listdir(save)) if mode == "image" else
+                sorted(os.listdir(os.path.join(save, "demo_out"))))
+        assert len(pngs) == n, pngs
+        first = read_png(os.path.join(
+            save if mode == "image" else os.path.join(save, "demo_out"),
+            pngs[0]))
+        assert first.shape == (1080, 1920, 3)
+        print(f"  (c) tools.demo {mode}: {n} frames in {wall:.2f} s with the "
+              f"model's build, {sum(len(d) for d in dets.values())} "
+              f"detections drawn, PNGs {pngs}; launches {counts}")
+        _record_launches(report, f"tools_demo_{mode}", counts)
+
+
+def _tools_export(report, ckpt, out):
+    """(d) tools.export_model in both modes: 27 unicorn_torch.dwconv7x7
+    nodes, the reloaded program 27 launches a call and the eager model's
+    output bit for bit, the eager model's kernels vs its plain route at
+    phase model's bounds; export seconds, the loaded program's ms a frame
+    against eager (CUDA events over TOOLS_TIMED calls each)."""
+    import numpy as np
+    import torch
+    import torch.utils._pytree as pytree
+
+    from unicorn_torch.device import resolve_device
+    from unicorn_torch.exp.base import get_exp
+    from unicorn_torch.tools import export_model
+    from unicorn_torch.tools.common import load_model
+
+    exp = get_exp(exp_name="unicorn_track_tiny")
+    model = load_model(exp, ckpt).to(resolve_device(DEVICE))
+    _forward_whole_check("  (d) the exported model, eager,", exp, model,
+                         TOOLS_FRAME["dwconv7x7"])
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy((rng.rand(1, *exp.test_size, 3) * 255).round()
+                         .astype(np.float32)).to(DEVICE).permute(0, 3, 1, 2)
+    for mode in ("whole", "decode"):
+        path = os.path.join(out, f"unicorn_track_tiny_{mode}.pt2")
+        t0 = time.perf_counter()
+        program, _ = export_model.main([
+            "-n", "unicorn_track_tiny", "-c", ckpt, "--out", path, "--mode",
+            mode, "--device", DEVICE])
+        t_export = time.perf_counter() - t0
+        loaded = torch.export.load(path).module()
+        eager = export_model.ExportForward(model, mode == "decode")
+        assert export_model.dw_nodes(program) == TOOLS_DW_NODES
+        with torch.inference_mode():
+            want = eager(x)
+            torch.cuda.synchronize()
+            _reset_all_counts()
+            got = loaded(x)
+            torch.cuda.synchronize()
+            counts = _all_counts()
+            assert counts == _expect(TOOLS_FRAME, 1), counts
+            _record_launches(report, f"tools_export_{mode}", counts)
+            a, b = pytree.tree_leaves(got), pytree.tree_leaves(want)
+            assert len(a) == len(b)
+            d = max((u.float() - v.float()).abs().max().item()
+                    for u, v in zip(a, b))
+            ms = {}
+            for name, fn in (("loaded", loaded), ("eager", eager)):
+                fn(x)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(TOOLS_TIMED):
+                    fn(x)
+                end.record()
+                torch.cuda.synchronize()
+                ms[name] = start.elapsed_time(end) / TOOLS_TIMED
+        print(f"  (d) tools.export_model {mode} ({report.get('card', '')}): "
+              f"exported in {t_export:.1f} s with the model's build, "
+              f"{os.path.getsize(path) / 2 ** 20:.1f} MiB; "
+              f"{export_model.dw_nodes(program)} unicorn_torch.dwconv7x7 "
+              f"nodes; the reloaded program: "
+              f"launches {counts}, max |d| against eager {d:.3e}, "
+              f"{ms['loaded']:.2f} ms a frame against eager's "
+              f"{ms['eager']:.2f} (CUDA events, {TOOLS_TIMED} calls)")
+        assert d == 0.0, d
+        report.setdefault("tools_export", {})[mode] = (t_export, ms)
+
+
+def _tools_train(report, out):
+    """(e) tools.train -n unicorn_track_tiny -b 2 for TOOLS_TRAIN_ITERS
+    iterations on phase disk's layout: 36 / 1 / 2 / 2 / 2 launches a step;
+    (g) the same with debug_only: a PNG a frame of the first batch under
+    debug_data, no step, no launch."""
+    from unicorn_torch.data.image_io import read_png
+    from unicorn_torch.tools import train
+
+    opts = ["samples_per_epoch", str(2 * TOOLS_TRAIN_ITERS), "max_epoch",
+            "1", "print_interval", "1", "pretrain_name", "none",
+            *sum(([k, str(v)] for k, v in DISK_EXP_FIELDS.items()), [])]
+    for k, v in TRAINER_EXP_FIELDS.items():
+        opts += [k, repr(v)]
+    tr, counts, wall = _tool(train.main, [
+        "-n", "unicorn_track_tiny", "-b", "2", "--device", DEVICE,
+        "output_dir", os.path.join(out, "train"), *opts])
+    assert tr.state.step == TOOLS_TRAIN_ITERS
+    assert counts == _expect(TRAIN_LAUNCHES, TOOLS_TRAIN_ITERS), counts
+    assert os.path.isfile(os.path.join(tr.output_dir, "latest"))
+    print(f"  (e) tools.train unicorn_track_tiny -b 2 from disk "
+          f"({report.get('card', '')}): {TOOLS_TRAIN_ITERS} iterations in "
+          f"{wall:.2f} s with the build, the loader and the save; launches "
+          f"{counts}")
+    _record_launches(report, "tools_train", counts)
+    tr, counts, wall = _tool(train.main, [
+        "-n", "unicorn_track_tiny", "-b", "2", "--device", DEVICE,
+        "output_dir", os.path.join(out, "debug"), "debug_only", "True",
+        *opts])
+    dump = os.path.join(tr.output_dir, "debug_data")
+    names = sorted(os.listdir(dump))
+    assert tr.state.step == 0 and sum(counts.values()) == 0, counts
+    assert [n[:16] for n in names] == [f"batch_b{b}_f{f}_task"
+                                       for b in (0, 1) for f in (0, 1)]
+    H, W = tr.input_size
+    assert read_png(os.path.join(dump, names[0])).shape == (H, W, 3)
+    print(f"  (g) debug_only: {names} ({H}x{W}) in {wall:.2f} s, no step")
+
+
+def _tools_plot(report, out):
+    """(f) tools.analysis_results --plot with matplotlib not importable: the
+    PNG of PLOT_SIZE."""
+    from unittest import mock
+
+    import numpy as np
+
+    from unicorn_torch.data.image_io import read_png
+    from unicorn_torch.harness import analysis
+    from unicorn_torch.tools import analysis_results
+
+    res = os.path.join(out, "sot_results")
+    os.makedirs(res)
+    gt = np.loadtxt(os.path.join(TOOLS_ROOT, "GOT10K", "val",
+                                 "GOT-10k_Val_000001", "groundtruth.txt"),
+                    delimiter=",")
+    np.savetxt(os.path.join(res, "GOT-10k_Val_000001.txt"), gt + 6,
+               delimiter="\t")
+    png = os.path.join(out, "ope.png")
+    blocked = {m: None for m in list(sys.modules) + ["matplotlib"]
+               if m.split(".")[0] == "matplotlib"}
+    with mock.patch.dict(sys.modules, blocked):
+        metrics = analysis_results.main([
+            "--dataset", "got10k_val", "--result-dir", res, "--plot", png])
+    assert read_png(png).shape == analysis.PLOT_SIZE + (3,)
+    print(f"  (f) tools.analysis_results --plot without matplotlib: {png} "
+          f"{analysis.PLOT_SIZE}, {metrics}")
+
+
+def phase_tools(report):
+    """The command-line tools on unicorn_track_tiny (and
+    unicorn_track_tiny_mask) at full width, bf16, seed-0 weights with the
+    obj / cls biases raised, saved as port checkpoints for -c, with
+    UNICORN_DATADIR at the sets `_write_tools_sets` writes under
+    chiprun_out/tools_data (removed when the phase passes): (a)
+    `_tools_track`, (b) `_tools_omni`, (c) `_tools_demo`, (d)
+    `_tools_export`, (e) and (g) `_tools_train`, (f) `_tools_plot`."""
+    import shutil
+    import tempfile
+
+    print(f"tools ({report.get('card', '')})")
+    shutil.rmtree(TOOLS_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    n_frames = _write_tools_sets(TOOLS_ROOT)
+    print(f"  sets written under {os.path.relpath(TOOLS_ROOT, ROOT)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    env = os.environ.get("UNICORN_DATADIR")
+    os.environ["UNICORN_DATADIR"] = TOOLS_ROOT
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_tools_")
+    try:
+        ckpt = _tools_ckpt("unicorn_track_tiny",
+                           os.path.join(tmp.name, "track_ckpt"))
+        mask_ckpt = _tools_ckpt("unicorn_track_tiny_mask",
+                                os.path.join(tmp.name, "mask_ckpt"))
+        _tools_track(report, ckpt, tmp.name, n_frames)
+        _tools_omni(report, ckpt, mask_ckpt, tmp.name, n_frames)
+        _tools_demo(report, ckpt, tmp.name)
+        _tools_export(report, ckpt, tmp.name)
+        _tools_train(report, tmp.name)
+        _tools_plot(report, tmp.name)
+    finally:
+        tmp.cleanup()
+        if env is None:
+            os.environ.pop("UNICORN_DATADIR", None)
+        else:
+            os.environ["UNICORN_DATADIR"] = env
+    shutil.rmtree(TOOLS_ROOT)
 
 
 # ------------------------------------------------------ opt-in: profile
@@ -6558,12 +6973,14 @@ PHASES = {
     "backbones": phase_backbones,
     "eval": phase_eval,
     "harness": phase_harness,
+    "tools": phase_tools,
     "profile": phase_profile,
 }
 DEFAULT_PHASES = ("build", "kernels", "model", "main", "block_model",
                   "stream", "sot_model", "sot", "inst", "vos", "omni",
                   "train_model", "train", "inst_train", "mask_train",
-                  "trainer", "disk", "det", "backbones", "eval", "harness")
+                  "trainer", "disk", "det", "backbones", "eval", "harness",
+                  "tools")
 
 
 def main(argv=None) -> int:

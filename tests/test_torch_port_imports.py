@@ -17,11 +17,14 @@ reader, the on-disk datasets and the RLE codec, the mosaic augmentation,
 the dataset converters, the ResNet-50 and Swin trunks, the exp loader and
 every exp copy, the evaluators with their native codecs' bindings and the
 eval tool, the SOT / VOS benchmark harness with the test and analysis
-tools, and the host utils (setup_env, label_ops, model_utils, profiling).
-matplotlib is refused too: the harness's plot_results imports it only when
-it is called (the card's machine has none). A second test reads every source file of unicorn_torch and
-finds no import statement of cv2, PIL, JAX or the JAX package anywhere in
-it, inside functions too (where an import happens only when called).
+tools, the host utils (setup_env, label_ops, model_utils, profiling), the
+cv2-free drawing (visualize, debug_dump, demo_utils) and the model tools
+(track, track_omni, demo, train, launch_uni, interpolation,
+export_model). matplotlib is refused too (the card's machine has none; the
+harness's plot_results draws without it). A second test reads every
+source file of unicorn_torch and finds no import statement of cv2, PIL,
+matplotlib, JAX or the JAX package anywhere in it, inside functions too
+(where an import happens only when called).
 """
 import ast
 import os
@@ -85,7 +88,11 @@ for n in ("ops.deform_attn", "ops.correlation", "ops.correlation_kernel",
           "harness.datasets", "harness.running", "harness.analysis",
           "harness.davis_metrics", "harness.submission", "tools.test",
           "tools.analysis_results", "utils.setup_env", "utils.label_ops",
-          "utils.model_utils", "utils.profiling"):
+          "utils.model_utils", "utils.profiling", "utils.visualize",
+          "utils.debug_dump", "utils.demo_utils", "tools.common",
+          "tools.interpolation", "tools.train", "tools.launch_uni",
+          "tools.track", "tools.track_omni", "tools.demo",
+          "tools.export_model"):
     assert "unicorn_torch." + n in names, n
 print(len(names))
 """
@@ -102,7 +109,8 @@ def test_port_imports_no_jax_nor_jax_package():
 
 
 def test_port_sources_import_no_cv2_pil_nor_jax():
-    blocked = {"cv2", "PIL", "jax", "jaxlib", "flax", "optax", "unicorn_tpu"}
+    blocked = {"cv2", "PIL", "jax", "jaxlib", "flax", "optax", "unicorn_tpu",
+               "matplotlib"}
     found, n_files = [], 0
     for dirpath, _, files in os.walk(os.path.join(ROOT, "unicorn_torch")):
         for f in files:

@@ -494,15 +494,22 @@ def test_eval_skipped_without_evaluator_and_best_ckpt(tmp_path):
 
 
 def test_debug_only_and_on_disk_data_raise(tmp_path, monkeypatch):
-    """debug_dump is not ported; the on-disk mixes under a data root that
-    holds none of their datasets raise FileNotFoundError naming the root
-    (each dataset skipped with a warning first), detection's mosaic
-    loader among them."""
+    """debug_only draws the first uni batch to <output_dir>/debug_data (one
+    PNG a frame) and stops before any step; the on-disk mixes under a data
+    root that holds none of their datasets raise FileNotFoundError naming
+    the root (each dataset skipped with a warning first), detection's
+    mosaic loader among them."""
     from unicorn_torch.exp.det import ExpDet
 
     tr = _trainer(tmp_path, debug_only=True)
-    with pytest.raises(NotImplementedError, match="debug_dump"):
-        tr.before_train()
+    tr.train()
+    assert tr.state.step == 0 and tr.iter == 0
+    out = os.path.join(tr.output_dir, "debug_data")
+    names = sorted(os.listdir(out))
+    assert [n[:len("batch_b0_f0_task")] for n in names] == [
+        f"batch_b{b}_f{f}_task" for b in (0, 1) for f in (0, 1)]
+    assert {n[len("batch_b0_f0_task"):] for n in names} <= {"0.png", "1.png"}
+    assert not os.path.exists(os.path.join(tr.output_dir, "latest"))
     monkeypatch.setenv("UNICORN_DATADIR", str(tmp_path / "none"))
     exp = ExpTrack()
     with pytest.raises(FileNotFoundError, match="none"):

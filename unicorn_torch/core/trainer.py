@@ -29,6 +29,7 @@ import torch
 from ..device import resolve_device
 from ..evaluators.coco_evaluator import decode_forward
 from ..evaluators.coco_inst_evaluator import COCOInstEvaluator
+from ..utils.debug_dump import dump_uni_batch
 from ..utils.logger import setup_logger
 from ..utils.meters import MeterBuffer
 from .checkpoint import (load_checkpoint, load_matching, save_checkpoint,
@@ -66,7 +67,8 @@ class Trainer:
         try:
             for self.epoch in range(self.start_epoch, self.max_epoch):
                 self.before_epoch()
-                self.train_in_epoch()
+                if self.train_in_epoch() == "debug_only":
+                    break  # the first batch is dumped; nothing trains
                 if self._preempted is not None:
                     break  # checkpoint already written by train_in_epoch
                 self.after_epoch()
@@ -102,10 +104,6 @@ class Trainer:
 
     def before_train(self):
         exp = self.exp
-        if getattr(exp, "debug_only", False):
-            raise NotImplementedError(
-                "debug_only dumps batches with cv2 drawing "
-                "(utils/debug_dump.py), which is not ported")
         model = exp.get_model(torch.Generator().manual_seed(exp.seed or 0))
         self.model = model.train()
         if getattr(exp, "pretrain_name", None) and \
@@ -245,11 +243,23 @@ class Trainer:
         return out
 
     def train_in_epoch(self):
+        """One epoch of steps. With the exp's debug_only, the first batch
+        of a uni exp is drawn to <output_dir>/debug_data instead
+        (utils/debug_dump.py) and no step runs: returns "debug_only"."""
         t_data = t_step = 0.0
         it = iter(self.loader)
         for self.iter in range(self.iters_per_epoch):
             t0 = time.perf_counter()
-            batch = self.device_batch(next(it))
+            batch = next(it)
+            if getattr(self.exp, "debug_only", False) and self.iter == 0:
+                if self.exp.task == "uni":
+                    dump_uni_batch(os.path.join(self.output_dir, "debug_data"),
+                                   *batch[:3],
+                                   masks=batch[3] if len(batch) == 4 else None)
+                self.logger.info("debug_only: dumped first batch to %s; "
+                                 "stopping", self.output_dir)
+                return "debug_only"
+            batch = self.device_batch(batch)
             t1 = time.perf_counter()
             self.step_fn = self._get_step_fn(tuple(batch[0].shape[-2:]))
             if self.exp.task == "inst":

@@ -7,13 +7,17 @@ rounded to the compute dtype first, the 49-tap sum is taken in fp32 and the
 output is rounded once to the compute dtype. (The JAX reference form adds the
 bias in the compute dtype, so in bf16 it rounds twice; fp32 is identical.)
 
-`dwconv7x7` launches the kernel for a CUDA tensor and takes the plain
-version only for a tensor on the CPU. There is no fall-back: a CUDA tensor
-the kernel does not take raises.
+`dwconv7x7` calls the registered op `unicorn_torch::dwconv7x7`
+(torch.library), whose CUDA implementation launches the kernel and whose
+CPU implementation is the plain version: the plain version runs only for a
+tensor on the CPU. There is no fall-back: a CUDA tensor the kernel does not
+take raises. The op's fake implementation gives torch.export the output's
+shape, dtype and (contiguous) strides, so that an exported model keeps one
+`unicorn_torch.dwconv7x7` node per call and launches the kernel when the
+loaded program runs on the card.
 
-Gradients: on a CUDA tensor `dwconv7x7` is an autograd Function whose forward
-is the kernel and whose backward is autograd of `dwconv7x7_plain` on the
-saved (x, kdw, bias), as the JAX package's custom VJP (`_dw_bwd`,
+Gradients: the op's registered backward is autograd of `dwconv7x7_plain`
+on the saved (x, kdw, bias), as the JAX package's custom VJP (`_dw_bwd`,
 pallas_convnext.py:305) recomputes through `dwconv7x7_ref`: that package has
 no backward kernel for this op, so the port has none either. The backward
 running the plain version is the op's definition, not a fall-back from a
@@ -26,7 +30,6 @@ import functools
 
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
 
 # (H, W, C) of the dw7x7 calls of one 800x1280 frame of the MOT path (B=1),
 # with how many blocks run at each: trunk stages 0-3, then the head's
@@ -180,31 +183,48 @@ def plain_backward(plain, inputs, needs, grad_out):
     return tuple(next(grads) if n else None for n in needs)
 
 
-class _DwConv7x7(torch.autograd.Function):
-    """forward = the kernel on the tensors it was given (x is often an NHWC
-    view of a channels_last map: that view is what is saved); backward =
-    autograd of dwconv7x7_plain, reaching x and the fp32 taps and bias."""
+@torch.library.custom_op("unicorn_torch::dwconv7x7", mutates_args=(),
+                         device_types="cuda")
+def _dwconv7x7_op(x: torch.Tensor, kdw: torch.Tensor,
+                  bias: torch.Tensor) -> torch.Tensor:
+    """The registered op on a CUDA tensor: the kernel on the tensors it was
+    given (x is often an NHWC view of a channels_last map, contiguous in
+    NHWC order)."""
+    return dwconv7x7_cuda(x, kdw, bias)
 
-    @staticmethod
-    def forward(ctx, x, kdw, bias):
-        ctx.save_for_backward(x, kdw, bias)
-        return dwconv7x7_cuda(x, kdw, bias)
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, grad_out):
-        return plain_backward(dwconv7x7_plain, ctx.saved_tensors,
-                              ctx.needs_input_grad, grad_out)
+@_dwconv7x7_op.register_kernel("cpu")
+def _(x, kdw, bias):
+    return dwconv7x7_plain(x, kdw, bias).contiguous()
+
+
+@_dwconv7x7_op.register_fake
+def _(x, kdw, bias):
+    # both implementations return a fresh contiguous (B,H,W,C) tensor in
+    # x's dtype, so that a traced graph sees the strides a run gives
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, grad_out):
+    """Autograd of dwconv7x7_plain on the saved (x, kdw, bias), reaching x
+    and the fp32 taps and bias."""
+    return plain_backward(dwconv7x7_plain, ctx.saved_tensors,
+                          ctx.needs_input_grad, grad_out)
+
+
+_dwconv7x7_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def dwconv7x7(x: torch.Tensor, kdw: torch.Tensor,
               bias: torch.Tensor) -> torch.Tensor:
     """Depthwise 7x7 SAME conv + bias. x (B,H,W,C); kdw (7,7,C) or
-    (7,7,1,C); bias (C,). The kernel on a CUDA tensor (differentiable: the
-    backward is autograd of the plain version), the plain version on a CPU
-    tensor."""
-    if x.is_cuda:
-        return _DwConv7x7.apply(x, kdw, bias)
-    if x.device.type != "cpu":
+    (7,7,1,C); bias (C,). The op `unicorn_torch::dwconv7x7`: the kernel on
+    a CUDA tensor, the plain version on a CPU tensor; differentiable, the
+    backward autograd of the plain version; traceable by torch.export."""
+    if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"dwconv7x7: no kernel for device {x.device}")
-    return dwconv7x7_plain(x, kdw, bias)
+    return _dwconv7x7_op(x, kdw, bias)

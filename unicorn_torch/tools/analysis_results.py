@@ -5,8 +5,8 @@ precision against the dataset's ground truth.
   python -m unicorn_torch.tools.analysis_results --dataset lasot \
       --result-dir test_results/unicorn_sot/lasot [--plot out.png]
 
---plot draws the success and precision plots with matplotlib, which it
-imports then; without matplotlib installed it raises ImportError.
+--plot draws the success and precision plots into one PNG with the port's
+own drawing (harness/analysis.py `plot_results`; no matplotlib).
 """
 import argparse
 import os

@@ -12,12 +12,9 @@ data is the exp's val set under $UNICORN_DATADIR. Runs on the card unless
 --device cpu. Prints the metrics dict.
 """
 import argparse
-import os
 
-import torch
-
-from ..core.checkpoint import load_checkpoint
 from ..exp.base import get_exp
+from .common import load_model
 
 
 def make_parser():
@@ -43,11 +40,7 @@ def main(argv=None):
     if args.nms is not None:
         exp.nmsthre = args.nms
 
-    model = exp.get_model(torch.Generator().manual_seed(0))
-    if args.ckpt:
-        ckpt = load_checkpoint(os.path.dirname(args.ckpt) or ".",
-                               os.path.basename(args.ckpt))
-        model.load_state_dict(ckpt.get("ema_model") or ckpt["model"])
+    model = load_model(exp, args.ckpt)
     evaluator = exp.get_evaluator(batch_size=args.batch_size,
                                   device=args.device)
     # the det exps through the head's decode, the inst exp through the

@@ -21,12 +21,11 @@ import argparse
 import os
 
 import numpy as np
-import torch
 
-from ..core.checkpoint import load_checkpoint
 from ..data.image_io import read_indexed_mask
 from ..exp.base import get_exp
 from ..harness.datasets import get_dataset
+from .common import load_model
 
 
 def make_parser():
@@ -62,11 +61,7 @@ def main(argv=None):
             "mesh) is not ported: ROADMAP.md Queue 1 item 5, multi-GPU")
     exp = get_exp(args.exp_file, args.name)
     exp.merge(args.opts)
-    model = exp.get_model(torch.Generator().manual_seed(0), serve=True)
-    if args.ckpt:
-        ckpt = load_checkpoint(os.path.dirname(args.ckpt) or ".",
-                               os.path.basename(args.ckpt))
-        model.load_state_dict(ckpt.get("ema_model") or ckpt["model"])
+    model = load_model(exp, args.ckpt, serve=True)
 
     sequences = get_dataset(args.dataset)
     if not sequences:
