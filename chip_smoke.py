@@ -236,6 +236,24 @@ Phases (each must pass, else the exit code is 1):
              phase disk's layout (36 / 1 / 2 / 2 / 2 a step); (f)
              analysis_results --plot without matplotlib; (g) debug_only's
              PNGs, no step
+  parallel   the batched and multi-process forms, on unicorn_track_tiny
+             and unicorn_track_tiny_mask at full width, bf16, seed 0: (a)
+             StreamingMOTPipeline(pipelined=True) against the plain chunk
+             (2 x 8 letterboxed 1080x1920 frames, bit-equal, frames/s
+             each way, 27 dw7x7 a frame); (b) MultiStreamMOT at 4 streams,
+             8 ticks, equal to run_chunk(n_streams=4), each stream's ids
+             against an independent pipeline, frames/s (27 a tick); (c)
+             make_sot_seq_parallel_fn at 4 sequences, 8 lockstep frames
+             against 4 sequential track runs, raw logits against each
+             sequence's batch-1 forward (27 / 1 / 1 a step), and
+             make_vos_shared_seq_parallel_fn at 2 sequences of 5 slots
+             against each sequence's own shared path; (d) data-parallel
+             training: a world of 1 over NCCL against the single-card uni
+             step (deterministic algorithms; bit-equal where that step
+             repeats itself), then 2 gloo ranks on the one card at B = 1
+             (spawned after the build) against the one-process B = 2
+             step at train_model's bounds, ms/step and peak memory a
+             rank, 36 / 1 / 2 / 2 / 2 launches a rank and step
 `--only profile` adds a torch.profiler breakdown of the paths.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the rest of the
@@ -6787,6 +6805,627 @@ def phase_tools(report):
     shutil.rmtree(TOOLS_ROOT)
 
 
+# ------------------------------------- batched and multi-process forms
+PAR_CHUNK = 8             # (a) frames a run_chunk call, two calls
+PAR_STREAMS = 4           # (b) MultiStreamMOT streams ...
+PAR_TICKS = 8             # ... and ticks
+PAR_SEQS = 4              # (c) SOT sequences in lockstep ...
+PAR_SOT_FRAMES = 8        # ... and their frames after the first
+PAR_CHECKED = 2           # lockstep frames checked against batch-1 runs
+PAR_VOS_SEQS = 2          # VOS sequences of the shared form ...
+PAR_VOS_K = 5             # ... with this many object slots ...
+PAR_VOS_FRAMES = 4        # ... over this many frames
+PAR_DP_WARMUP = 2         # (d) untimed steps of each rank ...
+PAR_DP_STEPS = 4          # ... and timed ones
+PAR_FRAME = dict(dwconv7x7=27, msda_factored=0, msda_direct=0,
+                 correlation=0)   # a detector frame of unicorn_track_tiny
+
+
+def _par_frames(n, seed, shift=4):
+    """n uint8 FRAME_HW frames of a panning random texture."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    fh, fw = FRAME_HW
+    base = (rng.rand(fh, fw + shift * n, 3) * 255).astype(np.uint8)
+    return [np.ascontiguousarray(base[:, shift * t:shift * t + fw])
+            for t in range(n)]
+
+
+def _ingest(exp, f):
+    """uint8 frame -> (1, H, W, 3) float32 on the card, letterboxed."""
+    import torch
+
+    from unicorn_torch.ops.letterbox import letterbox_device
+
+    return letterbox_device(torch.from_numpy(f).to(DEVICE),
+                            exp.test_size)[0][None]
+
+
+def _stream_kw(exp):
+    """The streaming settings of phase stream (the JAX bench's)."""
+    return dict(input_size=exp.test_size, num_classes=exp.num_classes,
+                conf_thre=0.1, nms_thre=0.8, max_dets=64, max_tracks=128,
+                n_cand=128)
+
+
+def _parallel_stream(report):
+    """(a) StreamingMOTPipeline(pipelined=True) against the plain pipeline:
+    two run_chunk calls of PAR_CHUNK letterboxed frames each, in the order
+    plain, pipelined, pipelined, plain; the outputs bit-equal (the same
+    kernels in the same order on other CUDA streams); frames/s of both
+    forms, 27 dw7x7 a frame."""
+    import torch
+
+    from unicorn_torch.drivers.stream import StreamingMOTPipeline
+
+    exp, model = _model(report, raised_priors=True)
+    n = 2 * PAR_CHUNK
+    stack = torch.cat([_ingest(exp, f) for f in _par_frames(n, seed=21)])
+    plain = StreamingMOTPipeline(model, device=DEVICE, **_stream_kw(exp))
+    piped = StreamingMOTPipeline(model, device=DEVICE, pipelined=True,
+                                 **_stream_kw(exp))
+    for pipe in (plain, piped):                # warm-up, not counted
+        pipe.run_chunk(stack[:2])
+
+    def run(pipe):
+        pipe.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = torch.cat([pipe.run_chunk(stack[:PAR_CHUNK]),
+                         pipe.run_chunk(stack[PAR_CHUNK:])])
+        torch.cuda.synchronize()
+        return n / (time.perf_counter() - t0), out
+
+    fps_plain, out_plain = run(plain)
+    _reset_kernel_counts()
+    fps_piped, out_piped = run(piped)
+    counts = _kernel_counts()
+    fps_piped2, out_piped2 = run(piped)
+    fps_plain2, out_plain2 = run(plain)
+    n_valid = int((out_plain[..., 6] > 0.5).sum())
+    same = torch.equal(out_piped, out_plain) and torch.equal(
+        out_piped2, out_plain2) and torch.equal(out_piped, out_piped2)
+    print(f"  (a) pipelined run_chunk, 2 x {PAR_CHUNK} frames at "
+          f"{exp.test_size}: {fps_piped:.2f} / {fps_piped2:.2f} frames/s "
+          f"against the plain chunk's {fps_plain:.2f} / {fps_plain2:.2f} "
+          f"(order plain, pipelined, pipelined, plain; host clock); outputs "
+          f"bit-equal {same}; {n_valid / n:.1f} tracks a frame; launches "
+          f"{counts}")
+    report["parallel_stream_fps"] = dict(plain=(fps_plain, fps_plain2),
+                                         pipelined=(fps_piped, fps_piped2))
+    _record_launches(report, "parallel_pipelined", counts)
+    assert counts == {k: v * n for k, v in PAR_FRAME.items()}, counts
+    assert same and n_valid > 0
+    assert int(piped.ts.frame_id[0]) == n
+
+
+def _parallel_multistream(report):
+    """(b) MultiStreamMOT at PAR_STREAMS streams, PAR_TICKS ticks of one
+    letterboxed frame a stream: equal to run_chunk(n_streams=S) on the same
+    frames; each stream's ids against an independent single-stream
+    pipeline (printed: a batch of S moves bf16 roundings, ROADMAP Queue 3);
+    frames/s a stream and in all, 27 dw7x7 a tick."""
+    import torch
+
+    from unicorn_torch.drivers.stream import (MultiStreamMOT,
+                                              StreamingMOTPipeline)
+
+    exp, model = _model(report, raised_priors=True)
+    S, T = PAR_STREAMS, PAR_TICKS
+    frames = torch.stack([torch.cat([_ingest(exp, f) for f in
+                                     _par_frames(T, seed=30 + s)])
+                          for s in range(S)])      # (S, T, H, W, 3)
+    multi = MultiStreamMOT(model, S, device=DEVICE, **_stream_kw(exp))
+    multi.tick(frames[:, 0])                       # warm-up, not counted
+    multi.pipe.reset()
+    torch.cuda.synchronize()
+    _reset_kernel_counts()
+    t0 = time.perf_counter()
+    ticks = [multi.tick(frames[:, t]) for t in range(T)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _kernel_counts()
+    out = torch.stack(ticks, 1)
+    chunk = StreamingMOTPipeline(model, device=DEVICE, n_streams=S,
+                                 **_stream_kw(exp))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = chunk.run_chunk(frames)
+    torch.cuda.synchronize()
+    wall_chunk = time.perf_counter() - t0
+    shares = []
+    for s in range(S):
+        one = StreamingMOTPipeline(model, device=DEVICE, **_stream_kw(exp))
+        o = one.run_chunk(frames[s])
+        shares.append((o[..., 5] == out[s][..., 5]).float().mean().item())
+    n_valid = int((out[..., 6] > 0.5).sum())
+    print(f"  (b) MultiStreamMOT, {S} streams x {T} ticks: {S * T / wall:.2f}"
+          f" frames/s in all, {T / wall:.2f} a stream (run_chunk(n_streams="
+          f"{S}) on the same frames {S * T / wall_chunk:.2f} in all); equal "
+          f"to run_chunk {torch.equal(out, ref)}; each stream's ids equal to "
+          f"an independent pipeline's at "
+          f"{', '.join(f'{x:.1%}' for x in shares)} of the slots; "
+          f"{n_valid / (S * T):.1f} tracks a frame; launches {counts}")
+    report["parallel_multistream_fps"] = (S * T / wall, T / wall,
+                                          S * T / wall_chunk)
+    _record_launches(report, "parallel_multistream", counts)
+    assert counts == {k: v * T for k, v in PAR_FRAME.items()}, counts
+    assert torch.equal(out, ref) and n_valid > 0
+    assert bool(torch.isfinite(out).all())
+    assert multi.states.frame_id.tolist() == [T] * S
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max()).item()
+
+
+def _parallel_sot(report):
+    """(c) make_sot_seq_parallel_fn at PAR_SEQS sequences, each with its own
+    first frame and box: PAR_SOT_FRAMES lockstep steps (upload, letterbox,
+    the step and the fetch of the packed rows), 27 dw7x7 + 1 MSDA + 1
+    correlation a step, against PAR_SEQS sequential SOTDriver.track runs.
+    On PAR_CHECKED steps each slot's SOT raw logits against the same
+    sequence alone at the lockstep's batch (its frame and references in
+    every slot): a slot's computation reads no other slot, so they agree
+    within 1e-3 of the largest magnitude (bit for bit where the card's
+    kernels pick per shape alone; printed), and the slots' outputs are
+    distinct (each reads its own references); the lockstep through the
+    three kernels against the same through their plain versions, at phase
+    sot_model's bound (5% of the largest magnitude). Against the
+    sequence's batch-1 forward they differ as track_window's batch does
+    from track's (bf16 rounded in other orders at another batch): printed
+    through the kernels and through the plain versions, with the
+    sequential runs' final boxes."""
+    import numpy as np
+    import torch
+
+    from unicorn_torch.drivers.seq_parallel import make_sot_seq_parallel_fn
+    from unicorn_torch.drivers.sot import SOTDriver
+
+    exp, model = _sot_model(report)
+    S, T = PAR_SEQS, PAR_SOT_FRAMES
+    driver = SOTDriver(model, input_size=exp.test_size, conf_thre=0.0,
+                       nms_thre=exp.nmsthre, device=DEVICE)
+    seqs = [_sot_frames(T, seed=40 + s) for s in range(S)]
+    fh, fw = FRAME_HW
+    boxes = [[INIT_BOX[0] + fw // 32 * s, INIT_BOX[1] + fh // 36 * s,
+              *INIT_BOX[2:]] for s in range(S)]
+    refs = [driver.init_refs(seq[0], b) for seq, b in zip(seqs, boxes)]
+    feat = torch.stack([r[0] for r in refs])
+    lbs = torch.stack([r[1] for r in refs])
+    fn = make_sot_seq_parallel_fn(driver)
+
+    def imgs(t):
+        return torch.cat([driver.preprocess(seq[t])[0] for seq in seqs])
+
+    fn(feat, lbs, imgs(1)).cpu()                   # warm-up, not counted
+    torch.cuda.synchronize()
+    _reset_kernel_counts()
+    t0 = time.perf_counter()
+    packed = [fn(feat, lbs, imgs(t)).cpu() for t in range(1, T + 1)]
+    wall = time.perf_counter() - t0
+    counts = _kernel_counts()
+    t0 = time.perf_counter()
+    final = []
+    for seq, b in zip(seqs, boxes):
+        driver.initialize(seq[0], b)
+        for f in seq[1:]:
+            state = driver.track(f)["target_bbox"]
+        final.append(state)
+    torch.cuda.synchronize()
+    wall_seq = time.perf_counter() - t0
+    d_alone = d_one = d_plain = d_one_plain = 0.0
+    bitwise, distinct = True, True
+    keys = ("cls_sot", "reg_sot", "obj_sot")
+    with torch.inference_mode():
+        for t in range(1, PAR_CHECKED + 1):
+            x = imgs(t)
+            raw = driver.forward(x, feat.reshape(S, *feat.shape[-3:]),
+                                 lbs.reshape(S, 1, -1))
+            with _plain_serving_kernels():
+                raw_p = driver.forward(x, feat.reshape(S, *feat.shape[-3:]),
+                                       lbs.reshape(S, 1, -1))
+                ones_p = [driver.forward(x[s:s + 1], *refs[s][:2])
+                          for s in range(S)]
+            d_plain = max(d_plain, max(_rel(lv[key], lp[key]) for lv, lp
+                                       in zip(raw, raw_p) for key in keys))
+            for s in range(S):
+                d_one_plain = max(d_one_plain, max(
+                    _rel(lp[key][s:s + 1], lo[key]) for lp, lo in
+                    zip(raw_p, ones_p[s]) for key in keys))
+            for s in range(S):
+                alone = driver.forward(
+                    torch.cat([x[s:s + 1]] * S),
+                    torch.stack([refs[s][0]] * S).reshape(
+                        S, *feat.shape[-3:]),
+                    torch.stack([refs[s][1]] * S).reshape(S, 1, -1))
+                one = driver.forward(x[s:s + 1], *refs[s][:2])
+                for lv, la, lo in zip(raw, alone, one):
+                    for key in keys:
+                        a, b = lv[key][s:s + 1], la[key][:1]
+                        bitwise &= torch.equal(a, b)
+                        d_alone = max(d_alone, _rel(a, b))
+                        d_one = max(d_one, _rel(b, lo[key]))
+            distinct &= all(not torch.equal(packed[t - 1][s],
+                                            packed[t - 1][0])
+                            for s in range(1, S))
+    # the lockstep's boxes after T frames, with the host's state carry
+    r = min(exp.test_size[0] / fh, exp.test_size[1] / fw)
+    states = [list(b) for b in boxes]
+    for p in packed:
+        states = [SOTDriver.update_state_from_packed(
+            p[s].numpy(), r, states[s], exp.test_size) for s in range(S)]
+    d_box = float(np.abs(np.asarray(states) - np.asarray(final)).max())
+    print(f"  (c) SOT, {S} sequences x {T} frames in lockstep: "
+          f"{S * T / wall:.2f} sequence-frames/s against "
+          f"{S * T / wall_seq:.2f} as {S} sequential track runs (upload, "
+          f"letterbox and fetch included); sot raw logits against each "
+          f"sequence alone at batch {S}: max |d| / max|alone| "
+          f"{d_alone:.3e} (tol 1e-3), bit-equal {bitwise}; kernels "
+          f"against plain versions at batch {S}: {d_plain:.3e} (tol 0.05); "
+          f"the sequence alone at batch {S} against batch 1 (printed): "
+          f"{d_one:.3e} through the kernels, {d_one_plain:.3e} through the "
+          f"plain versions; final boxes against the sequential runs max "
+          f"|d| {d_box:.2f} px; slots distinct {distinct}; launches "
+          f"{counts}")
+    report["parallel_sot_fps"] = (S * T / wall, S * T / wall_seq)
+    _record_launches(report, "parallel_sot", counts)
+    assert counts == {k: v * T for k, v in SOT_LAUNCHES.items()}, counts
+    assert d_alone <= 1e-3 and distinct and d_plain <= 0.05
+    assert all(np.isfinite(p.numpy()).all() for p in packed)
+
+
+def _parallel_vos(report):
+    """(c) make_vos_shared_seq_parallel_fn at PAR_VOS_SEQS sequences of
+    PAR_VOS_K slots (5 and 3 objects) on VOS_FRAME_HW frames, PAR_VOS_FRAMES
+    lockstep steps with each sequence's tail, 27 / 1 / 1 a step. Each
+    sequence's outputs against the sequence alone at the lockstep's batch
+    (top detections and mask probabilities within 1e-3, bit-equal
+    printed); the lockstep through the three kernels against the same
+    through their plain versions at phase harness's VOS bound (top scores
+    within 0.05, the masks' mean |d| <= 0.01 with at most 1% of the pixels
+    beyond 0.05); and against its own batch-1 track_fn_shared and tail,
+    one sequence a call (timed; the top scores, the masks' mean |d| and
+    share beyond 0.05 and the label maps' agreement printed, and the
+    masks' mean |d| through the plain versions: bf16 at another batch, as
+    in (c) SOT)."""
+    import copy
+
+    import torch
+
+    from unicorn_torch.drivers.seq_parallel import \
+        make_vos_shared_seq_parallel_fn
+
+    exp, drv = _vos_driver(report, PAR_VOS_K)
+    S, T, K = PAR_VOS_SEQS, PAR_VOS_FRAMES, PAR_VOS_K
+    seqs = [_sot_frames(T, seed=50 + s, hw=VOS_FRAME_HW) for s in range(S)]
+    ids = [list(range(1, K + 1)), [1, 2, 3]]
+    par, seq_drv = [], []
+    for s in range(S):
+        for group in (par, seq_drv):
+            d = copy.copy(drv)
+            d.initialize(seqs[s][0], _vos_masks(ids[s]))
+            group.append(d)
+    feat1 = torch.stack([d.feat_ref1 for d in par])
+    lbs = torch.stack([d.lbs_ref for d in par])
+    fn = make_vos_shared_seq_parallel_fn(drv)
+
+    def lockstep(t):
+        pre = [par[s].preprocess(seqs[s][t]) for s in range(S)]
+        dets, valid, masks = fn(feat1, lbs, torch.cat([p[0] for p in pre]))
+        labs = [par[s].postprocess_masks_host(
+            dets[s], valid[s], masks[s], pre[s][1])[0] for s in range(S)]
+        return pre, (dets[:, :, 0].float(), masks.float()), labs
+
+    for d in (par[0], seq_drv[0]):             # warm-up, tails included
+        d.track(seqs[0][1])
+    lockstep(1)
+    torch.cuda.synchronize()
+    _reset_kernel_counts()
+    outs, labels, inputs, step_ms = [], [], [], []
+    for t in range(1, T + 1):
+        t0 = time.perf_counter()
+        pre, out, labs = lockstep(t)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        inputs.append(pre)
+        outs.append(out)
+        labels.append(labs)
+    wall = sum(step_ms) / 1e3
+    counts = _kernel_counts()
+    d_score = d_mean = over = 0.0
+    agree = 1.0
+    t0 = time.perf_counter()
+    for t in range(1, T + 1):
+        for s in range(S):
+            d = seq_drv[s]
+            img, r = d.preprocess(seqs[s][t])
+            dets, valid, masks = d.track_fn_shared(img)
+            lab = d.postprocess_masks_host(dets, valid, masks, r)[0]
+            top_p, m_p = outs[t - 1][0][s], outs[t - 1][1][s]
+            top = dets[:, 0].float()
+            d_score = max(d_score, (top_p[:, 4] * top_p[:, 5] - top[:, 4]
+                                    * top[:, 5]).abs().max().item())
+            dm = (m_p - masks.float()).abs()
+            d_mean = max(d_mean, dm.mean().item())
+            over = max(over, (dm > 0.05).float().mean().item())
+            agree = min(agree, float((lab == labels[t - 1][s]).mean()))
+    torch.cuda.synchronize()
+    wall_seq = time.perf_counter() - t0
+    d_alone, bitwise = 0.0, True
+    kp = dict(score=0.0, mean=0.0, over=0.0)
+    d_mean_plain = 0.0
+    for t in range(1, PAR_CHECKED + 1):
+        x = torch.cat([p[0] for p in inputs[t - 1]])
+        with _plain_serving_kernels():
+            dets_p, _, masks_p = fn(feat1, lbs, x)
+            ones_p = [seq_drv[s].track_fn_shared(x[s:s + 1])[2].float()
+                      for s in range(S)]
+        top_k, top_p = outs[t - 1][0], dets_p[:, :, 0].float()
+        dm = (outs[t - 1][1] - masks_p.float()).abs()
+        kp["score"] = max(kp["score"], (top_k[..., 4] * top_k[..., 5]
+                                        - top_p[..., 4] * top_p[..., 5])
+                          .abs().max().item())
+        kp["mean"] = max(kp["mean"], dm.mean().item())
+        kp["over"] = max(kp["over"], (dm > 0.05).float().mean().item())
+        d_mean_plain = max(d_mean_plain, max(
+            (masks_p[s].float() - ones_p[s]).abs().mean().item()
+            for s in range(S)))
+        for s in range(S):
+            dets, _, masks = fn(torch.stack([par[s].feat_ref1] * S),
+                                torch.stack([par[s].lbs_ref] * S),
+                                torch.cat([inputs[t - 1][s][0]] * S))
+            got = (outs[t - 1][0][s], outs[t - 1][1][s])
+            alone = (dets[0, :, 0].float(), masks[0].float())
+            bitwise &= all(torch.equal(a, b) for a, b in zip(got, alone))
+            d_alone = max(d_alone, max((a - b).abs().max().item()
+                                       for a, b in zip(got, alone)))
+    print(f"  (c) VOS shared form, {S} sequences (K = {K} slots; {K} and 3 "
+          f"objects) x {T} frames of {VOS_FRAME_HW[0]}x{VOS_FRAME_HW[1]} in "
+          f"lockstep: {S * T / wall:.2f} sequence-frames/s (steps "
+          f"{', '.join(f'{x:.1f}' for x in step_ms)} ms, each ending in its "
+          f"tails' fetches) against {S * T / wall_seq:.2f} one sequence a "
+          f"call (each with its tail); against each sequence alone at batch "
+          f"{S}: top rows and "
+          f"masks max |d| {d_alone:.3e} (tol 1e-3), bit-equal {bitwise}; "
+          f"kernels against plain versions at batch {S}: top score max |d| "
+          f"{kp['score']:.3e} (tol 0.05), masks mean |d| {kp['mean']:.3e} "
+          f"(tol 0.01), {kp['over'] * 100:.4f}% beyond 0.05 (tol 1%); "
+          f"against its own batch-1 path (printed): top score max |d| "
+          f"{d_score:.3e}, masks mean |d| {d_mean:.3e} ({d_mean_plain:.3e} "
+          f"through the plain versions), {over * 100:.4f}% beyond 0.05, "
+          f"label maps equal on {agree * 100:.3f}% of a frame's pixels at "
+          f"least; launches {counts}")
+    report["parallel_vos_fps"] = (S * T / wall, S * T / wall_seq)
+    _record_launches(report, "parallel_vos", counts)
+    assert counts == {k: v * T for k, v in SOT_LAUNCHES.items()}, counts
+    assert d_alone <= 1e-3
+    assert kp["score"] <= 0.05 and kp["mean"] <= 0.01 and kp["over"] <= 0.01
+
+
+def _dp_first_step(exp, batch):
+    """A fresh seeded unicorn_track_tiny's uni step as trained
+    (ExpTrack.get_train_step, AdamW, EMA) on `batch`, on the card -> the
+    loss dict, the gradients it applied and the weights after the
+    update, on the host."""
+    import torch
+
+    from unicorn_torch.core.train_state import TrainState
+
+    model = exp.get_model(torch.Generator().manual_seed(0))
+    state = TrainState.create(
+        model.to(DEVICE).train(),
+        exp.get_optimizer(TRAIN_B, TRAIN_ITERS_PER_EPOCH), use_ema=exp.ema,
+        device=DEVICE)
+    grads, apply = {}, state.apply_gradients
+
+    def capture():
+        grads.update({n: p.grad.detach().float().cpu()
+                      for n, p in state.model.named_parameters()
+                      if p.grad is not None})
+        return apply()
+
+    state.apply_gradients = capture
+    _, loss = exp.get_train_step(TRAIN_B)(state, *batch)
+    state.apply_gradients = apply
+    params = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+    return dict(loss={k: v.item() for k, v in loss.items()}, grads=grads,
+                params=params), state
+
+
+def _dp_batch(exp):
+    """phase train_model's mixed batch: an SOT and a MOT pair (8 boxes)."""
+    images, targets, task_ids = _train_batch(exp, 2, seed=10, n_obj=8)
+    task_ids[0] = 1
+    return images, targets, task_ids
+
+
+def _dp_rank(rank, world, store, out):
+    """One rank of the gloo group on the card (spawned): its slice of the
+    global batch through the first step of the model in fp32 with TF32 off
+    (the comparison) and as trained (bf16 trunk), then PAR_DP_WARMUP +
+    PAR_DP_STEPS timed steps as trained; writes both first steps, the
+    launches of the timed steps, ms/step and peak memory to `out`."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from unicorn_torch.exp.unicorn_track_tiny import Exp
+    from unicorn_torch.parallel import initialize_multihost, shard_batch
+
+    initialize_multihost(num_processes=world, process_id=rank,
+                         device=DEVICE, init_method="file://" + store,
+                         backend="gloo", timeout_s=300)
+    exp = Exp()
+    exp32 = copy.copy(exp)
+    exp32.bf16 = False
+    batch = shard_batch(_dp_batch(exp))
+    with tf32_off():
+        first32 = _dp_first_step(exp32, batch)[0]
+    first, state = _dp_first_step(exp, batch)
+    step = exp.get_train_step(TRAIN_B)
+    for _ in range(PAR_DP_WARMUP):
+        step(state, *batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    for _ in range(PAR_DP_STEPS):
+        step(state, *batch)
+    torch.cuda.synchronize()
+    torch.save(dict(fp32=first32, bf16=first,
+                    ms=(time.perf_counter() - t0) / PAR_DP_STEPS * 1e3,
+                    peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                    counts=_all_counts()), out)
+    dist.destroy_process_group()
+
+
+def _parallel_dp(report):
+    """(d) Data-parallel training (the kernels built by the parent, phase
+    build, before any rank starts): a world of 1 over NCCL against the
+    single-card uni step as trained, both with cuDNN's and PyTorch's
+    deterministic algorithms and run twice alone: bit-equal where the
+    single-card step repeats itself bit for bit, else within its two-run
+    spread. Then two ranks over gloo on the one card (NCCL refuses two
+    ranks on one card) at B = 1 each against the one-process B = 2 step,
+    in fp32 with TF32 off, at phase train_model's bounds (loss within 0.02,
+    gradient leaves: worst 0.1, median 0.02, of the leaf's largest): as
+    trained, a batch of 1 rounds the bf16 trunk otherwise than a batch of
+    2 and flips SimOTA's choices on the anchors at their boundaries, which
+    move a gradient by the term's full size (those shares are printed).
+    ms/step and peak memory per rank as trained, 36 / 1 / 2 / 2 / 2
+    launches a rank and step."""
+    import copy
+    import multiprocessing as mp
+    import socket
+    import tempfile
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+
+    from unicorn_torch.parallel import initialize_multihost
+
+    exp, _ = _train_model(report)
+    exp32 = copy.copy(exp)
+    exp32.bf16 = False
+    batch = _dp_batch(exp)
+    with tf32_off():
+        one32 = _dp_first_step(exp32, batch)[0]
+    flags = (torch.backends.cudnn.deterministic,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            single = [_dp_first_step(exp, batch)[0] for _ in range(2)]
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            initialize_multihost(coordinator_address=f"127.0.0.1:{port}",
+                                 num_processes=1, process_id=0,
+                                 device=DEVICE, timeout_s=120)
+            try:
+                backend = dist.get_backend()
+                world1 = _dp_first_step(exp, batch)[0]
+            finally:
+                dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = flags[0]
+        torch.use_deterministic_algorithms(flags[1], warn_only=flags[2])
+    without = sorted({str(w.message).split(" does not have")[0][:80]
+                      for w in caught if "deterministic" in str(w.message)})
+
+    def bitwise(a, b):
+        return a["loss"] == b["loss"] and all(
+            torch.equal(a[k][n], b[k][n]) for k in ("grads", "params")
+            for n in a[k])
+
+    repeats = bitwise(single[0], single[1])
+    if repeats:
+        ok1 = bitwise(world1, single[0])
+    else:
+        spread = max(_grad_shares(single[0]["grads"],
+                                  single[1]["grads"])[0].values())
+        ok1 = max(_grad_shares(single[0]["grads"],
+                               world1["grads"])[0].values()) <= spread
+    print(f"  (d) world of 1 over {backend} against the single-card uni "
+          f"step (B = {TRAIN_B}, deterministic algorithms; ops without "
+          f"one: {without or 'none'}): the single-card step repeats bit for "
+          f"bit {repeats}; world 1 "
+          f"{'bit-equal' if repeats else 'within the two-run spread'} "
+          f"{ok1} (loss {world1['loss']['total_loss']:.6f} vs "
+          f"{single[0]['loss']['total_loss']:.6f})")
+    assert ok1 and backend == ("nccl" if DEVICE.startswith("cuda")
+                               else "gloo")
+    torch.cuda.empty_cache()     # the ranks' own processes take the card
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(2)]
+        procs = [ctx.Process(target=_dp_rank, args=(
+            r, 2, os.path.join(tmp, "store"), outs[r])) for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        wall = time.perf_counter() - t0
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        assert all(p.exitcode == 0 for p in procs), \
+            [p.exitcode for p in procs]
+        ranks = [torch.load(o) for o in outs]
+    same = all(ranks[0][k]["loss"] == ranks[1][k]["loss"] and all(
+        torch.equal(v, ranks[1][k]["params"][n])
+        for n, v in ranks[0][k]["params"].items()) for k in ("fp32", "bf16"))
+    shares, worst, median = _grad_shares(one32["grads"],
+                                         ranks[0]["fp32"]["grads"])
+    loss32 = ranks[0]["fp32"]["loss"]["total_loss"]
+    d_loss = abs(loss32 - one32["loss"]["total_loss"]) \
+        / abs(one32["loss"]["total_loss"])
+    shares16, worst16, median16 = _grad_shares(single[0]["grads"],
+                                               ranks[0]["bf16"]["grads"])
+    for r, res in enumerate(ranks):
+        print(f"  (d) gloo rank {r} of 2 on {DEVICE}, B = 1 of the global "
+              f"{TRAIN_B}: {res['ms']:.1f} ms/step over {PAR_DP_STEPS} "
+              f"steps, peak memory {res['peak']:.2f} GiB, launches "
+              f"{res['counts']}")
+    print(f"  (d) 2 gloo ranks against the one-process B = {TRAIN_B} step, "
+          f"fp32 with TF32 off: ranks hold one state {same}; total_loss "
+          f"{loss32:.5f} vs {one32['loss']['total_loss']:.5f} (rel "
+          f"{d_loss:.2e}, bound 0.02); worst gradient leaf "
+          f"{shares[worst]:.3e} of its max at {worst} (bound 0.1), median "
+          f"{median:.3e} (bound 0.02); as trained (bf16 trunk, printed): "
+          f"worst leaf {shares16[worst16]:.3e} at {worst16}, median "
+          f"{median16:.3e}; the two ranks {wall:.1f} s from spawn to exit")
+    report["parallel_dp"] = [(res["ms"], res["peak"]) for res in ranks]
+    _record_launches(report, "parallel_dp_rank0", ranks[0]["counts"])
+    for res in ranks:
+        assert res["counts"] == {k: v * PAR_DP_STEPS
+                                 for k, v in TRAIN_LAUNCHES.items()}, \
+            res["counts"]
+    assert same and d_loss <= 0.02
+    assert shares[worst] <= 0.1 and median <= 0.02
+
+
+def phase_parallel(report):
+    """The batched and multi-process forms on one card: (a)
+    `_parallel_stream`, (b) `_parallel_multistream`, (c) `_parallel_sot`
+    and `_parallel_vos`, (d) `_parallel_dp`."""
+    print(f"parallel ({report.get('card', '')})")
+    _parallel_stream(report)
+    _parallel_multistream(report)
+    _parallel_sot(report)
+    _parallel_vos(report)
+    _parallel_dp(report)
+
+
 # ------------------------------------------------------ opt-in: profile
 def _profile(label, step, frames, show=()):
     """torch.profiler over step(frame) for each frame: CUDA time by kernel
@@ -6974,13 +7613,14 @@ PHASES = {
     "eval": phase_eval,
     "harness": phase_harness,
     "tools": phase_tools,
+    "parallel": phase_parallel,
     "profile": phase_profile,
 }
 DEFAULT_PHASES = ("build", "kernels", "model", "main", "block_model",
                   "stream", "sot_model", "sot", "inst", "vos", "omni",
                   "train_model", "train", "inst_train", "mask_train",
                   "trainer", "disk", "det", "backbones", "eval", "harness",
-                  "tools")
+                  "tools", "parallel")
 
 
 def main(argv=None) -> int:

@@ -341,8 +341,32 @@ def test_test_tool_vos_end_to_end(data, tmp_path, monkeypatch):
         assert 0.0 <= out["metrics"]["J&F"] <= 1.0
 
 
-def test_test_tool_refuses_parallel_seqs(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        ttest.main(["unicorn_sot", "--dataset", "got10k_val", "-f",
-                    _exp_file(tmp_path, False), "--parallel-seqs", "2",
-                    "--device", "cpu"])
+def test_test_tool_refuses_parallel_seqs(data, tmp_path, monkeypatch):
+    """--parallel-seqs 2 (once refused) runs the sequences two at a time in
+    lockstep and gives the sequential tool's results: SOT boxes within
+    1e-2 px (tests/test_seq_parallel.py:100's bound), the result files
+    read back equal; VOS label maps equal on DAVIS 2017 and YT-VOS (whose
+    entering object sends its sequence to the sequential runner)."""
+    monkeypatch.setenv("UNICORN_DATADIR", data)
+    for tracker, dataset in (("unicorn_sot", "got10k_val"),
+                             ("unicorn_vos", "dv2017"),
+                             ("unicorn_vos", "yt2018")):
+        args = [tracker, "--dataset", dataset, "-f",
+                _exp_file(tmp_path, tracker == "unicorn_vos"),
+                "--device", "cpu"]
+        seq = ttest.main(args + ["--result-dir", str(tmp_path / "seq")])
+        par = ttest.main(args + ["--result-dir", str(tmp_path / "par"),
+                                 "--parallel-seqs", "2"])
+        key = "results" if tracker == "unicorn_sot" else "preds"
+        assert set(par[key]) == set(seq[key]) and par[key]
+        for name in seq[key]:
+            if tracker == "unicorn_sot":
+                np.testing.assert_allclose(par[key][name], seq[key][name],
+                                           atol=1e-2)
+                np.testing.assert_array_equal(
+                    np.loadtxt(tmp_path / "par" / tracker / dataset
+                               / f"{name}.txt"), par[key][name].astype(int))
+            else:
+                for a, b in zip(par[key][name], seq[key][name]):
+                    np.testing.assert_array_equal(a, b)
+        assert par["metrics"] == seq["metrics"]

@@ -153,13 +153,20 @@ def test_arguments_that_raise(models):
             TStream(tm, device="cpu", **kw, **KW)
         with pytest.raises(ValueError, match="n_streams > 1 supports neither"):
             JStream(jm, params, **kw, **KW)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TStream(tm, device="cpu", pipelined=True, **KW)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ts_mod.MultiStreamMOT(tm, n_streams=2)
-    # the knobs of the XLA program are accepted and change nothing
+    # pipelined and MultiStreamMOT run (tests/test_torch_port_parallel_
+    # stream.py holds them against JAX); only MultiStreamMOT over a mesh
+    # of cards raises
     frames = torch.from_numpy(_frames(10, 2))
     a = TStream(tm, device="cpu", **KW).run_chunk(frames)
+    assert torch.equal(TStream(tm, device="cpu", pipelined=True,
+                               **KW).run_chunk(frames), a)
+    multi = ts_mod.MultiStreamMOT(tm, n_streams=2, device="cpu", **KW)
+    assert tuple(multi.tick(torch.stack([frames[0], frames[0]])).shape) == (
+        2, 32, 7)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        ts_mod.MultiStreamMOT(tm, n_streams=2, mesh=object(), device="cpu",
+                              **KW)
+    # the knobs of the XLA program are accepted and change nothing
     b = TStream(tm, device="cpu", compiler_options=None, unroll=2,
                 approx_topk=False, **KW).run_chunk(frames)
     assert torch.equal(a, b)

@@ -33,6 +33,8 @@ from ..losses.uni import (build_mhs_labels, build_sot_priors,
 from ..losses.vos import vos_loss
 from ..models.heads import decode_boxes, flatten_raw_outputs, level_grids
 from ..ops.correlation import resize_bilinear_torch
+from ..parallel import mesh
+from ..parallel.mesh import global_sum
 
 
 def det_loss_fn(model, images, labels, img_size, use_l1=False,
@@ -115,8 +117,8 @@ def uni_loss_fn(model, images, targets, task_ids, img_size, mot_weight=1.0,
             sot_only=True)
         # the reference adds the subset-normalised SOT loss: undo the n / B
         # weighting of unicorn_uni_loss
-        B = targets.shape[0]
-        n_mhs = (mhs_task == 1).float().sum().clamp_min(1.0)
+        B = global_sum(targets.shape[0], like=targets)
+        n_mhs = global_sum((mhs_task == 1).float().sum()).clamp_min(1.0)
         mhs_loss = mhs_dict["total_loss"] * B / n_mhs
         total = total + mhs_weight * mhs_loss
         loss_dict["mhs_loss"] = mhs_loss
@@ -181,7 +183,7 @@ def uni_mask_loss_fn(model, images, targets, task_ids, masks, img_size,
     fpn_outs_1, embed_0, embed_1 = uni_forward_embeddings(model, images)
     vos_mask = (task_ids == 1).float()
     mots_mask = (task_ids == 2).float()
-    B = targets.shape[0]
+    B = global_sum(targets.shape[0], like=targets)
     strides = (8, 16, 32)
     mask_branch_out = model.forward_mask_branch(fpn_outs_1)
 
@@ -207,13 +209,13 @@ def uni_mask_loss_fn(model, images, targets, task_ids, masks, img_size,
         up_masks=up_mask, up_rate=up_rate, sample_mask=mots_mask)
     corr_mot_b = mot_contrastive_loss_single(embed_0.float(), embed_1.float(),
                                              targets, bidirect)
-    corr_mot = (corr_mot_b * mots_mask).sum() / mots_mask.sum().clamp_min(1.0)
+    n_vos, n_mots = global_sum(vos_mask.sum()), global_sum(mots_mask.sum())
+    corr_mot = (corr_mot_b * mots_mask).sum() / n_mots.clamp_min(1.0)
     total_mots = mot_dict["total_loss"] + mots_mask_l + corr_mot
     if mot_weight > 1.0:
         total_mots = total_mots + mot_dict["conf_loss"] * (mot_weight - 1.0)
 
-    total = (vos_mask.sum() * vos_dict["total_loss"]
-             + mots_mask.sum() * total_mots) / B
+    total = (n_vos * vos_dict["total_loss"] + n_mots * total_mots) / B
     out = {"total_loss": total, "condinst_loss_mots": mots_mask_l,
            "corr_loss_mots": corr_mot}
     out.update({k + "_vos": v for k, v in vos_dict.items()
@@ -225,14 +227,25 @@ def uni_mask_loss_fn(model, images, targets, task_ids, masks, img_size,
 
 def _make_step(loss):
     """step(state, *batch): loss(state, *batch) -> backward ->
-    state.apply_gradients(); returns (state, detached loss dict)."""
+    state.apply_gradients(); returns (state, detached loss dict).
+
+    With a process group up, the step is data-parallel: the batch is this
+    rank's slice of the global batch, the losses normalise by the global
+    batch's counts, the gradients are summed over the ranks before the
+    update, and the loss dict returned is the global batch's (parallel/
+    mesh.py)."""
 
     def step(state, *batch):
         state.model.zero_grad(set_to_none=True)
-        total, loss_dict = loss(state, *batch)
-        total.backward()
+        with mesh.data_parallel_step() as dp:
+            total, loss_dict = loss(state, *batch)
+            total.backward()
+        if dp:
+            mesh.all_reduce_grads(p for p in state.model.parameters()
+                                  if p.requires_grad)
         state.apply_gradients()
-        return state, {k: v.detach() for k, v in loss_dict.items()}
+        loss_dict = {k: v.detach() for k, v in loss_dict.items()}
+        return state, mesh.sum_over_ranks(loss_dict) if dp else loss_dict
 
     return step
 

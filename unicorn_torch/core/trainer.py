@@ -8,12 +8,23 @@ boundary), the no-aug switch to L1, in-training eval and the `best`
 checkpoint where the exp has an evaluator (every eval_interval epochs), and
 metrics.jsonl / train_log.txt.
 
-One card, rank 0: no mesh and no process count (data parallelism is
-ROADMAP Queue 1 item 5). The model, the state and every batch live on
-`device`, the card unless the caller passes device="cpu". Batches leave
-the loader as numpy in JAX's layout; `device_batch` copies them through
-page-locked memory (on the card) and gives the images the steps' NCHW
-layout, (B, 2, 3, H, W) or (B, 3, H, W) float32 in [0, 255].
+Data parallelism (JAX: a "data" mesh over the devices): with a process
+group up (parallel/multihost.py `initialize_multihost`, one process a
+card), the global batch `batch_size` splits over the W ranks (a batch that
+does not divide raises), each rank's loader draws its own stream of
+`batch_size / W` samples (`set_rank`), the state starts as rank 0's
+(`replicate_state`), and the steps sum the gradients and the losses'
+normalising counts over the ranks (core/train_step.py), so that the EMA
+and the optimizer state stay equal on every rank. Checkpoints, metrics,
+the eval and the log file are rank 0's. Without a group, one process on
+one device.
+
+The model, the state and every batch live on `device`, the card unless the
+caller passes device="cpu" (under torchrun, tools/train.py passes the card
+of the rank's LOCAL_RANK). Batches leave the loader as numpy in JAX's
+layout; `device_batch` copies them through page-locked memory (on the
+card) and gives the images the steps' NCHW layout, (B, 2, 3, H, W) or
+(B, 3, H, W) float32 in [0, 255].
 """
 from __future__ import annotations
 
@@ -29,6 +40,7 @@ import torch
 from ..device import resolve_device
 from ..evaluators.coco_evaluator import decode_forward
 from ..evaluators.coco_inst_evaluator import COCOInstEvaluator
+from ..parallel.mesh import local_batch_slice, rank, replicate_state, world
 from ..utils.debug_dump import dump_uni_batch
 from ..utils.logger import setup_logger
 from ..utils.meters import MeterBuffer
@@ -46,11 +58,15 @@ class Trainer:
         self.max_epoch = exp.max_epoch
         self.input_size = tuple(exp.input_size)
         self.batch_size = int(self.args.get("batch_size", 8))
+        # the global batch over the ranks: this rank loads its share
+        self.rank, self.world = rank(), world()
+        self.local_batch_size = local_batch_slice(self.batch_size)[1]
         self.iters_per_epoch = int(
             getattr(exp, "samples_per_epoch", 200000) // self.batch_size)
         self.output_dir = os.path.join(exp.output_dir, exp.exp_name)
         os.makedirs(self.output_dir, exist_ok=True)
-        self.logger = setup_logger(self.output_dir)
+        self.logger = setup_logger(self.output_dir if self.rank == 0
+                                   else None)
         # data_time, step_time: seconds an iteration over the whole run
         self.meters = MeterBuffer()
         self.start_epoch = 0
@@ -132,7 +148,13 @@ class Trainer:
                 self.model.state_dict(), loaded["model"]))
             self.logger.info("loaded fine-tune checkpoint %s",
                              self.args["ckpt"])
-        self.loader = exp.get_data_loader(self.batch_size)
+        # every rank starts from rank 0's weights
+        replicate_state(self.state)
+        self.loader = exp.get_data_loader(self.local_batch_size)
+        if self.world > 1:
+            # rank-disjoint sampling: without it every rank would draw the
+            # same images
+            self.loader.set_rank(self.rank, self.world)
         self._step_fns = {}
         self.step_fn = self._get_step_fn(self.input_size)
         # multiscale sizes in 32-px steps at the input's aspect ratio
@@ -252,7 +274,7 @@ class Trainer:
             t0 = time.perf_counter()
             batch = next(it)
             if getattr(self.exp, "debug_only", False) and self.iter == 0:
-                if self.exp.task == "uni":
+                if self.exp.task == "uni" and self.rank == 0:
                     dump_uni_batch(os.path.join(self.output_dir, "debug_data"),
                                    *batch[:3],
                                    masks=batch[3] if len(batch) == 4 else None)
@@ -306,7 +328,9 @@ class Trainer:
 
     def after_epoch(self):
         self.save_ckpt("latest")
-        if (self.epoch + 1) % self.exp.eval_interval == 0:
+        if self.rank == 0 and (self.epoch + 1) % self.exp.eval_interval == 0:
+            # rank 0's alone: the other ranks would repeat the eval forward
+            # and interleave their records into metrics.jsonl
             self.evaluate_and_save_best()
 
     def evaluate_and_save_best(self):
@@ -349,7 +373,9 @@ class Trainer:
             self.save_ckpt("best")
 
     def _log_metrics(self, record):
-        """Scalar metrics appended to metrics.jsonl."""
+        """Scalar metrics appended to metrics.jsonl, by rank 0."""
+        if self.rank != 0:
+            return
         with open(os.path.join(self.output_dir, "metrics.jsonl"), "a") as f:
             f.write(json.dumps(record) + "\n")
 
@@ -357,7 +383,10 @@ class Trainer:
         """Write the state, epoch (the next one to run, unless given) and
         best AP to <output>/<name>; without EMA the weights stand in for
         the EMA weights. Asynchronous unless blocking; train() waits for
-        the writes on exit."""
+        the writes on exit. Rank 0 writes; the other ranks hold the same
+        state."""
+        if self.rank != 0:
+            return
         epoch = self.epoch + 1 if epoch is None else epoch
         sd = self.state.state_dict()
         if sd["ema_model"] is None:

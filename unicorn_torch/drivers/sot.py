@@ -10,7 +10,10 @@ correlation label propagation -> SOT head with the propagated prior pyramid
 detections back, and the best box becomes the state on the host.
 
 A frame's computation reads only the fixed reference state, never the
-frame before it, so `track_window` runs whole windows as one batch.
+frame before it, so `track_window` runs whole windows as one batch. The
+stages take the references as arguments (the cached ones when none are
+given), so that one code path also serves S sequences in lockstep, each
+frame with its own sequence's references (drivers/seq_parallel.py).
 """
 from __future__ import annotations
 
@@ -49,18 +52,25 @@ class SOTDriver:
         return letterbox_image(image, self.input_size, self.device)
 
     @torch.inference_mode()
-    def initialize(self, image, init_bbox_xywh):
-        """image: HWC uint8; init_bbox: [x, y, w, h] in image coords."""
-        self.frame_id = 0
+    def init_refs(self, image, init_bbox_xywh):
+        """image: HWC uint8; init_bbox: [x, y, w, h] in image coords ->
+        (the stride-16 reference feature (1, C, H/16, W/16), the box's
+        stride-8 label map (1, 1, H/8 * W/8) float32, letterbox scale r);
+        the driver's state is left alone."""
         img, r = self.preprocess(image)
         x, y, w, h = init_bbox_xywh
         box = torch.tensor([[(x + w / 2) * r, (y + h / 2) * r, w * r, h * r]],
                            dtype=torch.float32, device=self.device)
         H, W = self.input_size
-        self.feat_ref = self.model.forward_backbone(img, run_fpn=False)
+        feat_ref = self.model.forward_backbone(img, run_fpn=False)
         lbs = resize_bilinear_torch(box_label_map(box, H, W)[:, None],
                                     H // 8, W // 8)
-        self.lbs_ref = lbs.reshape(1, 1, (H // 8) * (W // 8))
+        return feat_ref, lbs.reshape(1, 1, (H // 8) * (W // 8)), r
+
+    def initialize(self, image, init_bbox_xywh):
+        """image: HWC uint8; init_bbox: [x, y, w, h] in image coords."""
+        self.frame_id = 0
+        self.feat_ref, self.lbs_ref, _ = self.init_refs(image, init_bbox_xywh)
         self.state = list(init_bbox_xywh)
 
     @torch.inference_mode()
@@ -69,26 +79,31 @@ class SOTDriver:
         return self.model.forward_backbone(imgs)
 
     @torch.inference_mode()
-    def embed(self, feat_cur):
-        """Interaction of the cached reference feature with feat_cur (B, C,
-        H/16, W/16), then the embedding upsample of both -> (emb_ref,
-        emb_cur), each (B, embed_dim, H/8, W/8)."""
-        feat_ref = self.feat_ref.expand(feat_cur.shape[0], -1, -1, -1)
+    def embed(self, feat_cur, feat_ref=None):
+        """Interaction of the reference features with feat_cur (B, C, H/16,
+        W/16), then the embedding upsample of both -> (emb_ref, emb_cur),
+        each (B, embed_dim, H/8, W/8). feat_ref: (B, C, H/16, W/16), one a
+        frame, or (1, ...) for all; the cached one when None."""
+        feat_ref = (self.feat_ref if feat_ref is None else feat_ref).expand(
+            feat_cur.shape[0], -1, -1, -1)
         new_ref, new_cur = self.model.forward_interaction(
             feat_ref.float(), feat_cur.float())
         return (self.model.forward_upsample(new_ref),
                 self.model.forward_upsample(new_cur))
 
     @torch.inference_mode()
-    def propagate(self, emb_ref, emb_cur, fpn_outs):
-        """Correlation label propagation of the reference label map, and the
-        prior pyramid at strides 8/16/32 in each FPN level's dtype."""
+    def propagate(self, emb_ref, emb_cur, fpn_outs, lbs_ref=None):
+        """Correlation label propagation of the reference label maps, and the
+        prior pyramid at strides 8/16/32 in each FPN level's dtype. lbs_ref:
+        (B, 1, H/8 * W/8), one a frame, or (1, ...) for all; the cached one
+        when None."""
         b, c, h8, w8 = emb_cur.shape
 
         def tokens(e):
             return e.permute(0, 2, 3, 1).reshape(b, h8 * w8, c).float()
 
-        lbs = self.lbs_ref.expand(b, -1, -1).contiguous()
+        lbs = (self.lbs_ref if lbs_ref is None else lbs_ref).expand(
+            b, -1, -1).contiguous()
         prior = correlation_propagate_auto(
             tokens(emb_ref).contiguous(), tokens(emb_cur).contiguous(), lbs
         ).reshape(b, 1, h8, w8)
@@ -101,11 +116,13 @@ class SOTDriver:
     def head(self, fpn_outs, priors):
         return self.model.forward_head(fpn_outs, priors)
 
-    def forward(self, imgs):
-        """imgs (B, 3, H, W) -> the head's raw outputs for the SOT decode."""
+    def forward(self, imgs, feat_ref=None, lbs_ref=None):
+        """imgs (B, 3, H, W) -> the head's raw outputs for the SOT decode;
+        the references as `embed` and `propagate` take them."""
         fpn_outs, feat_cur = self.backbone(imgs)
-        emb_ref, emb_cur = self.embed(feat_cur)
-        return self.head(fpn_outs, self.propagate(emb_ref, emb_cur, fpn_outs))
+        emb_ref, emb_cur = self.embed(feat_cur, feat_ref)
+        return self.head(fpn_outs, self.propagate(emb_ref, emb_cur, fpn_outs,
+                                                  lbs_ref))
 
     @torch.inference_mode()
     def postprocess(self, raw):

@@ -11,6 +11,18 @@ The JAX version compiles a chunk into one program (`lax.scan`); here a chunk
 is a Python loop over eager calls. Inside a frame the only host
 synchronisations are the reads of the auction's loop condition (one before
 each block of rounds, tracker/device_tracker.py `auction_assign`).
+
+`pipelined=True` overlaps the detector of frame i with the tracker of
+frame i - 1, JAX's `chunk_step_pipelined`: on the card the detector runs on
+one CUDA stream and the tracker on a second, ordered by events. The
+detector of frame i is enqueued before the tracker of frame i - 1, whose
+auction blocks the host: that wait is when the card runs the detector
+ahead. The tracker steps run in the same order on the same detections, so
+the outputs equal the plain chunk's.
+
+`MultiStreamMOT` serves S independent streams on one card: a tick is one
+frame of each stream through one detector batch and one batched tracker
+step.
 """
 from __future__ import annotations
 
@@ -75,11 +87,17 @@ class StreamingMOTPipeline:
         Frames are NHWC on the device, either raw (N, H, W, 3) or
         host-packed (N, H/4, W/4, 48) by `pack_frames_np`; float or uint8.
 
+        pipelined=True overlaps the detector of each frame with the tracker
+        of the frame before it in `run_chunk` (two CUDA streams on the
+        card, one stream on the CPU, the same outputs); it detects one
+        frame at a time and ignores frame_batch, as JAX's pipelined chunk
+        does.
+
         `compiler_options`, `unroll` and `approx_topk` are kept so that
         callers of the JAX pipeline carry over; they change nothing here:
         the first two steer the XLA compilation of the chunk program, and
         `approx_topk` selects `jax.lax.approx_max_k`, where the port always
-        takes the exact top-k. `pipelined=True` is not yet ported."""
+        takes the exact top-k."""
         self.n_streams = int(n_streams)
         self.frame_batch = int(frame_batch)
         if self.n_streams > 1 and (pipelined or self.frame_batch != 1):
@@ -87,9 +105,8 @@ class StreamingMOTPipeline:
                 "n_streams > 1 supports neither pipelined=True nor "
                 "frame_batch > 1 (the multi-stream chunk step already "
                 "batches the detector across streams)")
-        if pipelined:
-            raise NotImplementedError(
-                "StreamingMOTPipeline(pipelined=True) is not yet ported")
+        self.pipelined = bool(pipelined)
+        self._cuda_streams = None   # (detect, track), made on first use
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.input_size = tuple(input_size)
@@ -137,6 +154,8 @@ class StreamingMOTPipeline:
     def run_chunk(self, frames_device):
         """frames (N, H, W, C) on the device -> (N, T, 7) on the device;
         with n_streams = S > 1, frames (S, N, H, W, C) -> (S, N, T, 7)."""
+        if self.pipelined:
+            return self._run_chunk_pipelined(frames_device)
         if self.n_streams > 1:
             S, N = frames_device.shape[:2]
             if S != self.n_streams:
@@ -155,10 +174,86 @@ class StreamingMOTPipeline:
                 outs.append(self.associate(dets5[f:f + 1], valid[f:f + 1])[0])
         return torch.stack(outs)
 
+    def _run_chunk_pipelined(self, frames):
+        """The pipelined chunk: detect(frame i), then associate(frame i - 1),
+        then the last frame's association after the loop; the first
+        iteration leaves the tracker state alone, as JAX's does. On the
+        card, detect runs on one side stream and associate on another,
+        each waiting on the caller's stream at the start (the frames and
+        the tracker state were made there), and the caller's stream waits
+        on the tracker's at the end. The detections cross streams behind an
+        event, and record_stream keeps the allocator from handing their
+        memory to the detector's stream before the tracker has read it. On
+        the CPU the same loop runs in the same order on one stream
+        (torch.cuda.stream(None) does nothing)."""
+        det_s = trk_s = None
+        if frames.device.type == "cuda":
+            if self._cuda_streams is None:
+                self._cuda_streams = (torch.cuda.Stream(frames.device),
+                                      torch.cuda.Stream(frames.device))
+            det_s, trk_s = self._cuda_streams
+            caller = torch.cuda.current_stream(frames.device)
+            det_s.wait_stream(caller)
+            trk_s.wait_stream(caller)
+            frames.record_stream(det_s)
+        outs, pending = [], None
+
+        def track(dets5, valid, ready):
+            with torch.cuda.stream(trk_s):
+                if ready is not None:
+                    trk_s.wait_event(ready)
+                    dets5.record_stream(trk_s)
+                    valid.record_stream(trk_s)
+                outs.append(self.associate(dets5, valid)[0])
+
+        for t in range(frames.shape[0]):
+            with torch.cuda.stream(det_s):
+                dets5, valid = self.detect(frames[t:t + 1])
+                ready = None if det_s is None else det_s.record_event()
+            if pending is not None:
+                track(*pending)
+            pending = (dets5, valid, ready)
+        track(*pending)
+        if trk_s is not None:
+            caller.wait_stream(trk_s)
+            for o in outs:
+                o.record_stream(caller)
+        return torch.stack(outs)
+
 
 class MultiStreamMOT:
-    """S independent streams sharded over a mesh of cards, one tracker state
-    each. Not yet ported: it belongs to the multi-GPU work."""
+    """S independent streams, one tracker state each (port of JAX's
+    MultiStreamMOT with mesh=None): frames (S, H, W, C) arrive a tick at a
+    time and go through one detector batch of S and one tracker step
+    batched over the S states, which never mix. The keyword arguments are
+    the StreamingMOTPipeline's.
 
-    def __init__(self, *args, **kw):
-        raise NotImplementedError("MultiStreamMOT is not yet ported")
+    With a mesh JAX shards the streams over cards; streams over several
+    cards need a process group per card and are not ported (ROADMAP.md
+    Queue 1, after item 5e): a mesh raises."""
+
+    def __init__(self, model: Unicorn, n_streams: int, mesh=None,
+                 axis: str = "stream", device="cuda", **kw):
+        if mesh is not None:
+            raise NotImplementedError(
+                "MultiStreamMOT over a mesh of cards is not ported (ROADMAP.md "
+                "Queue 1: the multi-card forms after item 5e); mesh=None "
+                "serves the streams on one card")
+        del axis
+        self.n_streams = int(n_streams)
+        self.pipe = StreamingMOTPipeline(model, n_streams=self.n_streams,
+                                         device=device, **kw)
+
+    @property
+    def states(self):
+        """The S tracker states, one TrackState batched over streams."""
+        return self.pipe.ts
+
+    @torch.inference_mode()
+    def tick(self, frames_device):
+        """frames (S, H, W, C) on the device -> (S, T, 7) packed outputs on
+        the device."""
+        if frames_device.shape[0] != self.n_streams:
+            raise ValueError(f"tick: {frames_device.shape[0]} streams given, "
+                             f"{self.n_streams} expected")
+        return self.pipe.associate(*self.pipe.detect(frames_device))

@@ -29,6 +29,12 @@ there, and the port leaves it out.
 The head runs once at batch K, where JAX runs a lax.map of K batch-1
 passes: one set of dispatches a frame whatever K is, and one NMS over the
 K slots. The mask branch runs once a frame at batch 1.
+
+Both paths take the references as arguments (the cached ones when none are
+given) and a batch of S frames, so that one code path also serves S
+sequences in lockstep, each with its own K slots (drivers/seq_parallel.py):
+the backbone and the mask branch run at batch S, the interaction at batch
+S (shared) or S * K (general), the head and NMS at batch S * K.
 """
 from __future__ import annotations
 
@@ -122,7 +128,8 @@ class VOSDriver:
 
     @torch.inference_mode()
     def backbone(self, img):
-        """img (1, 3, H, W) -> (fpn_outs, feat_cur)."""
+        """img (S, 3, H, W), S = 1 but in lockstep -> (fpn_outs,
+        feat_cur)."""
         return self.model.forward_backbone(img)
 
     @torch.inference_mode()
@@ -151,14 +158,16 @@ class VOSDriver:
 
     @torch.inference_mode()
     def head(self, fpn_outs, priors_k):
-        """The SOT head over the K slots at batch K, each slot with its own
-        prior pyramid; decode + NMS -> (flat head outputs, dets (K, 8, 7),
-        valid (K, 8), the kept rows' anchor indices (K, 8))."""
-        K, _, h8, w8 = priors_k.shape
+        """The SOT head over the slots at batch S * K (S frames' FPN maps,
+        K slots each, slot-major within a frame), each slot with its own
+        prior pyramid; decode + NMS -> (flat head outputs, dets (S * K, 8,
+        7), valid (S * K, 8), the kept rows' anchor indices (S * K, 8))."""
+        SK, _, h8, w8 = priors_k.shape
+        K = SK // fpn_outs[0].shape[0]
         priors = (priors_k,
                   resize_bilinear_torch(priors_k, h8 // 2, w8 // 2),
                   resize_bilinear_torch(priors_k, h8 // 4, w8 // 4))
-        fpn_k = tuple(f.expand(K, -1, -1, -1).contiguous(
+        fpn_k = tuple(f.repeat_interleave(K, 0).contiguous(
             memory_format=torch.channels_last) for f in fpn_outs)
         raw = self.model.forward_head(
             fpn_k, tuple(p.to(f.dtype) for p, f in zip(priors, fpn_k)))
@@ -171,41 +180,54 @@ class VOSDriver:
 
     @torch.inference_mode()
     def mask_decode(self, fpn_outs, flat, idx):
-        """Each slot's mask probabilities (K, H, W) at the input size, from
-        the controllers of its top detection's anchor (taken even when the
-        slot kept no row, as in JAX) and the frame's mask features."""
+        """Each slot's mask probabilities (S * K, H, W) at the input size,
+        from the controllers of its top detection's anchor (taken even when
+        the slot kept no row, as in JAX) and its frame's mask features."""
         mask_feats, up_mask, _ = self.model.forward_mask_branch(fpn_outs)
+        S = mask_feats.shape[0]
         rows = torch.arange(idx.shape[0], device=idx.device)
-        m = instance_mask_probs(mask_feats, up_mask, flat, rows, idx[:, 0],
+        anchors = idx[:, 0]
+        if S > 1:      # frame s decodes its slots on its own mask features
+            rows, anchors = rows.reshape(S, -1), anchors.reshape(S, -1)
+        m = instance_mask_probs(mask_feats, up_mask, flat, rows, anchors,
                                 STRIDES, self.use_raft, self.up_rate)
         # probabilities, not logits, go to the full input size
-        d_up = self.input_size[0] // m.shape[1]
-        return aligned_bilinear(m, d_up) if d_up > 1 else m
+        d_up = self.input_size[0] // m.shape[-2]
+        m = aligned_bilinear(m, d_up) if d_up > 1 else m
+        return m.reshape(-1, *m.shape[-2:])
 
     def head_tail(self, fpn_outs, priors_k):
-        """(dets (K, 8, 7), valid (K, 8), mask probabilities (K, H, W), or
-        None without the mask branch)."""
+        """(dets (S * K, 8, 7), valid (S * K, 8), mask probabilities (S * K,
+        H, W), or None without the mask branch)."""
         flat, dets, valid, idx = self.head(fpn_outs, priors_k)
         if self.model.head.mask_branch is None:
             return dets, valid, None
         return dets, valid, self.mask_decode(fpn_outs, flat, idx)
 
-    def track_fn(self, img):
+    def track_fn(self, img, feat_ref=None, lbs_ref=None):
         """The general path: per-slot references, the interaction batched
-        over the K (ref, cur) pairs."""
+        over the (ref, cur) pairs of the slots. img (S, 3, H, W); feat_ref
+        (S * K, C, H/16, W/16) and lbs_ref (S * K, 1, H/8 * W/8), frame s's
+        slots at rows s * K ..; the cached ones (S = 1) when None."""
+        feat_ref = self.feat_ref if feat_ref is None else feat_ref
+        lbs_ref = self.lbs_ref if lbs_ref is None else lbs_ref
         fpn_outs, feat_cur = self.backbone(img)
         emb_ref, emb_cur = self.embed(
-            self.feat_ref, feat_cur.expand(self.K, -1, -1, -1))
+            feat_ref, feat_cur.repeat_interleave(self.K, 0))
         return self.head_tail(fpn_outs,
-                              self.propagate(emb_ref, emb_cur, self.lbs_ref))
+                              self.propagate(emb_ref, emb_cur, lbs_ref))
 
-    def track_fn_shared(self, img):
-        """The shared-reference path: one interaction and one correlation
-        whose value rows are the K label maps."""
+    def track_fn_shared(self, img, feat_ref1=None, lbs_ref=None):
+        """The shared-reference path: one interaction a frame and one
+        correlation whose value rows are its K label maps. img (S, 3, H,
+        W); feat_ref1 (S, C, H/16, W/16); lbs_ref (S * K, 1, H/8 * W/8);
+        the cached ones (S = 1) when None."""
+        feat_ref1 = self.feat_ref1 if feat_ref1 is None else feat_ref1
+        lbs_ref = self.lbs_ref if lbs_ref is None else lbs_ref
         fpn_outs, feat_cur = self.backbone(img)
-        emb_ref, emb_cur = self.embed(self.feat_ref1, feat_cur)
+        emb_ref, emb_cur = self.embed(feat_ref1, feat_cur)
         priors_k = self.propagate(emb_ref, emb_cur,
-                                  self.lbs_ref.reshape(1, self.K, -1))
+                                  lbs_ref.reshape(img.shape[0], self.K, -1))
         return self.head_tail(fpn_outs, priors_k)
 
     @torch.inference_mode()

@@ -2,12 +2,13 @@
 unicorn_tpu/harness/running.py; the reference's lib/test/evaluation/
 running.py:176-203 and tracker.py:70-212).
 
-One card runs the sequences one after another. Frames are read with the
-port's decoder (data/image_io.py `imread`, BGR uint8 as cv2.imread gives
-them; a missing or unreadable frame raises), VOS annotations with
-`read_indexed_mask`, and the predicted VOS masks are written as 8-bit gray
-PNGs with `write_png`. The lockstep runners over a multi-card sequence mesh
-(the JAX package's _parallel_runners.py) are not ported.
+The runners here take the sequences one after another; the lockstep
+runners, S sequences a step on one card, are in _parallel_runners.py and
+re-exported here. Frames are read with the port's decoder
+(data/image_io.py `imread`, BGR uint8 as cv2.imread gives them; a missing
+or unreadable frame raises), VOS annotations with `read_indexed_mask`,
+and the predicted VOS masks are written as 8-bit gray PNGs with
+`write_png`.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import time
 import numpy as np
 
 from ..data.image_io import imread, read_indexed_mask, write_png
+from ._parallel_runners import (run_dataset_sot_parallel,  # noqa: F401
+                                run_dataset_vos_parallel)
 from .datasets import Sequence
 
 

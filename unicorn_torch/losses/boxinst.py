@@ -13,6 +13,9 @@ CondInst loss (losses/mask.py `select_topk_mask_logits`).
 Layout: images (B, 3, H, W) as the port's models take them; neighbourhoods
 (..., k*k-1, H, W) as in the JAX package; `rgb_to_lab` takes the channels
 last, as there.
+
+In a data-parallel step (parallel/mesh.py) the counts that normalise the
+terms are the global batch's, summed over the ranks.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.mask_head import anchor_locations_and_levels
+from ..parallel.mesh import global_sum
 from .mask import (dice_per_instance, gather_rows, resize_antialias,
                    select_topk_mask_logits)
 
@@ -144,6 +148,6 @@ def boxinst_mask_loss(ctrl, mask_feats, fg_mask, matched_gt, pred_iou,
     pw = compute_pairwise_term(logits, pairwise_size, pairwise_dilation)
     w = ((sim[:, None] >= color_thresh).float() * tgts[:, :, None]
          * valid[..., None, None, None])
-    loss_prj = (prj * valid).sum() / valid.sum().clamp_min(1.0)
-    loss_pw = (pw * w).sum() / w.sum().clamp_min(1.0)
+    loss_prj = (prj * valid).sum() / global_sum(valid.sum()).clamp_min(1.0)
+    loss_pw = (pw * w).sum() / global_sum(w.sum()).clamp_min(1.0)
     return loss_prj, loss_pw * warmup_factor

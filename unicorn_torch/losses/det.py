@@ -22,6 +22,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import global_sum, share
+
 BIG_COST = 1e9
 CENTER_RADIUS = 2.5
 N_CANDIDATE_K = 10
@@ -191,15 +193,18 @@ def yolox_losses(labels, pred_boxes, obj_logits, cls_logits, reg_raw,
     `yolox_terms`), normalised by the batch's foreground count.
 
     With `sample_mask` (B,) the losses are those of the masked sub-batch
-    (sums and num_fg restricted to it). Returns (loss_dict, OTAResult)."""
+    (sums and num_fg restricted to it). In a data-parallel step the
+    foreground and gt counts are those of the global batch (parallel/
+    mesh.py), so each rank's losses are its share. Returns (loss_dict,
+    OTAResult)."""
     (t_iou, t_obj, t_cls, t_l1), assign = yolox_terms(
         labels, pred_boxes, obj_logits, cls_logits, reg_raw, x_shifts,
         y_shifts, strides_vec, img_size, use_l1)
     if sample_mask is None:
         sample_mask = labels.new_ones((labels.shape[0],))
     sample_mask = sample_mask.float()
-    num_fg = (assign.num_fg * sample_mask).sum().clamp_min(1.0)
-    num_gts = (assign.num_gt * sample_mask).sum().clamp_min(1.0)
+    num_fg = global_sum((assign.num_fg * sample_mask).sum()).clamp_min(1.0)
+    num_gts = global_sum((assign.num_gt * sample_mask).sum()).clamp_min(1.0)
 
     def masked(t):
         return (t * sample_mask).sum() / num_fg
@@ -213,6 +218,6 @@ def yolox_losses(labels, pred_boxes, obj_logits, cls_logits, reg_raw,
         "conf_loss": loss_obj,
         "cls_loss": loss_cls,
         "l1_loss": loss_l1,
-        "num_fg": num_fg / num_gts,
+        "num_fg": share(num_fg / num_gts),
     }
     return loss_dict, assign

@@ -16,6 +16,9 @@ Where the frameworks part:
 
 Layout: mask features (B, 8, H8, W8) and the RAFT up-mask (B, 9*R*R, H8,
 W8), NCHW as everywhere in the port; the semantic logits (B, C, H8, W8).
+
+In a data-parallel step (parallel/mesh.py) the counts that normalise the
+losses are those of the global batch, summed over the ranks.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.mask_head import anchor_locations_and_levels
+from ..parallel.mesh import global_sum
 from ..ops.dynamic_conv import (aligned_bilinear, convex_upsample,
                                 dynamic_mask_logits)
 
@@ -105,7 +109,7 @@ def condinst_mask_loss(ctrl, mask_feats, fg_mask, matched_gt, pred_iou,
     if sample_mask is not None:
         losses = losses * sample_mask
         counts = counts * sample_mask
-    return losses.sum() / counts.sum().clamp_min(1.0)
+    return losses.sum() / global_sum(counts.sum()).clamp_min(1.0)
 
 
 def semantic_focal_loss(sem_logits, gt_masks, gt_classes, gt_valid,
@@ -129,4 +133,4 @@ def semantic_focal_loss(sem_logits, gt_masks, gt_classes, gt_valid,
     p_t = p * target + (1 - p) * (1 - target)
     loss = ce * ((1 - p_t) ** gamma)
     loss = loss * (alpha * target + (1 - alpha) * (1 - target))
-    return loss.sum() / target.sum().clamp_min(1.0)
+    return loss.sum() / global_sum(target.sum()).clamp_min(1.0)

@@ -9,6 +9,9 @@ for SOT samples, zeros for MOT samples).
 Layout: maps are NCHW here, as everywhere in the port: embeddings
 (B, C, H8, W8), priors and label maps (B, 1, H8, W8). The JAX package keeps
 them NHWC.
+
+In a data-parallel step (parallel/mesh.py) the batch size, the task
+counts and the correlation dice are those of the global batch.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 from ..models.heads import decode_boxes, flatten_raw_outputs, level_grids
 from ..ops.correlation import box_label_map, dice_loss, resize_bilinear_torch
 from ..ops.correlation_kernel import correlation_propagate_train
+from ..parallel.mesh import global_sum
 from .det import yolox_losses
 from .vos import match_instance_pairs
 
@@ -99,7 +103,8 @@ def unicorn_uni_loss(head_raw, embed_0, embed_1, pred_prior_s8, gt_lbs1_s8,
     for callers whose task_ids are never 2 it would be multiplied by a zero
     sample count."""
     del num_classes  # the class count is the head's
-    B = targets.shape[0]
+    # batch-wide counts: those of the global batch in a data-parallel step
+    B = global_sum(targets.shape[0], like=targets)
     sot_mask = (task_ids == 1).float()
     mot_mask = (task_ids == 2).float()
     hw = [(img_size[0] // s, img_size[1] // s) for s in strides]
@@ -117,7 +122,7 @@ def unicorn_uni_loss(head_raw, embed_0, embed_1, pred_prior_s8, gt_lbs1_s8,
     corr_sot = dice_loss(pred_prior_s8[:, 0], gt_lbs1_s8[:, 0],
                          sample_mask=sot_mask)
     total_sot = (sot_dict["total_loss"] + corr_sot) * sot_weight
-    n_sot = sot_mask.sum()
+    n_sot = global_sum(sot_mask.sum())
 
     out = {"corr_loss_sot": corr_sot}
     out.update({k + "_sot": v for k, v in sot_dict.items()
@@ -129,13 +134,14 @@ def unicorn_uni_loss(head_raw, embed_0, embed_1, pred_prior_s8, gt_lbs1_s8,
     mot_dict = head_losses("mot", labels1, mot_mask)
     corr_mot_b = mot_contrastive_loss_single(embed_0, embed_1, targets,
                                              bidirect)
-    corr_mot = (corr_mot_b * mot_mask).sum() / mot_mask.sum().clamp_min(1.0)
+    n_mot = global_sum(mot_mask.sum())
+    corr_mot = (corr_mot_b * mot_mask).sum() / n_mot.clamp_min(1.0)
     total_mot = mot_dict["total_loss"] + corr_mot
     if mot_weight > 1.0:
         # extra objectness weight for MOT
         total_mot = total_mot + mot_dict["conf_loss"] * (mot_weight - 1.0)
 
-    out["total_loss"] = (n_sot * total_sot + mot_mask.sum() * total_mot) / B
+    out["total_loss"] = (n_sot * total_sot + n_mot * total_mot) / B
     out["corr_loss_mot"] = corr_mot
     out.update({k + "_mot": v for k, v in mot_dict.items()
                 if k != "total_loss"})

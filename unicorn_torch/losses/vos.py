@@ -16,6 +16,9 @@ of the FPN maps.
 Layout: maps are NCHW as everywhere in the port: FPN maps (B, C, H, W),
 embeddings (B, C, H8, W8), the mask branch's features (B, 8, H8, W8);
 targets (B, 2, M, 6) and masks (B, 2, M, Hm, Wm) as in the JAX package.
+
+In a data-parallel step (parallel/mesh.py) the slot count that
+normalises the loss is the global batch's, summed over the ranks.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 from ..models.heads import decode_boxes, flatten_raw_outputs, level_grids
 from ..ops.correlation import resize_bilinear_torch
 from ..ops.correlation_kernel import correlation_propagate_train
+from ..parallel.mesh import global_sum
 from .det import yolox_terms
 from .mask import (condinst_mask_loss, dice_per_instance, gather_rows,
                    resize_antialias)
@@ -139,7 +143,7 @@ def vos_loss(model, mask_branch_out, fpn_outs_1, embed_0, embed_1, targets,
         up_masks=None if up_mask is None else fold_slots(up_mask, K),
         up_rate=up_rate, sample_mask=slot_w.reshape(B * K))
 
-    n_slots = slot_w.sum().clamp_min(1.0)
+    n_slots = global_sum(slot_w.sum()).clamp_min(1.0)
     head_l = per_total.reshape(B, K)
     return {
         "total_loss": ((head_l + corr_d) * slot_w).sum() / n_slots + mask_l,

@@ -103,14 +103,21 @@ def instance_mask_probs(mask_feats, up_mask, flat, rows, anchors, strides,
     (N, H/4, W/4). Instance n runs the controllers of anchor anchors[n] in
     head batch row rows[n] (an int: the same row for all) on the image's
     mask features (1, 8, H/8, W/8); stride 8 -> 4 by RAFT convex
-    upsampling (use_raft, with the up-mask) or aligned_bilinear x2."""
+    upsampling (use_raft, with the up-mask) or aligned_bilinear x2.
+
+    For S images at once, anchors and rows are (S, N) and mask_feats /
+    up_mask (S, ...): image s decodes its N instances on its own maps ->
+    (S, N, H/4, W/4)."""
     locs, lvls = anchor_locations_and_levels(flat["hw"], strides,
                                              anchors.device)
     anchors = anchors.long()
-    logits = dynamic_mask_logits(mask_feats[0], flat["ctrl"][rows, anchors],
+    if anchors.dim() == 1:
+        mask_feats = mask_feats[0]
+        up_mask = None if up_mask is None else up_mask[0]
+    logits = dynamic_mask_logits(mask_feats, flat["ctrl"][rows, anchors],
                                  locs[anchors], lvls[anchors])
     if use_raft and up_mask is not None:
-        m = convex_upsample(logits, up_mask[0], up_rate)
+        m = convex_upsample(logits, up_mask, up_rate)
     else:
         m = aligned_bilinear(logits, 2)                 # stride 8 -> 4
     return torch.sigmoid(m)

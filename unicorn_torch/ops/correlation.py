@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import global_ratio, share
+
 
 def correlation_propagate(embed0, embed1, lbs0, chunk: int = 1024):
     """Propagate frame-0 label maps to frame 1 through the embedding
@@ -59,14 +61,17 @@ def resize_bilinear_torch(x, out_h: int, out_w: int):
 
 def dice_loss(pred, gt, sample_mask=None):
     """Dice loss over flattened maps. pred, gt (B, ...); sample_mask:
-    optional (B,) weights, giving the dice of the masked sub-batch."""
+    optional (B,) weights, giving the dice of the masked sub-batch. One
+    dice of the whole batch: in a data-parallel step, of the global batch
+    (this rank's share, parallel/mesh.py `global_ratio`)."""
     eps = 1e-5
     axes = tuple(range(1, pred.dim()))
     inter = (pred * gt).sum(axes)
     union = (pred ** 2).sum(axes) + (gt ** 2).sum(axes)
     if sample_mask is not None:
         inter, union = inter * sample_mask, union * sample_mask
-    return 1.0 - 2.0 * inter.sum() / (union.sum() + eps)
+    return share(1.0) - global_ratio(2.0 * inter.sum(),
+                                     union.sum() + share(eps))
 
 
 def grid_sample_at_points(feat, points_xy):

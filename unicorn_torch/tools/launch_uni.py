@@ -8,6 +8,12 @@ fails stops the chain with its exit code.
 
   python -m unicorn_torch.tools.launch_uni --stage all --model tiny -b 16
   python -m unicorn_torch.tools.launch_uni --stage track --model large -b 16
+  torchrun --nproc_per_node W -m unicorn_torch.tools.launch_uni ... -b 16
+
+Under torchrun every rank runs this launcher, and each stage's process
+inherits torchrun's environment, so the W processes of a stage train it
+data-parallel (tools/train.py), -b the global batch; each stage forms a
+process group of its own in the agent's store (parallel/multihost.py).
 """
 import argparse
 import subprocess

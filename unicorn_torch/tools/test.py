@@ -15,7 +15,9 @@ init (seed 0). The datasets are read under $UNICORN_DATADIR
 (harness/datasets.py). SOT writes one <seq>.txt a sequence and prints the
 OPE AUC / precision where the ground truth has more than the first frame;
 VOS writes one PNG a frame and prints J&F over the annotated frames. Runs
-on the card unless --device cpu.
+on the card unless --device cpu. --parallel-seqs N > 1 runs N sequences in
+lockstep on the one device, a batch of N frames a step
+(harness/_parallel_runners.py), where JAX shards them over an N-chip mesh.
 """
 import argparse
 import os
@@ -38,8 +40,8 @@ def make_parser():
     p.add_argument("--result-dir", default="test_results")
     p.add_argument("--max-seqs", type=int, default=None)
     p.add_argument("--parallel-seqs", type=int, default=0,
-                   help="sequences in lockstep over a multi-card mesh: not "
-                        "ported, N > 1 raises")
+                   help="N > 1: N sequences in lockstep, one batch of N "
+                        "frames a step on the device")
     p.add_argument("--device", default="cuda")
     # not argparse.REMAINDER: after a leading positional (the tracker name)
     # REMAINDER would swallow every following option
@@ -55,10 +57,6 @@ def main(argv=None):
     """Returns {"results": {seq: (N, 4) boxes}} (SOT) or {"preds": {seq:
     [label maps]}} (VOS), with "metrics": the printed scores, or None."""
     args = make_parser().parse_args(argv)
-    if args.parallel_seqs > 1:
-        raise NotImplementedError(
-            "--parallel-seqs > 1 (lockstep sequences over a multi-card "
-            "mesh) is not ported: ROADMAP.md Queue 1 item 5, multi-GPU")
     exp = get_exp(args.exp_file, args.name)
     exp.merge(args.opts)
     model = load_model(exp, args.ckpt, serve=True)
@@ -72,11 +70,18 @@ def main(argv=None):
     if args.tracker == "unicorn_sot":
         from ..drivers.sot import SOTDriver
         from ..harness.analysis import evaluate_sot
-        from ..harness.running import run_dataset_sot
+        from ..harness.running import (run_dataset_sot,
+                                       run_dataset_sot_parallel)
 
-        results = run_dataset_sot(
-            lambda: SOTDriver(model, exp.test_size, device=args.device),
-            sequences, result_dir, max_seqs=args.max_seqs)
+        if args.parallel_seqs > 1:
+            results = run_dataset_sot_parallel(
+                SOTDriver(model, exp.test_size, device=args.device),
+                sequences, args.parallel_seqs, result_dir=result_dir,
+                max_seqs=args.max_seqs)
+        else:
+            results = run_dataset_sot(
+                lambda: SOTDriver(model, exp.test_size, device=args.device),
+                sequences, result_dir, max_seqs=args.max_seqs)
         gts = {s.name: s.ground_truth_rect for s in sequences
                if len(s.ground_truth_rect) > 1}
         metrics = evaluate_sot(results, gts) if gts else None
@@ -86,7 +91,7 @@ def main(argv=None):
 
     from ..drivers.vos import VOSDriver
     from ..harness.davis_metrics import evaluate_davis
-    from ..harness.running import run_sequence_vos
+    from ..harness.running import run_dataset_vos_parallel, run_sequence_vos
 
     n = len(sequences) if args.max_seqs is None else args.max_seqs
     # the driver's object slots sized from the data: DAVIS 2017 has
@@ -95,14 +100,22 @@ def main(argv=None):
                  for seq in sequences[:n]}
     max_objs = max((len({int(i) for g in gts for i in np.unique(g) if i != 0})
                     for gts in gt_by_seq.values()), default=1)
-    preds = {}
-    for seq in sequences[:n]:
-        driver = VOSDriver(model, exp.test_size, max_objects=max(1, max_objs),
-                           use_raft=getattr(exp, "use_raft", False),
-                           up_rate=getattr(exp, "up_rate", 8),
-                           device=args.device)
-        preds[seq.name] = run_sequence_vos(driver, seq, result_dir)
-        print(f"{seq.name}: {len(preds[seq.name])} frames")
+
+    def make_driver():
+        return VOSDriver(model, exp.test_size, max_objects=max(1, max_objs),
+                         use_raft=getattr(exp, "use_raft", False),
+                         up_rate=getattr(exp, "up_rate", 8),
+                         device=args.device)
+
+    if args.parallel_seqs > 1:
+        preds = run_dataset_vos_parallel(
+            make_driver(), sequences, args.parallel_seqs,
+            result_dir=result_dir, max_seqs=args.max_seqs)
+    else:
+        preds = {}
+        for seq in sequences[:n]:
+            preds[seq.name] = run_sequence_vos(make_driver(), seq, result_dir)
+            print(f"{seq.name}: {len(preds[seq.name])} frames")
     # predictions aligned to the ANNOTATED frames by stem: YT-VOS valid
     # ships sparse annotations (first-appearance frames only)
     gts, preds_aligned = {}, {}

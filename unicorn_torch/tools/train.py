@@ -5,17 +5,24 @@ tools/train.py).
   python -m unicorn_torch.tools.train -f my_exp.py -b 8 [-c ckpt] \
       [--start_epoch N] [--seed S] [--device cpu] [key value ...]
 
+  torchrun --nproc_per_node W -m unicorn_torch.tools.train -n ... -b 16
+
 -f takes an experiment file, -n the name of one of unicorn_torch/exp/.
-`Trainer(exp, {...}).train()` on one card (more than one is ROADMAP Queue 1
-item 5); on the CPU with --device cpu. With --resume the run resumes from
--c, else from <output_dir>/<exp_name>/latest; without it, -c is a
-checkpoint whose weights start a fine-tuning run. Trailing `key value`
-pairs override the exp's fields.
+`Trainer(exp, {...}).train()` on one card, or data-parallel over W cards
+under torchrun: `initialize_multihost` forms the NCCL group from torchrun's
+environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR / MASTER_PORT),
+each process trains on the card of its LOCAL_RANK, and -b is the global
+batch, split over the ranks. On the CPU with --device cpu (gloo between
+CPU processes). With --resume the run resumes from -c, else from
+<output_dir>/<exp_name>/latest; without it, -c is a checkpoint whose
+weights start a fine-tuning run. Trailing `key value` pairs override the
+exp's fields.
 """
 import argparse
 
 from ..core.trainer import Trainer
 from ..exp.base import get_exp
+from ..parallel.multihost import initialize_multihost, local_device
 
 
 def make_parser():
@@ -40,6 +47,9 @@ def make_parser():
 def main(argv=None):
     """Returns the Trainer after its run."""
     args = make_parser().parse_args(argv)
+    # under torchrun: the process group over the ranks (nothing in a single
+    # process), before anything touches the card
+    initialize_multihost(device=args.device)
     exp = get_exp(args.exp_file, args.name)
     exp.merge(args.opts)
     if args.seed is not None:
@@ -47,7 +57,7 @@ def main(argv=None):
     trainer = Trainer(exp, {"batch_size": args.batch_size,
                             "resume": args.resume, "ckpt": args.ckpt,
                             "start_epoch": args.start_epoch},
-                      device=args.device)
+                      device=local_device(args.device))
     trainer.train()
     return trainer
 
