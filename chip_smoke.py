@@ -19,8 +19,10 @@ Phases (each must pass, else the exit code is 1):
              D = 6), in bf16 and fp32, with times (dw7x7 per shape, with
              the tiling its launcher picks; the fused block per shape, with
              its plan, each kernel's time per launch and, at C <= 256, the
-             other route; dw7x7 also at the r50 head's and at
-             unicorn_track_tiny_rt's 640x1024 shapes, MSDA and the serving
+             other route; dw7x7 also at the r50 head's, at
+             unicorn_track_tiny_rt's 640x1024 shapes and at the shapes of
+             a rank of the 800x1280 frame split over 4 (7 or 6 units of
+             32 rows and the halo), MSDA and the serving
              correlation at _rt's, each with its path in `per_shape`)
              of kernel, plain version and the PyTorch library call that
              computes the same function, and the bound; the gradients of
@@ -254,6 +256,20 @@ Phases (each must pass, else the exit code is 1):
              (spawned after the build) against the one-process B = 2
              step at train_model's bounds, ms/step and peak memory a
              rank, 36 / 1 / 2 / 2 / 2 launches a rank and step
+  multicard  the multi-card forms on the one card, unicorn_track_tiny at
+             800x1280, seed 0, biases raised: (a) a world of 1 over NCCL,
+             spatial_detect_fn at sp = 1 (the row plan, halo and
+             GroupNorm exchanges, gather) against the one-card detector,
+             fp32 with TF32 off at JAX's bounds, bf16 printed, 27 dw7x7;
+             (b) 4 gloo ranks sharing the card (spawned): gloo's int32
+             all-reduce on card tensors, spatial_detect_fn at sp = 4
+             (7 / 6 / 6 / 6 units of 32 rows) at (a)'s bounds, 27 dw7x7 a
+             frame and rank, the kernel against its plain version at each
+             rank's call shapes, ms a frame a rank (one shared card's);
+             MultiStreamMOT over a "stream" mesh (a stream a rank, 8
+             ticks) bit-equal to the one-card form; lockstep SOT over a
+             "seq" mesh (a sequence a rank) bit-equal to each sequence
+             alone at batch 1, 27 / 1 / 1 a step
 `--only profile` adds a torch.profiler breakdown of the paths.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the rest of the
@@ -422,8 +438,10 @@ def dw_beyond_tolerance_bf16(x, k, b, yk, yp) -> int:
 
 # dw7x7 shapes (H, W, C) and launches a frame of the other configurations:
 # the head's 3 levels x 3 blocks at width 0.5 (C = 128) on ResNet-50, whose
-# trunk has none (Swin-T at width 1.0 runs the ConvNeXt head's shapes); and
-# unicorn_track_tiny_rt's trunk and head at 640x1024, 4/5 of 800x1280
+# trunk has none (Swin-T at width 1.0 runs the ConvNeXt head's shapes);
+# unicorn_track_tiny_rt's trunk and head at 640x1024, 4/5 of 800x1280; and
+# a rank's rows of the 800x1280 frame split over 4 ranks (phase multicard:
+# 7 or 6 units of 32 rows, plus 3 halo rows each side at every stride)
 DW_OTHER_SHAPES = {
     "r50 head": (((100, 160, 128), 3), ((50, 80, 128), 3),
                  ((25, 40, 128), 3)),
@@ -431,6 +449,11 @@ DW_OTHER_SHAPES = {
                          ((40, 64, 384), 9), ((20, 32, 768), 3),
                          ((80, 128, 256), 3), ((40, 64, 256), 3),
                          ((20, 32, 256), 3)),
+    **{f"sp4 rank of {u} units": tuple(
+        ((u * 32 // s + 6, W, C), n) for s, W, C, n in (
+            (4, 320, 96, 3), (8, 160, 192, 3), (16, 80, 384, 9),
+            (32, 40, 768, 3), (8, 160, 256, 3), (16, 80, 256, 3),
+            (32, 40, 256, 3))) for u in (7, 6)},
 }
 
 
@@ -7426,6 +7449,521 @@ def phase_parallel(report):
     _parallel_dp(report)
 
 
+# --------------------------------------------------------- multi-card forms
+MC_RANKS = 4              # (b) gloo ranks sharing the card
+MC_FRAMES = 2             # timed spatial frames a rank, after one warm-up
+MC_STREAMS = 4            # (b) MultiStreamMOT streams over the ranks ...
+MC_TICKS = 8              # ... and ticks
+MC_SOT_STEPS = 2          # (b) lockstep SOT steps, one sequence a rank
+MC_EXP_FIELDS = {}        # fields set on every exp of the phase
+# spatial_detect_fn's defaults (JAX's): the detector of the streaming path
+MC_DETECT = dict(conf_thre=0.1, nms_thre=0.8, n_cand=128, max_out=64)
+# what a rank process takes of this module's settings
+MC_SETTINGS = ("DEVICE", "FRAME_HW", "INIT_BOX", "MC_FRAMES", "MC_STREAMS",
+               "MC_TICKS", "MC_SOT_STEPS", "MC_EXP_FIELDS")
+
+
+def _sync():
+    import torch
+
+    if DEVICE.startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def _mc_exp(bf16=True):
+    from unicorn_torch.exp.unicorn_track_tiny import Exp
+
+    exp = Exp()
+    for k, v in MC_EXP_FIELDS.items():
+        setattr(exp, k, v)
+    if not bf16:
+        exp.bf16 = False
+    return exp
+
+
+def _mc_model(exp, serve=False):
+    """The exp's model, seeded 0, on the card: with serve, the served SOT
+    model; else the detector with its obj / cls biases raised by 6."""
+    import torch
+
+    gen = torch.Generator().manual_seed(0)
+    if serve:
+        return exp.get_model(gen, serve=True).to(DEVICE).eval()
+    model = exp.get_model(gen)
+    _raise_priors(model)
+    return model.to(DEVICE).eval()
+
+
+def _mc_image(exp):
+    """One seeded frame at the exp's test size, (1, 3, H, W) float32 on the
+    card."""
+    import numpy as np
+    import torch
+
+    H, W = exp.test_size
+    rng = np.random.RandomState(0)
+    img = (rng.rand(1, H, W, 3) * 255).round().astype(np.float32)
+    return torch.from_numpy(img).to(DEVICE).permute(0, 3, 1, 2)
+
+
+def _mc_one_card(model, x, nc):
+    """The one-card detector: forward_whole -> decode -> NMS."""
+    import torch
+
+    from unicorn_torch.models.heads import decode_for_inference
+    from unicorn_torch.ops.nms import postprocess_device
+
+    with torch.inference_mode():
+        raw, _ = model.forward_whole(x)
+        dec = decode_for_inference(raw, (8, 16, 32), mode="mot")
+        return postprocess_device(dec, num_classes=nc,
+                                  class_agnostic=nc == 1, **MC_DETECT)
+
+
+def _mc_match(got, ref):
+    """The spatial detector's (dets, valid) against the one-card one's, at
+    JAX's bounds (tests/test_spatial.py:54-61): every valid score clear of
+    conf_thre by 1e-4, and, index by index as JAX's test compares, the
+    valid bits equal and each valid row within rtol 2e-4, atol 2e-3
+    (`index_ok`, the verdict `ok`). Also each valid row of the reference
+    against the spatial row nearest its box (`nearest_ok`; rows of
+    near-equal scores may swap in the sorted output). Returns those, the
+    valid counts, the share of equal valid bits and the largest box offset
+    index by index and to the nearest box."""
+    import torch
+
+    dets, valid = (t.float().cpu() for t in got)
+    dets_1, valid_1 = (t.float().cpu() for t in ref)
+    valid, valid_1 = valid > 0.5, valid_1 > 0.5
+    score = dets_1[..., 4] * dets_1[..., 5]
+    clear = bool((~valid_1 | ((score - MC_DETECT["conf_thre"]).abs()
+                              > 1e-4)).all())
+    both = valid & valid_1
+    within = (dets - dets_1).abs() <= 2e-3 + 2e-4 * dets_1.abs()
+    index_ok = clear and bool(torch.equal(valid, valid_1)
+                              and within.all(-1)[both].all()
+                              and both.any())
+    index_offset = float((dets[..., :4] - dets_1[..., :4]).abs()
+                         .amax(-1)[both].max()) if both.any() else 0.0
+    nearest_ok, offset = clear, 0.0
+    for b in range(dets.shape[0]):
+        want, have = dets_1[b][valid_1[b]], dets[b][valid[b]]
+        nearest_ok &= len(want) == len(have) > 0
+        for row in want:
+            if not len(have):
+                break
+            d = (have[:, :4] - row[:4]).abs().max(1).values
+            j = int(d.argmin())
+            offset = max(offset, float(d[j]))
+            nearest_ok &= bool(((have[j] - row).abs()
+                                <= 2e-3 + 2e-4 * row.abs()).all())
+    return dict(ok=index_ok, index_ok=index_ok, nearest_ok=nearest_ok,
+                clear=clear, n=int(valid.sum()), n_ref=int(valid_1.sum()),
+                equal_bits=float((valid == valid_1).float().mean()),
+                index_offset=index_offset, offset=offset)
+
+
+def _mc_str(m):
+    return (f"{m['n']} / {m['n_ref']} valid, valid bits equal "
+            f"{m['equal_bits']:.1%}, largest box offset index by index "
+            f"{m['index_offset']:.2e} px (within bounds {m['index_ok']}), "
+            f"to the nearest box {m['offset']:.2e} px (within bounds "
+            f"{m['nearest_ok']})")
+
+
+# the ops of models/blocks.py that run differently inside row_sharded, and
+# the method that holds each one's row hook
+MC_HOOKS = {"Conv2d": "forward", "GroupNorm32": "forward",
+            "DepthwiseConv7x7": "forward_nhwc", "MaxPool2d": "forward"}
+
+
+def _mc_hook_study(model, x, nc, mesh, ref):
+    """bf16 at sp = 1, where every halo is padding: the packed head maps
+    and the detections with every row hook on, with each hook of MC_HOOKS
+    swapped back to its one-card op alone, and with all swapped back,
+    against the one-card detector `ref`; and the one-card detector run
+    again (is it deterministic?). Which op moves the bf16 boxes. Returns
+    {variant: (maps differing, their share, max |diff|, _mc_match)}."""
+    from unittest import mock
+
+    import torch
+
+    from unicorn_torch.models import blocks
+    from unicorn_torch.parallel import rows
+    from unicorn_torch.parallel.spatial import spatial_detect_fn
+
+    def one_card(name):
+        cls = getattr(blocks, name)
+        real = getattr(cls, MC_HOOKS[name])
+
+        def unhooked(self, *args):
+            with rows.row_sharded(None):
+                return real(self, *args)
+        return mock.patch.object(cls, MC_HOOKS[name], unhooked)
+
+    plan = rows.RowPlan((1,), 0, mesh.group)
+    fn = spatial_detect_fn(model, mesh, num_classes=nc, **MC_DETECT)
+    keys = ("_cls_packed", "_reg_packed")
+    with torch.inference_mode():
+        raw_1, _ = model.forward_whole(x)
+    variants = [("every hook on", (), True)]
+    variants += [(f"{n} one-card", (n,), True) for n in MC_HOOKS]
+    variants += [("all one-card", tuple(MC_HOOKS), True),
+                 ("one-card again", (), False)]
+    out = {}
+    for label, swapped, sharded in variants:
+        with contextlib.ExitStack() as stack, torch.inference_mode():
+            for name in swapped:
+                stack.enter_context(one_card(name))
+            if sharded:
+                with rows.row_sharded(plan):
+                    raw, _ = model.forward_whole(x)
+                dets = fn(x)
+            else:
+                raw, _ = model.forward_whole(x)
+                dets = _mc_one_card(model, x, nc)
+        diff = [(r[k].float() - r1[k].float()).abs()
+                for r, r1 in zip(raw, raw_1) for k in keys]
+        n = sum(int((d != 0).sum()) for d in diff)
+        out[label] = (n, n / sum(d.numel() for d in diff),
+                      max(float(d.max()) for d in diff),
+                      _mc_match(dets, ref))
+    return out
+
+
+def _multicard_world1(report):
+    """(a) A world of 1 over NCCL: spatial_detect_fn at sp = 1 (the row
+    plan, the halo and GroupNorm exchanges and the gather running) against
+    the one-card detector, in fp32 with TF32 off at JAX's bounds, and in
+    bf16 as served (printed), with which row hook moves the bf16 boxes
+    (`_mc_hook_study`, printed); 27 dw7x7 launches a frame. Keeps the
+    one-card detections for (b)."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from unicorn_torch.parallel import initialize_multihost, make_mesh
+    from unicorn_torch.parallel.spatial import spatial_detect_fn
+
+    exp32, exp = _mc_exp(bf16=False), _mc_exp()
+    nc = exp.num_classes
+    x = _mc_image(exp)
+    m32 = _mc_model(exp32)
+    m16 = _mc_model(exp)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize_multihost(coordinator_address=f"127.0.0.1:{port}",
+                         num_processes=1, process_id=0, device=DEVICE,
+                         timeout_s=120)
+    try:
+        backend = dist.get_backend()
+        mesh = make_mesh((1,), ("sp",), device=DEVICE)
+        with tf32_off():
+            one32 = _mc_one_card(m32, x, nc)
+            sp32 = spatial_detect_fn(m32, mesh, num_classes=nc,
+                                     **MC_DETECT)(x)
+        one16 = _mc_one_card(m16, x, nc)
+        fn16 = spatial_detect_fn(m16, mesh, num_classes=nc, **MC_DETECT)
+        fn16(x)                                     # warm-up, not counted
+        _sync()
+        _reset_kernel_counts()
+        sp16 = fn16(x)
+        _sync()
+        counts = _kernel_counts()
+        study = _mc_hook_study(m16, x, nc, mesh, one16)
+        ms = {}
+        for name, f in (("one-card", lambda: _mc_one_card(m16, x, nc)),
+                        ("sp = 1", lambda: fn16(x))) * 2:
+            t0 = time.perf_counter()
+            for _ in range(MC_FRAMES):
+                f()
+            _sync()
+            ms.setdefault(name, []).append(
+                (time.perf_counter() - t0) / MC_FRAMES * 1e3)
+    finally:
+        dist.destroy_process_group()
+    r32, r16 = _mc_match(sp32, one32), _mc_match(sp16, one16)
+    H, W = exp.test_size
+    print(f"  (a) world of 1 over {backend}, spatial_detect_fn at sp = 1 on "
+          f"{H}x{W} against the one-card detector: fp32 (TF32 off) "
+          f"{_mc_str(r32)}, within JAX's bounds {r32['ok']}; bf16 as served "
+          f"(printed): {_mc_str(r16)}; launches {counts}; bf16 ms a frame "
+          f"(host clock, {MC_FRAMES} frames, order one-card, sp = 1, "
+          f"one-card, sp = 1): one-card "
+          f"{' / '.join(f'{v:.1f}' for v in ms['one-card'])}, sp = 1 "
+          f"{' / '.join(f'{v:.1f}' for v in ms['sp = 1'])}")
+    print("  (a) bf16 at sp = 1, which row hook moves the boxes: the packed "
+          "head maps against the one-card detector's, and the detections")
+    for label, (n, share, big, m) in study.items():
+        print(f"    {label}: {n} map values differ ({share:.2%}), max |diff| "
+              f"{big:.3e}; {_mc_str(m)}")
+    report["mc_world1_ms"] = ms
+    report["mc_one"] = dict(fp32=[t.cpu() for t in one32],
+                            bf16=[t.cpu() for t in one16])
+    _record_launches(report, "multicard_world1", counts)
+    del m32, m16
+    assert backend == ("nccl" if DEVICE.startswith("cuda") else "gloo")
+    assert r32["ok"], r32
+    assert counts == PAR_FRAME, counts
+
+
+def _mc_rank(rank, world, store, out, settings):
+    """One of MC_RANKS gloo ranks on the card (spawned): the int32
+    all-reduce every exchange runs on; spatial_detect_fn over an "sp" mesh
+    on the rank's rows of (a)'s frame, in fp32 with TF32 off and in bf16
+    (MC_FRAMES timed frames, their launches, each dw7x7 call's inputs of a
+    frame recorded); then the recorded calls through the kernel and the
+    plain version; MultiStreamMOT over a "stream" mesh against the one-card
+    MultiStreamMOT on the rank's streams; lockstep SOT over a "seq" mesh
+    against the rank's sequence alone at batch 1. Writes what it found to
+    `out`."""
+    from unittest import mock
+
+    globals().update(settings)
+
+    import torch
+    import torch.distributed as dist
+
+    from unicorn_torch.drivers.seq_parallel import make_sot_seq_parallel_fn
+    from unicorn_torch.drivers.sot import SOTDriver
+    from unicorn_torch.drivers.stream import MultiStreamMOT
+    from unicorn_torch.models import blocks
+    from unicorn_torch.ops import dwconv7x7 as dw
+    from unicorn_torch.parallel import initialize_multihost, make_mesh, rows
+    from unicorn_torch.parallel.spatial import (spatial_detect_fn,
+                                                spatial_rows)
+
+    initialize_multihost(num_processes=world, process_id=rank,
+                         device=DEVICE, init_method="file://" + store,
+                         backend="gloo", timeout_s=300)
+    res = {}
+    t = torch.full((3,), rank + 1, dtype=torch.int32, device=DEVICE)
+    dist.all_reduce(t)
+    res["int32_sum"] = t.tolist()
+
+    exp32, exp = _mc_exp(bf16=False), _mc_exp()
+    nc = exp.num_classes
+    sp = make_mesh((world,), ("sp",), device=DEVICE)
+    x = _mc_image(exp)
+    start, stop = res["rows"] = spatial_rows(sp, x.shape[2])
+    x = x[:, :, start:stop].contiguous()          # the rank's rows alone
+    m32 = _mc_model(exp32)
+    with tf32_off():
+        res["fp32"] = [o.cpu() for o in spatial_detect_fn(
+            m32, sp, num_classes=nc, **MC_DETECT)(x)]
+    del m32
+    m16 = _mc_model(exp)
+    fn = spatial_detect_fn(m16, sp, num_classes=nc, **MC_DETECT)
+    calls, real = {}, blocks.dwconv7x7
+
+    def record(xx, k, b):
+        calls.setdefault(tuple(xx.shape), (xx.clone(), k.clone(), b.clone()))
+        return real(xx, k, b)
+
+    with mock.patch.object(blocks, "dwconv7x7", record):
+        fn(x)                                       # warm-up, not counted
+    _sync()
+    _reset_kernel_counts()
+    t0 = time.perf_counter()
+    for _ in range(MC_FRAMES):
+        got = fn(x)
+    _sync()
+    res["ms"] = (time.perf_counter() - t0) / MC_FRAMES * 1e3
+    res["counts"] = _kernel_counts()
+    res["bf16"] = [o.cpu() for o in got]
+    # one more frame with every exchange timed alone (synchronised before
+    # and after): how many a frame, their bytes, their share of the frame
+    tally = dict(n=0, bytes=0, ms=0.0)
+    reduce = rows.all_reduce
+
+    def timed_reduce(t_, ranks):
+        _sync()
+        t1 = time.perf_counter()
+        reduce(t_, ranks)
+        _sync()
+        tally["ms"] += (time.perf_counter() - t1) * 1e3
+        tally["n"] += 1
+        tally["bytes"] += t_.numel() * t_.element_size()
+        return t_
+
+    with mock.patch.object(rows, "all_reduce", timed_reduce):
+        _sync()
+        t0 = time.perf_counter()
+        fn(x)
+        _sync()
+    res["exchanges"] = dict(tally, frame_ms=(time.perf_counter() - t0) * 1e3)
+    res["dw"] = []
+    with tf32_off():
+        for shape, (xx, k, b) in calls.items():
+            yk, yp = dw.dwconv7x7(xx, k, b), dw.dwconv7x7_plain(xx, k, b)
+            err = float((yk.float() - yp.float()).abs().max())
+            if xx.dtype == torch.bfloat16:
+                good = dw_beyond_tolerance_bf16(xx, k, b, yk, yp) == 0
+            else:
+                good = err <= 1e-4 * max(1.0, float(yp.abs().max()))
+            res["dw"].append((shape, str(xx.dtype), err, good))
+
+    st = make_mesh((world,), ("stream",), device=DEVICE)
+    multi = MultiStreamMOT(m16, MC_STREAMS, mesh=st, **_stream_kw(exp))
+    mine = range(multi.first, multi.first + multi.local_streams)
+    frames = torch.stack([torch.cat([_ingest(exp, f) for f in _par_frames(
+        MC_TICKS, seed=30 + s)]) for s in mine])   # (S / W, T, H, W, 3)
+    multi.tick(frames[:, 0])                        # warm-up
+    multi.pipe.reset()
+    _sync()
+    t0 = time.perf_counter()
+    out_m = torch.stack([multi.tick(frames[:, i]) for i in range(MC_TICKS)],
+                        1)
+    _sync()
+    res["stream_ms"] = (time.perf_counter() - t0) / MC_TICKS * 1e3
+    one = MultiStreamMOT(m16, multi.local_streams, device=DEVICE,
+                         **_stream_kw(exp))
+    ref = torch.stack([one.tick(frames[:, i]) for i in range(MC_TICKS)], 1)
+    res["stream"] = dict(first=multi.first, equal=torch.equal(out_m, ref),
+                         n_valid=int((out_m[..., 6] > 0.5).sum()))
+    del m16, multi, one
+
+    driver = SOTDriver(_mc_model(exp, serve=True), input_size=exp.test_size,
+                       conf_thre=0.0, nms_thre=exp.nmsthre, device=DEVICE)
+    fh, fw = FRAME_HW
+    seqs = [_sot_frames(MC_SOT_STEPS, seed=40 + s) for s in range(world)]
+    refs = [driver.init_refs(seq[0], [INIT_BOX[0] + fw // 32 * s,
+                                      INIT_BOX[1] + fh // 36 * s,
+                                      *INIT_BOX[2:]])
+            for s, seq in enumerate(seqs)]
+    feat = torch.stack([r[0] for r in refs])
+    lbs = torch.stack([r[1] for r in refs])
+    fn_seq = make_sot_seq_parallel_fn(
+        driver, make_mesh((world,), ("seq",), device=DEVICE))
+    alone = make_sot_seq_parallel_fn(driver)
+
+    def imgs(i):
+        return torch.cat([driver.preprocess(seq[i])[0] for seq in seqs])
+
+    fn_seq(feat, lbs, imgs(1))                      # warm-up
+    _sync()
+    _reset_kernel_counts()
+    packed = [fn_seq(feat, lbs, imgs(i)) for i in range(1, MC_SOT_STEPS + 1)]
+    _sync()
+    res["sot_counts"] = _kernel_counts()
+    own = [alone(feat[rank:rank + 1], lbs[rank:rank + 1],
+                 imgs(i)[rank:rank + 1]) for i in range(1, MC_SOT_STEPS + 1)]
+    res["sot"] = dict(packed=[p.cpu() for p in packed],
+                      own=[o.cpu() for o in own])
+    torch.save(res, out)
+    dist.destroy_process_group()
+
+
+def _multicard_ranks(report):
+    """(b) MC_RANKS gloo ranks sharing the card (NCCL refuses two ranks on
+    one device), spawned as phase parallel's (d) spawns its two: gloo's
+    int32 all-reduce on card tensors; spatial_detect_fn at sp = MC_RANKS
+    (800 rows: 7 / 6 / 6 / 6 units of 32) in fp32 at (a)'s bounds against
+    the one-card detector and in bf16 (printed), the ranks returning the
+    same detections; 27 dw7x7 launches a frame and rank, the kernel
+    against its plain version at each of the rank's call shapes (bf16:
+    one ulp plus the bound on two fp32 sums; fp32: 1e-4 of the largest
+    magnitude, or 1e-4 below 1); MultiStreamMOT at MC_STREAMS streams,
+    each rank's equal bit for bit to the one-card form on its streams;
+    lockstep SOT, one sequence a rank, every rank returning all sequences,
+    each equal bit for bit to its sequence alone at batch 1, with phase
+    sot's launches a step. ms a frame a rank are those of one shared card:
+    no multi-card latency."""
+    import multiprocessing as mp
+    import tempfile
+
+    import torch
+
+    from unicorn_torch.parallel.rows import split_units
+
+    if DEVICE.startswith("cuda"):
+        torch.cuda.empty_cache()     # the ranks' own processes take the card
+    settings = {k: globals()[k] for k in MC_SETTINGS}
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mc_") as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(MC_RANKS)]
+        procs = [ctx.Process(target=_mc_rank, args=(
+            r, MC_RANKS, os.path.join(tmp, "store"), outs[r], settings))
+            for r in range(MC_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        wall = time.perf_counter() - t0
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        assert all(p.exitcode == 0 for p in procs), \
+            [p.exitcode for p in procs]
+        ranks = [torch.load(o) for o in outs]
+    one = report["mc_one"]
+    H = _mc_exp().test_size[0]
+    units = split_units(H, MC_RANKS)
+    r32, r16 = _mc_match(ranks[0]["fp32"], one["fp32"]), _mc_match(
+        ranks[0]["bf16"], one["bf16"])
+    agree = all(torch.equal(a, b) for res in ranks[1:] for key in
+                ("fp32", "bf16") for a, b in zip(res[key], ranks[0][key]))
+    print(f"  (b) {MC_RANKS} gloo ranks on {DEVICE}, rows "
+          f"{[res['rows'] for res in ranks]} ({units} units of 32); int32 "
+          f"all-reduce {ranks[0]['int32_sum']}; spatial_detect_fn against "
+          f"the one-card detector: fp32 (TF32 off) {_mc_str(r32)}, within "
+          f"JAX's bounds {r32['ok']}; bf16 (printed) {_mc_str(r16)}; ranks "
+          f"agree {agree}")
+    for r, res in enumerate(ranks):
+        shapes = ", ".join(f"{s[1]}x{s[2]}x{s[3]} {dt[6:]}"
+                           for s, dt, _, _ in res["dw"])
+        sot_alone = all(torch.equal(p[r], o[0]) for p, o in zip(
+            res["sot"]["packed"], res["sot"]["own"]))
+        print(f"  (b) rank {r}: {res['ms']:.1f} ms a frame over {MC_FRAMES} "
+              f"bf16 frames and {res['stream_ms']:.1f} ms a MultiStreamMOT "
+              f"tick ({MC_RANKS} ranks sharing one card: not a multi-card "
+              f"latency); launches {res['counts']}; dw7x7 kernel vs plain "
+              f"at its {len(res['dw'])} call shapes ({shapes}): all "
+              f"within tolerance {all(d[3] for d in res['dw'])}, max |err| "
+              f"{max(d[2] for d in res['dw']):.3e}; streams "
+              f"{res['stream']['first']}.. equal to the one-card form "
+              f"{res['stream']['equal']} ({res['stream']['n_valid']} valid "
+              f"rows); SOT slot equal to its sequence alone {sot_alone}, "
+              f"launches {res['sot_counts']}")
+    for r, res in enumerate(ranks):
+        ex = res["exchanges"]
+        print(f"  (b) rank {r}, one frame with each exchange synchronised "
+              f"and timed alone: {ex['n']} all-reduces, "
+              f"{ex['bytes'] / 2 ** 20:.1f} MiB summed, {ex['ms']:.1f} ms "
+              f"of the frame's {ex['frame_ms']:.1f} inside them")
+    print(f"  (b) the {MC_RANKS} ranks {wall:.1f} s from spawn to exit")
+    report["multicard_ms"] = [res["ms"] for res in ranks]
+    _record_launches(report, "multicard_rank0", ranks[0]["counts"])
+    assert r32["ok"] and agree, r32
+    assert [tuple(res["rows"]) for res in ranks] == [
+        (32 * sum(units[:r]), 32 * sum(units[:r + 1]))
+        for r in range(MC_RANKS)]
+    for r, res in enumerate(ranks):
+        assert res["int32_sum"] == [MC_RANKS * (MC_RANKS + 1) // 2] * 3
+        assert res["counts"] == {k: v * MC_FRAMES for k, v in
+                                 PAR_FRAME.items()}, res["counts"]
+        assert res["dw"] and all(d[3] for d in res["dw"]), res["dw"]
+        assert res["stream"]["equal"] and res["stream"]["n_valid"] > 0
+        assert res["sot_counts"] == {k: v * MC_SOT_STEPS for k, v in
+                                     SOT_LAUNCHES.items()}, res["sot_counts"]
+        for p, p0, o in zip(res["sot"]["packed"], ranks[0]["sot"]["packed"],
+                            res["sot"]["own"]):
+            assert torch.equal(p, p0) and torch.equal(p[r], o[0])
+
+
+def phase_multicard(report):
+    """The multi-card forms on one card: (a) `_multicard_world1`, (b)
+    `_multicard_ranks`."""
+    print(f"multicard ({report.get('card', '')})")
+    t0 = time.perf_counter()
+    _multicard_world1(report)
+    _multicard_ranks(report)
+    print(f"  multicard: {time.perf_counter() - t0:.1f} s in all")
+
+
 # ------------------------------------------------------ opt-in: profile
 def _profile(label, step, frames, show=()):
     """torch.profiler over step(frame) for each frame: CUDA time by kernel
@@ -7614,13 +8152,14 @@ PHASES = {
     "harness": phase_harness,
     "tools": phase_tools,
     "parallel": phase_parallel,
+    "multicard": phase_multicard,
     "profile": phase_profile,
 }
 DEFAULT_PHASES = ("build", "kernels", "model", "main", "block_model",
                   "stream", "sot_model", "sot", "inst", "vos", "omni",
                   "train_model", "train", "inst_train", "mask_train",
                   "trainer", "disk", "det", "backbones", "eval", "harness",
-                  "tools", "parallel")
+                  "tools", "parallel", "multicard")
 
 
 def main(argv=None) -> int:

@@ -21,7 +21,8 @@ tools, the host utils (setup_env, label_ops, model_utils, profiling), the
 cv2-free drawing (visualize, debug_dump, demo_utils) and the model tools
 (track, track_omni, demo, train, launch_uni, interpolation,
 export_model), and data parallelism (parallel.mesh, parallel.multihost)
-with the sequence-parallel driver and runners. matplotlib is refused too (the card's machine has none; the
+with the sequence-parallel driver and runners, and the frame split over
+ranks by rows (parallel.rows, parallel.spatial). matplotlib is refused too (the card's machine has none; the
 harness's plot_results draws without it). A second test reads every
 source file of unicorn_torch and finds no import statement of cv2, PIL,
 matplotlib, JAX or the JAX package anywhere in it, inside functions too
@@ -94,8 +95,8 @@ for n in ("ops.deform_attn", "ops.correlation", "ops.correlation_kernel",
           "tools.interpolation", "tools.train", "tools.launch_uni",
           "tools.track", "tools.track_omni", "tools.demo",
           "tools.export_model", "parallel", "parallel.mesh",
-          "parallel.multihost", "drivers.seq_parallel",
-          "harness._parallel_runners"):
+          "parallel.multihost", "parallel.rows", "parallel.spatial",
+          "drivers.seq_parallel", "harness._parallel_runners"):
     assert "unicorn_torch." + n in names, n
 print(len(names))
 """

@@ -35,6 +35,7 @@ from unicorn_torch.convert import to_flax
 from unicorn_torch.drivers.stream import MultiStreamMOT as TMulti
 from unicorn_torch.drivers.stream import StreamingMOTPipeline as TStream
 from unicorn_torch.models.unicorn import Unicorn as TUnicorn
+from unicorn_torch.parallel import ProcessMesh, make_mesh
 from unicorn_tpu.drivers.stream import MultiStreamMOT as JMulti
 from unicorn_tpu.drivers.stream import StreamingMOTPipeline as JStream
 from unicorn_tpu.models.unicorn import Unicorn as JUnicorn
@@ -139,5 +140,13 @@ def test_multistream_tick_equals_run_chunk_pipelines_and_jax(models):
     assert multi.states.frame_id.tolist() == [0] * S
     with pytest.raises(ValueError, match="streams given"):
         multi.tick(_t(frames[:2, 0]))
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        TMulti(tm, n_streams=S, mesh=object(), device="cpu", **KW)
+    # a mesh of one process serves every stream; streams that do not
+    # divide over the mesh's ranks raise
+    mesh1 = make_mesh((1,), ("stream",), device="cpu")
+    one_rank = TMulti(tm, n_streams=S, mesh=mesh1, **KW)
+    assert torch.equal(torch.stack([one_rank.tick(_t(frames[:, t]))
+                                    for t in range(4)], 1), out)
+    with pytest.raises(ValueError, match="do not divide"):
+        TMulti(tm, n_streams=S, mesh=ProcessMesh(
+            ("stream",), {"stream": S + 1}, object(), 0,
+            torch.device("cpu")), **KW)

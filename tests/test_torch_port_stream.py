@@ -14,6 +14,7 @@ from unicorn_torch.convert import from_flax
 from unicorn_torch.drivers import stream as ts_mod
 from unicorn_torch.drivers.stream import StreamingMOTPipeline as TStream
 from unicorn_torch.models.unicorn import Unicorn as TUnicorn
+from unicorn_torch.parallel import ProcessMesh
 from unicorn_tpu.drivers import stream as js_mod
 from unicorn_tpu.drivers.stream import StreamingMOTPipeline as JStream
 from unicorn_tpu.models.unicorn import Unicorn as JUnicorn
@@ -154,8 +155,8 @@ def test_arguments_that_raise(models):
         with pytest.raises(ValueError, match="n_streams > 1 supports neither"):
             JStream(jm, params, **kw, **KW)
     # pipelined and MultiStreamMOT run (tests/test_torch_port_parallel_
-    # stream.py holds them against JAX); only MultiStreamMOT over a mesh
-    # of cards raises
+    # stream.py holds them against JAX); MultiStreamMOT over a mesh whose
+    # ranks the streams do not divide over raises
     frames = torch.from_numpy(_frames(10, 2))
     a = TStream(tm, device="cpu", **KW).run_chunk(frames)
     assert torch.equal(TStream(tm, device="cpu", pipelined=True,
@@ -163,9 +164,10 @@ def test_arguments_that_raise(models):
     multi = ts_mod.MultiStreamMOT(tm, n_streams=2, device="cpu", **KW)
     assert tuple(multi.tick(torch.stack([frames[0], frames[0]])).shape) == (
         2, 32, 7)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ts_mod.MultiStreamMOT(tm, n_streams=2, mesh=object(), device="cpu",
-                              **KW)
+    with pytest.raises(ValueError, match="do not divide"):
+        ts_mod.MultiStreamMOT(tm, n_streams=2, mesh=ProcessMesh(
+            ("stream",), {"stream": 4}, object(), 0, torch.device("cpu")),
+            **KW)
     # the knobs of the XLA program are accepted and change nothing
     b = TStream(tm, device="cpu", compiler_options=None, unroll=2,
                 approx_topk=False, **KW).run_chunk(frames)

@@ -20,9 +20,9 @@ auction blocks the host: that wait is when the card runs the detector
 ahead. The tracker steps run in the same order on the same detections, so
 the outputs equal the plain chunk's.
 
-`MultiStreamMOT` serves S independent streams on one card: a tick is one
-frame of each stream through one detector batch and one batched tracker
-step.
+`MultiStreamMOT` serves S independent streams on one card, or split over
+the ranks of a process mesh: a tick is one frame of each stream through one
+detector batch and one batched tracker step.
 """
 from __future__ import annotations
 
@@ -223,37 +223,49 @@ class StreamingMOTPipeline:
 
 class MultiStreamMOT:
     """S independent streams, one tracker state each (port of JAX's
-    MultiStreamMOT with mesh=None): frames (S, H, W, C) arrive a tick at a
-    time and go through one detector batch of S and one tracker step
-    batched over the S states, which never mix. The keyword arguments are
-    the StreamingMOTPipeline's.
+    MultiStreamMOT): frames arrive a tick at a time and go through one
+    detector batch and one tracker step batched over the states, which
+    never mix. The keyword arguments are the StreamingMOTPipeline's.
 
-    With a mesh JAX shards the streams over cards; streams over several
-    cards need a process group per card and are not ported (ROADMAP.md
-    Queue 1, after item 5e): a mesh raises."""
+    mesh=None: the S streams on one card, frames (S, H, W, C) a tick. With
+    a ProcessMesh (parallel/mesh.py `make_mesh`), the streams split over
+    its `axis` as JAX shards them over chips: rank r of W serves streams
+    [r S / W, (r + 1) S / W) on its card, holds their S / W tracker states
+    and takes their (S / W, H, W, C) frames a tick (JAX's single controller
+    passes all S). S must divide over the W ranks. Nothing crosses
+    ranks."""
 
     def __init__(self, model: Unicorn, n_streams: int, mesh=None,
                  axis: str = "stream", device="cuda", **kw):
-        if mesh is not None:
-            raise NotImplementedError(
-                "MultiStreamMOT over a mesh of cards is not ported (ROADMAP.md "
-                "Queue 1: the multi-card forms after item 5e); mesh=None "
-                "serves the streams on one card")
-        del axis
         self.n_streams = int(n_streams)
-        self.pipe = StreamingMOTPipeline(model, n_streams=self.n_streams,
+        self.mesh = mesh
+        local = self.n_streams
+        self.first = 0
+        if mesh is not None:
+            n = mesh.size(axis)
+            if self.n_streams % n:
+                raise ValueError(f"MultiStreamMOT: {self.n_streams} streams "
+                                 f"do not divide over the {n} ranks of "
+                                 f"axis {axis!r}")
+            local = self.n_streams // n
+            self.first = mesh.rank * local
+            device = mesh.device
+        self.local_streams = local
+        self.pipe = StreamingMOTPipeline(model, n_streams=local,
                                          device=device, **kw)
 
     @property
     def states(self):
-        """The S tracker states, one TrackState batched over streams."""
+        """This process's tracker states, one TrackState batched over its
+        streams."""
         return self.pipe.ts
 
     @torch.inference_mode()
     def tick(self, frames_device):
-        """frames (S, H, W, C) on the device -> (S, T, 7) packed outputs on
-        the device."""
-        if frames_device.shape[0] != self.n_streams:
+        """frames (S_local, H, W, C) on the device, this process's streams
+        (all S without a mesh) -> (S_local, T, 7) packed outputs on the
+        device."""
+        if frames_device.shape[0] != self.local_streams:
             raise ValueError(f"tick: {frames_device.shape[0]} streams given, "
-                             f"{self.n_streams} expected")
+                             f"{self.local_streams} expected")
         return self.pipe.associate(*self.pipe.detect(frames_device))

@@ -3,8 +3,15 @@ batched inference on the device -> COCO-format results -> mAP
 (evaluators/coco_map.py).
 
 Reference: unicorn/evaluators/coco_evaluator.py:27-250 (the inference loop,
-convert_to_coco_format's letterbox unmapping, COCOeval). One card: no mesh
-and no padding of the last batch; results accumulate in one process.
+convert_to_coco_format's letterbox unmapping, COCOeval). On one card the
+results accumulate in one process. With a ProcessMesh (parallel/mesh.py
+`make_mesh`, one "data" axis), the reference's DistributedSampler and
+rank gather: each rank forwards its contiguous share of the images (as
+even as possible, the first ranks one more) in batches of batch_size / W
+on its card, and every rank scores the detections of all ranks, gathered
+in rank order, so every rank returns the same metrics. JAX shards each
+batch over its mesh and pads the last one by repetition; the shares need
+no padding.
 
 The forward is a torch callable, forward_fn(images) -> decoded (B, A,
 5 + C) [cxcywh, obj, cls scores], with images (B, 3, H, W) float32 on the
@@ -18,6 +25,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import images_to_device, resolve_device, to_host
 from ..models.heads import decode_for_inference
@@ -41,7 +49,7 @@ def decode_forward(model):
 class COCOEvaluator:
     def __init__(self, dataset, img_size, conf_thre, nms_thre, num_classes,
                  batch_size: int = 1, use_device_nms: bool = True,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.dataset = dataset
         self.img_size = img_size
         self.conf_thre = conf_thre
@@ -49,7 +57,25 @@ class COCOEvaluator:
         self.num_classes = num_classes
         self.batch_size = batch_size
         self.use_device_nms = use_device_nms
+        self.mesh = mesh
+        if mesh is not None:
+            w = mesh.size("data")
+            if batch_size % w:
+                raise ValueError(f"COCOEvaluator: batch_size {batch_size} "
+                                 f"does not divide over the mesh's {w} "
+                                 f"ranks")
+            device = mesh.device
         self.device = resolve_device(device)
+
+    def share(self, n):
+        """(start, stop, batch size): the images of the first n that this
+        process forwards, in batches of that size."""
+        if self.mesh is None:
+            return 0, n, self.batch_size
+        w, r = self.mesh.size("data"), self.mesh.rank
+        per, extra = divmod(n, w)
+        start = r * per + min(r, extra)
+        return start, start + per + (r < extra), self.batch_size // w
 
     def load(self, idxs):
         """dataset[i] for i in idxs -> (images (B, H, W, 3) float32, infos,
@@ -85,13 +111,18 @@ class COCOEvaluator:
             max_images, len(self.dataset))
         results = []
         t0 = time.time()
+        first, stop, bs = self.share(n)
         with torch.inference_mode():
-            for start in range(0, n, self.batch_size):
+            for start in range(first, stop, bs):
                 imgs, infos, ids = self.load(
-                    range(start, min(start + self.batch_size, n)))
+                    range(start, min(start + bs, stop)))
                 dec = forward_fn(images_to_device(imgs, self.device))
                 results.extend(self.to_coco(self.nms(dec), infos, ids))
         infer_time = time.time() - t0
+        if self.mesh is not None and self.mesh.group is not None:
+            every = [None] * self.mesh.size("data")
+            dist.all_gather_object(every, results, group=self.mesh.group)
+            results = [r for part in every for r in part]
         metrics = self.score(results, n)
         metrics["infer_time_s"] = infer_time
         return metrics

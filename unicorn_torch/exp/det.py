@@ -162,15 +162,17 @@ class ExpDet(BaseExp):
                            name=self.val_name, img_size=self.test_size,
                            preproc=ValTransform())
 
-    def get_evaluator(self, batch_size=1, device="cuda") -> COCOEvaluator:
+    def get_evaluator(self, batch_size=1, device="cuda",
+                      mesh=None) -> COCOEvaluator:
         """COCO box AP over the val set at the test thresholds, batches of
         batch_size on `device` (the card unless the caller asks for the
-        CPU)."""
+        CPU); with a "data" ProcessMesh, the images split over its ranks
+        (COCOEvaluator)."""
         return COCOEvaluator(
             dataset=self.get_eval_dataset(), img_size=self.test_size,
             conf_thre=self.test_conf, nms_thre=self.nmsthre,
             num_classes=self.num_classes, batch_size=batch_size,
-            device=device)
+            device=device, mesh=mesh)
 
     def eval(self, model, evaluator, max_images=None):
         """get_evaluator()'s evaluator on `model` (moved to the

@@ -13,7 +13,11 @@ postprocess_masks_host), and so are the reads (data/image_io.py `imread`,
 `read_indexed_mask`) and the written files (txt, `write_png`).
 
 JAX sizes the slots by a "seq" mesh axis of chips; here `n_slots` is the
-batch of one card.
+batch of one card, or, with a ProcessMesh (parallel/mesh.py `make_mesh`),
+the slots of all W ranks: sequence i goes to rank i mod W, each rank runs
+the lockstep over its share on n_slots / W slots of its card and writes
+its sequences' files, and then the results are gathered to every rank
+(`all_gather_object`).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.image_io import imread, read_indexed_mask, write_png
 from ..drivers.seq_parallel import (make_sot_seq_parallel_fn,
@@ -51,15 +56,46 @@ def _zero_frame(driver):
         .contiguous(memory_format=torch.channels_last)
 
 
-def run_dataset_sot_parallel(driver, sequences, n_slots: int,
-                             result_dir=None, max_seqs=None, verbose=True):
-    """Lockstep multi-sequence SOT on `n_slots` slots. driver: ONE
-    SOTDriver (its model shared by the slots). Returns {seq.name: boxes
-    (N, 4) xywh}, as run_dataset_sot."""
-    S = int(n_slots)
-    fn = make_sot_seq_parallel_fn(driver)
+def _share(sequences, max_seqs, n_slots, mesh, axis):
+    """(n, this process's sequence indices, its slots): all of the first n
+    and n_slots without a mesh; with one, i mod W == rank and n_slots / W
+    (n_slots defaults to W, JAX's slots of a "seq" mesh)."""
     n = len(sequences) if max_seqs is None else min(max_seqs, len(sequences))
-    queue = list(range(n))
+    if mesh is None:
+        if n_slots is None:
+            raise ValueError("n_slots: the slots of the one card")
+        return n, list(range(n)), int(n_slots)
+    w = mesh.size(axis)
+    n_slots = w if n_slots is None else int(n_slots)
+    if n_slots % w:
+        raise ValueError(f"{n_slots} slots do not divide over the {w} ranks "
+                         f"of axis {axis!r}")
+    return n, list(range(mesh.rank, n, w)), n_slots // w
+
+
+def _gathered(results, sequences, n, mesh, axis):
+    """Every rank's results on every rank, after all have written their
+    files, in sequence order."""
+    if mesh is None:
+        return results
+    if mesh.group is not None:
+        every = [None] * mesh.size(axis)
+        dist.all_gather_object(every, results, group=mesh.group)
+        for part in every:
+            results.update(part)
+    return {sequences[i].name: results[sequences[i].name] for i in range(n)}
+
+
+def run_dataset_sot_parallel(driver, sequences, n_slots=None,
+                             result_dir=None, max_seqs=None, verbose=True,
+                             mesh=None, axis: str = "seq"):
+    """Lockstep multi-sequence SOT on `n_slots` slots of one card, or over
+    the ranks of `mesh` (module docstring). driver: ONE SOTDriver (its
+    model shared by the slots). Returns {seq.name: boxes (N, 4) xywh}, as
+    run_dataset_sot."""
+    n, mine, S = _share(sequences, max_seqs, n_slots, mesh, axis)
+    fn = make_sot_seq_parallel_fn(driver)
+    queue = list(mine)
     slots = [None] * S
     cache = _RefStackCache()
     results = {}
@@ -74,7 +110,8 @@ def run_dataset_sot_parallel(driver, sequences, n_slots: int,
             np.savetxt(os.path.join(result_dir, f"{seq.name}.txt"),
                        boxes, delimiter="\t", fmt="%d")
         if verbose:
-            print(f"[{len(results)}/{n}] {seq.name}: {len(boxes)} frames")
+            print(f"[{len(results)}/{len(mine)}] {seq.name}: "
+                  f"{len(boxes)} frames")
 
     def load_next():
         while queue:
@@ -121,9 +158,9 @@ def run_dataset_sot_parallel(driver, sequences, n_slots: int,
                 cache.dirty = True
     if verbose:
         dt = max(time.time() - t0, 1e-9)
-        print(f"parallel SOT: {n} seqs, {n_frames_done} frames, "
+        print(f"parallel SOT: {len(mine)} seqs, {n_frames_done} frames, "
               f"{n_frames_done / dt:.1f} FPS aggregate over {S} slots")
-    return results
+    return _gathered(results, sequences, n, mesh, axis)
 
 
 def _introduces_new_ids(seq):
@@ -141,9 +178,11 @@ def _introduces_new_ids(seq):
     return False
 
 
-def run_dataset_vos_parallel(driver, sequences, n_slots: int,
-                             result_dir=None, max_seqs=None, verbose=True):
-    """Lockstep multi-sequence VOS on `n_slots` slots. Sequences whose later
+def run_dataset_vos_parallel(driver, sequences, n_slots=None,
+                             result_dir=None, max_seqs=None, verbose=True,
+                             mesh=None, axis: str = "seq"):
+    """Lockstep multi-sequence VOS on `n_slots` slots of one card, or over
+    the ranks of `mesh` (module docstring). Sequences whose later
     annotated frames bring in new object ids (YouTube-VOS entries) go to
     the sequential run_sequence_vos, as JAX's runner sends them; the rest
     (DAVIS included, which annotates every frame but enters every object
@@ -154,11 +193,10 @@ def run_dataset_vos_parallel(driver, sequences, n_slots: int,
     run_sequence_vos."""
     from .running import run_sequence_vos
 
-    S = int(n_slots)
+    n, mine, S = _share(sequences, max_seqs, n_slots, mesh, axis)
     fn = make_vos_shared_seq_parallel_fn(driver)
-    n = len(sequences) if max_seqs is None else min(max_seqs, len(sequences))
     parallel_idx, sequential_idx = [], []
-    for i in range(n):
+    for i in mine:
         (sequential_idx if _introduces_new_ids(sequences[i])
          else parallel_idx).append(i)
 
@@ -178,7 +216,8 @@ def run_dataset_vos_parallel(driver, sequences, n_slots: int,
                 name = os.path.splitext(os.path.basename(path))[0] + ".png"
                 write_png(os.path.join(out_dir, name), m.astype(np.uint8))
         if verbose:
-            print(f"[{len(results)}/{n}] {seq.name}: {len(masks)} frames")
+            print(f"[{len(results)}/{len(mine)}] {seq.name}: "
+                  f"{len(masks)} frames")
 
     def load_next():
         while queue:
@@ -229,10 +268,11 @@ def run_dataset_vos_parallel(driver, sequences, n_slots: int,
         results[seq.name] = run_sequence_vos(copy.copy(driver), seq,
                                              result_dir)
         if verbose:
-            print(f"[{len(results)}/{n}] {seq.name} (sequential: "
+            print(f"[{len(results)}/{len(mine)}] {seq.name} (sequential: "
                   f"mid-video object entries)")
     if verbose:
         dt = max(time.time() - t0, 1e-9)
-        print(f"parallel VOS: {n} seqs, {n_frames_done} lockstep frames, "
-              f"{n_frames_done / dt:.1f} FPS aggregate over {S} slots")
-    return results
+        print(f"parallel VOS: {len(mine)} seqs, {n_frames_done} lockstep "
+              f"frames, {n_frames_done / dt:.1f} FPS aggregate over {S} "
+              f"slots")
+    return _gathered(results, sequences, n, mesh, axis)

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.dwconv7x7 import dwconv7x7
+from ..parallel import rows
 
 CL = torch.channels_last
 _TRUNC = 0.87962566103423978  # std of a standard normal truncated to [-2, 2]
@@ -80,17 +81,32 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x):
         dt = self.dtype
+        plan = rows.active()
+        padding = self.padding
         if self.same:
+            # inside row_sharded the H pads come from the whole frame's
+            # height, not from the block's
+            hw = (plan.bounds(x.shape[2])[-1][1] if plan else x.shape[2],
+                  x.shape[3])
             pads = []
-            for n, k, s in zip(x.shape[:1:-1], self.kernel_size[::-1],
+            for n, k, s in zip(hw[::-1], self.kernel_size[::-1],
                                self.stride[::-1]):
                 total = max((-(-n // s) - 1) * s + k - n, 0)
                 pads += [total // 2, total - total // 2]
+            if plan:
+                padding = (pads[2], 0)
+                pads[2:] = [0, 0]
             if any(pads):
                 x = F.pad(x, pads)
+        if plan:
+            above, below = rows.window_rows(self.kernel_size[0],
+                                            self.stride[0], padding[0])
+            if above or below:
+                x = rows.halo(x, above, below, 0.0, plan)
+            padding = (0, padding[1])
         b = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride,
-                        self.padding, groups=self.groups)
+                        padding, groups=self.groups)
 
 
 class GroupNorm32(nn.Module):
@@ -106,7 +122,13 @@ class GroupNorm32(nn.Module):
         self.dtype = dtype
 
     def forward(self, x):
-        y = F.group_norm(x.float(), self.groups, self.weight, self.bias, 1e-3)
+        plan = rows.active()
+        if plan:   # statistics over the whole frame, across the ranks
+            y = rows.group_norm(x, self.groups, self.weight, self.bias, 1e-3,
+                                plan)
+        else:
+            y = F.group_norm(x.float(), self.groups, self.weight, self.bias,
+                             1e-3)
         return y.to(self.dtype, memory_format=CL)
 
 
@@ -203,6 +225,20 @@ class CSPLayer(nn.Module):
         return self.conv3(torch.cat([x1, x2], dim=1))
 
 
+class MaxPool2d(nn.MaxPool2d):
+    """nn.MaxPool2d (square window, padding -inf); inside row_sharded the
+    rows its window reads across the block's edges come from the other
+    ranks, -inf beyond the frame's."""
+
+    def forward(self, x):
+        plan = rows.active()
+        if not plan:
+            return super().forward(x)
+        k, s, p = self.kernel_size, self.stride, self.padding
+        x = rows.halo(x, *rows.window_rows(k, s, p), float("-inf"), plan)
+        return F.max_pool2d(x, k, s, (0, p))
+
+
 class SPPBottleneck(nn.Module):
     """Spatial pyramid pooling: 1x1 conv to half width, the map beside its
     stride-1 max pools (5, 9, 13; padding -inf), 1x1 conv out."""
@@ -212,7 +248,7 @@ class SPPBottleneck(nn.Module):
         super().__init__()
         hidden = in_ch // 2
         self.conv1 = BaseConv(in_ch, hidden, 1, 1, act=act, dtype=dtype)
-        self.m = nn.ModuleList([nn.MaxPool2d(ks, 1, ks // 2)
+        self.m = nn.ModuleList([MaxPool2d(ks, 1, ks // 2)
                                 for ks in kernel_sizes])
         self.conv2 = BaseConv(hidden * (len(kernel_sizes) + 1), out_ch, 1, 1,
                               act=act, dtype=dtype)
@@ -253,10 +289,16 @@ class DepthwiseConv7x7(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward_nhwc(self, x):
-        """x NCHW -> (B,H,W,C) contiguous output."""
+        """x NCHW -> (B,H,W,C) contiguous output. Inside row_sharded the
+        kernel runs on the block and 3 halo rows each side, and the 3 rows
+        at each end are cropped: no kept row reads the kernel's padding."""
+        plan = rows.active()
+        if plan:
+            x = rows.halo(x, 3, 3, 0.0, plan)
         xn = x.to(self.dtype).contiguous(memory_format=CL).permute(0, 2, 3, 1)
         taps = self.weight.reshape(self.dim, 49).t().reshape(7, 7, self.dim)
-        return dwconv7x7(xn, taps, self.bias)
+        y = dwconv7x7(xn, taps, self.bias)
+        return y[:, 3:-3] if plan else y
 
     def forward(self, x):
         return self.forward_nhwc(x).permute(0, 3, 1, 2)

@@ -133,16 +133,22 @@ class UnicornHead(nn.Module):
             reg_feat = self.reg_convs[k](x)
             y_cls = self._merged(self.cls_convs[k](x), self.cls_specs, k)
             y_reg = self._merged(reg_feat, self.reg_specs, k)
-            out = {"_cls_packed": y_cls, "_reg_packed": y_reg}
+            out = self.unpack(y_cls, y_reg)
             if self.controllers is not None:
                 out["ctrl"] = self.controllers[k](reg_feat)
-            for y, specs in ((y_cls, self.cls_specs), (y_reg, self.reg_specs)):
-                off = 0
-                for key, _, c in specs:
-                    out[key] = y[:, off:off + c]
-                    off += c
             outputs.append(out)
         return outputs
+
+    def unpack(self, y_cls, y_reg):
+        """A level's packed predictions -> its output dict: the packed
+        tensors and their channel slices."""
+        out = {"_cls_packed": y_cls, "_reg_packed": y_reg}
+        for y, specs in ((y_cls, self.cls_specs), (y_reg, self.reg_specs)):
+            off = 0
+            for key, _, c in specs:
+                out[key] = y[:, off:off + c]
+                off += c
+        return out
 
 
 # ---------------------------------------------------------------------------

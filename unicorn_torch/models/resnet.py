@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .blocks import Conv2d, GroupNorm32
+from .blocks import Conv2d, GroupNorm32, MaxPool2d
 
 
 class BottleneckRes(nn.Module):
@@ -56,7 +56,7 @@ class ResNet50(nn.Module):
         super().__init__()
         self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False, dtype=dtype)
         self.bn1 = GroupNorm32(64, dtype=dtype)
-        self.maxpool = nn.MaxPool2d(3, 2, 1)
+        self.maxpool = MaxPool2d(3, 2, 1)
         inplanes = 64
         for stage, planes in enumerate((64, 128, 256, 512)):
             blocks = []

@@ -35,6 +35,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import rows
 from .blocks import CL, Conv2d, LayerNorm32
 
 
@@ -168,6 +169,11 @@ class SwinBlock(nn.Module):
         return self._masks[key]
 
     def forward(self, x):
+        if rows.active():
+            raise NotImplementedError(
+                "a Swin block on a frame split by rows is not ported: its "
+                "windows and shifts span the whole map (ROADMAP.md Queue 1 "
+                "item 5g)")
         B, H, W, C = x.shape
         ws = min(self.window_size, H, W)
         ss = 0 if ws == min(H, W) else min(self.shift_size, ws - 1)

@@ -19,10 +19,17 @@ one process on the global batch:
     summed over the ranks (`sum_over_ranks`) are the global one.
 The sums run only inside `data_parallel_step`, which the train steps enter
 when a process group is up; elsewhere every helper is the identity.
+
+`make_mesh` is the counterpart of JAX's (unicorn_tpu/parallel/mesh.py:18):
+a named 1-D axis over the processes of the group, one process a card,
+which the serving forms over several cards take (`ProcessMesh`).
 """
 from __future__ import annotations
 
 import contextlib
+import math
+from dataclasses import dataclass
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -150,3 +157,45 @@ def sum_over_ranks(values: dict) -> dict:
     stacked = torch.stack([values[k].detach().float() for k in keys])
     dist.all_reduce(stacked)
     return {k: stacked[i].to(values[k].dtype) for i, k in enumerate(keys)}
+
+
+@dataclass(frozen=True)
+class ProcessMesh:
+    """A 1-D mesh of the group's processes: `shape[axis]` processes along
+    the one axis, this process at `rank` along it, on `device`. `group` is
+    the process group the collectives run over (None: one process and no
+    group)."""
+
+    axis_names: tuple
+    shape: dict
+    group: object
+    rank: int
+    device: torch.device
+
+    def size(self, axis: str) -> int:
+        if axis not in self.shape:
+            raise ValueError(f"mesh has no axis {axis!r}: {self.axis_names}")
+        return self.shape[axis]
+
+
+def make_mesh(axis_sizes: Optional[Sequence[int]] = None,
+              axis_names: Sequence[str] = ("data",), *,
+              device="cuda") -> ProcessMesh:
+    """A mesh over all processes of the group (default: a 1-D "data" axis
+    of world() processes); this process's device is `local_device(device)`
+    (the card of its LOCAL_RANK). The sizes must multiply to world(), as
+    JAX asserts of its devices. Only one axis: every mesh of the JAX
+    package's serving and eval forms is 1-D."""
+    from .multihost import local_device
+
+    axis_names = tuple(axis_names)
+    sizes = (world(),) if axis_sizes is None else tuple(axis_sizes)
+    if len(axis_names) != 1 or len(sizes) != 1:
+        raise NotImplementedError(
+            f"make_mesh: a mesh of axes {axis_names} / sizes {sizes}; only "
+            "one axis over the flat process group is ported")
+    if math.prod(sizes) != world():
+        raise ValueError(f"make_mesh: mesh {sizes} != {world()} processes")
+    return ProcessMesh(axis_names, {axis_names[0]: sizes[0]},
+                       dist.group.WORLD if _group_up() else None, rank(),
+                       local_device(device))

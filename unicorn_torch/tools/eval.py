@@ -10,10 +10,20 @@ The checkpoint is one the port's Trainer wrote (its EMA weights, else its
 weights); without -c the weights are the exp's seeded init (seed 0). The
 data is the exp's val set under $UNICORN_DATADIR. Runs on the card unless
 --device cpu. Prints the metrics dict.
+
+Under torchrun (WORLD_SIZE > 1) the processes form a group
+(parallel/multihost.py) and a "data" mesh, under JAX's conditions
+(tools/eval.py:50-52): the batch divides over the W ranks and the exp's
+task is "det". Each rank forwards its share of the images on its card
+and every rank scores all of them; rank 0 prints. Otherwise it raises,
+rather than run the whole eval on every rank.
+
+  torchrun --nproc_per_node 4 -m unicorn_torch.tools.eval -n <exp> -b 16
 """
 import argparse
 
 from ..exp.base import get_exp
+from ..parallel import initialize_multihost, make_mesh
 from .common import load_model
 
 
@@ -41,12 +51,23 @@ def main(argv=None):
         exp.nmsthre = args.nms
 
     model = load_model(exp, args.ckpt)
+    kw = {}
+    if initialize_multihost(device=args.device) is not None:
+        kw["mesh"] = mesh = make_mesh(axis_names=("data",),
+                                      device=args.device)
+        w = mesh.size("data")
+        if args.batch_size % w or getattr(exp, "task", "det") != "det":
+            raise ValueError(
+                f"eval over {w} processes needs a batch that "
+                f"divides over them (-b {args.batch_size}) and a det exp "
+                f"(task {getattr(exp, 'task', 'det')!r})")
     evaluator = exp.get_evaluator(batch_size=args.batch_size,
-                                  device=args.device)
+                                  device=args.device, **kw)
     # the det exps through the head's decode, the inst exp through the
     # CondInst mask decode (box + mask AP)
     metrics = exp.eval(model, evaluator, max_images=args.max_images)
-    print(metrics)
+    if "mesh" not in kw or kw["mesh"].rank == 0:
+        print(metrics)
     return metrics
 
 

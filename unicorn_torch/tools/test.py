@@ -18,6 +18,14 @@ VOS writes one PNG a frame and prints J&F over the annotated frames. Runs
 on the card unless --device cpu. --parallel-seqs N > 1 runs N sequences in
 lockstep on the one device, a batch of N frames a step
 (harness/_parallel_runners.py), where JAX shards them over an N-chip mesh.
+Under torchrun (WORLD_SIZE = W > 1) the processes form a group
+(parallel/multihost.py) and a "seq" mesh, one process a card: sequence i
+runs on rank i mod W, on N / W slots of its card (N must divide over the
+W ranks), each rank writes its sequences' files, and rank 0 alone scores
+and prints:
+
+  torchrun --nproc_per_node 4 -m unicorn_torch.tools.test unicorn_sot \
+      --dataset lasot -n unicorn_track_tiny --parallel-seqs 8
 """
 import argparse
 import os
@@ -27,6 +35,7 @@ import numpy as np
 from ..data.image_io import read_indexed_mask
 from ..exp.base import get_exp
 from ..harness.datasets import get_dataset
+from ..parallel import initialize_multihost, make_mesh
 from .common import load_model
 
 
@@ -66,6 +75,16 @@ def main(argv=None):
         print(f"dataset {args.dataset} not found under UNICORN_DATADIR")
         return None
     result_dir = os.path.join(args.result_dir, args.tracker, args.dataset)
+    device, par = args.device, {}
+    if initialize_multihost(device=args.device) is not None:
+        mesh = make_mesh(axis_names=("seq",), device=args.device)
+        w = mesh.size("seq")
+        if args.parallel_seqs < 2 or args.parallel_seqs % w:
+            raise ValueError(
+                f"under {w} processes --parallel-seqs N needs N "
+                f"> 1 dividing over them, given {args.parallel_seqs}")
+        device, par = mesh.device, dict(mesh=mesh)
+    scores = par.get("mesh") is None or par["mesh"].rank == 0
 
     if args.tracker == "unicorn_sot":
         from ..drivers.sot import SOTDriver
@@ -75,16 +94,16 @@ def main(argv=None):
 
         if args.parallel_seqs > 1:
             results = run_dataset_sot_parallel(
-                SOTDriver(model, exp.test_size, device=args.device),
+                SOTDriver(model, exp.test_size, device=device),
                 sequences, args.parallel_seqs, result_dir=result_dir,
-                max_seqs=args.max_seqs)
+                max_seqs=args.max_seqs, **par)
         else:
             results = run_dataset_sot(
-                lambda: SOTDriver(model, exp.test_size, device=args.device),
+                lambda: SOTDriver(model, exp.test_size, device=device),
                 sequences, result_dir, max_seqs=args.max_seqs)
         gts = {s.name: s.ground_truth_rect for s in sequences
                if len(s.ground_truth_rect) > 1}
-        metrics = evaluate_sot(results, gts) if gts else None
+        metrics = evaluate_sot(results, gts) if gts and scores else None
         if metrics:
             print(metrics)
         return {"results": results, "metrics": metrics}
@@ -105,17 +124,19 @@ def main(argv=None):
         return VOSDriver(model, exp.test_size, max_objects=max(1, max_objs),
                          use_raft=getattr(exp, "use_raft", False),
                          up_rate=getattr(exp, "up_rate", 8),
-                         device=args.device)
+                         device=device)
 
     if args.parallel_seqs > 1:
         preds = run_dataset_vos_parallel(
             make_driver(), sequences, args.parallel_seqs,
-            result_dir=result_dir, max_seqs=args.max_seqs)
+            result_dir=result_dir, max_seqs=args.max_seqs, **par)
     else:
         preds = {}
         for seq in sequences[:n]:
             preds[seq.name] = run_sequence_vos(make_driver(), seq, result_dir)
             print(f"{seq.name}: {len(preds[seq.name])} frames")
+    if not scores:
+        return {"preds": preds, "metrics": None}
     # predictions aligned to the ANNOTATED frames by stem: YT-VOS valid
     # ships sparse annotations (first-appearance frames only)
     gts, preds_aligned = {}, {}
