@@ -269,7 +269,17 @@ Phases (each must pass, else the exit code is 1):
              MultiStreamMOT over a "stream" mesh (a stream a rank, 8
              ticks) bit-equal to the one-card form; lockstep SOT over a
              "seq" mesh (a sequence a rank) bit-equal to each sequence
-             alone at batch 1, 27 / 1 / 1 a step
+             alone at batch 1, 27 / 1 / 1 a step; (c) the Swin-T trunk
+             (phase backbones' model) split by rows at sp = 1 over NCCL
+             and sp = 4 on gloo ranks, fp32 at (a)'s bounds against the
+             one-card Swin-T detector, 9 dw7x7 a frame and rank held
+             against the plain version at the ranks' shapes; (d) the
+             (dcn, data) pod mesh's uni step, B = 1 pair a rank: (1, 1)
+             over NCCL bit-equal to the one-process step, (2, 2) on gloo
+             ranks (two nodes of two) in fp32 within 1e-5 of each
+             gradient leaf's largest of the flat step's, one state on
+             every rank, 36 / 1 / 2 / 2 / 2 launches a rank and step,
+             each call held against its plain version
 `--only profile` adds a torch.profiler breakdown of the paths.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the rest of the
@@ -3004,6 +3014,83 @@ def _uni_loss_kwargs(exp):
                 mhs=exp.mhs)
 
 
+def _kernel_checkers(beyond, dw_differ):
+    """(checked_dw, checked_msda, checked_corr): the dw7x7, MSDA and
+    training-correlation wrappers, each launching its kernel (counted) and
+    holding the output against its plain version on the same inputs (not
+    counted), at the kernels phase's tolerances; a correlation call that
+    needs a gradient also holds the backward kernels' gradients against
+    autograd of the plain version. Each call appends (kernel, shape,
+    outputs beyond tolerance) to `beyond`; dw_differ counts the dw7x7
+    outputs unequal to plain, of all."""
+    import torch
+
+    from unicorn_torch.ops import correlation_kernel as ck
+    from unicorn_torch.ops import deform_attn as da
+    from unicorn_torch.ops import dwconv7x7 as dw
+    from unicorn_torch.ops.correlation import correlation_propagate
+
+    def checked_dw(x, k, b):
+        y = dw.dwconv7x7(x, k, b)
+        with torch.no_grad():
+            yp = dw.dwconv7x7_plain(x, k, b)
+            if x.dtype == torch.bfloat16:
+                nbad = dw_beyond_tolerance_bf16(x, k, b, y, yp)
+            else:
+                nbad = int(((y - yp).abs() > 1e-4).sum())
+            dw_differ[0] += int((y != yp).sum())
+            dw_differ[1] += y.numel()
+        beyond.append(("dw7x7", tuple(x.shape), nbad))
+        return y
+
+    def checked_msda(v, l, a, method):
+        y = da.ms_deform_attn(v, l, a, method)
+        with torch.no_grad():
+            yp = da.ms_deform_attn_plain(v, l, a, "factored")
+            mag = da.ms_deform_attn_plain(v.float().abs(), l, a.float(),
+                                          "direct")
+            tol = v.shape[1] * l.shape[4] * 4 * 2.0 ** -24 * mag + 1e-7
+            if v.dtype == torch.bfloat16:
+                tol = tol + bf16_ulp(torch.maximum(y.float().abs(),
+                                                   yp.float().abs()))
+            nbad = int(((y.float() - yp.float()).abs() > tol).sum())
+        beyond.append(("msda", tuple(v.shape), nbad))
+        return y
+
+    def checked_corr(e0, e1, v):
+        y = ck.correlation_propagate_train(e0, e1, v)
+        with torch.no_grad():
+            yp = correlation_propagate(e0, e1, v)
+            nbad = int(((y - yp).abs() > 1e-5 + 1e-4 * yp.abs()).sum())
+        beyond.append(("correlation_train", tuple(v.shape), nbad))
+        if y.requires_grad:
+            inputs = [t.detach() for t in (e0, e1, v)]
+            y.register_hook(lambda g: check_corr_grads(inputs, g))
+        return y
+
+    def check_corr_grads(inputs, g):
+        """The backward kernels' gradients of one call against autograd of
+        the plain version, on the call's inputs and upstream gradient,
+        within 1e-3 of each input's largest gradient (the kernels phase's
+        bound of the Function against autograd); the launches of this
+        recomputation are not counted."""
+        launched = dict(ck.train_launches)
+        with torch.enable_grad():
+            leaves = [t.clone().requires_grad_() for t in inputs]
+            gk = torch.autograd.grad(
+                ck.correlation_propagate_train(*leaves), leaves, g)
+            leaves = [t.clone().requires_grad_() for t in inputs]
+            gp = torch.autograd.grad(correlation_propagate(*leaves), leaves,
+                                     g)
+        ck.train_launches.update(launched)
+        nbad = sum(int(((a - b).abs() > 1e-3 * b.abs().max()).sum())
+                   for a, b in zip(gk, gp))
+        beyond.append(("correlation_train_grad", tuple(inputs[2].shape),
+                       nbad))
+
+    return checked_dw, checked_msda, checked_corr
+
+
 def _kernels_vs_plain(run, corr_modules):
     """run() -> (total loss, loss dict, gradients) twice: once with every
     wrapper pointed at its plain version (dw7x7, MSDA, and the training
@@ -3031,7 +3118,6 @@ def _kernels_vs_plain(run, corr_modules):
 
     from unicorn_torch.losses import det as det_mod
     from unicorn_torch.models import blocks, interaction
-    from unicorn_torch.ops import correlation_kernel as ck
     from unicorn_torch.ops import deform_attn as da
     from unicorn_torch.ops import dwconv7x7 as dw
     from unicorn_torch.ops.correlation import correlation_propagate
@@ -3098,63 +3184,8 @@ def _kernels_vs_plain(run, corr_modules):
         flips["l1"][1] += 4 * int(fg[0].sum())
         return d * sign
 
-    def checked_dw(x, k, b):
-        y = dw.dwconv7x7(x, k, b)
-        with torch.no_grad():
-            yp = dw.dwconv7x7_plain(x, k, b)
-            if x.dtype == torch.bfloat16:
-                nbad = dw_beyond_tolerance_bf16(x, k, b, y, yp)
-            else:
-                nbad = int(((y - yp).abs() > 1e-4).sum())
-            dw_differ[0] += int((y != yp).sum())
-            dw_differ[1] += y.numel()
-        beyond.append(("dw7x7", tuple(x.shape), nbad))
-        return y
-
-    def checked_msda(v, l, a, method):
-        y = da.ms_deform_attn(v, l, a, method)
-        with torch.no_grad():
-            yp = da.ms_deform_attn_plain(v, l, a, "factored")
-            mag = da.ms_deform_attn_plain(v.float().abs(), l, a.float(),
-                                          "direct")
-            tol = v.shape[1] * l.shape[4] * 4 * 2.0 ** -24 * mag + 1e-7
-            if v.dtype == torch.bfloat16:
-                tol = tol + bf16_ulp(torch.maximum(y.float().abs(),
-                                                   yp.float().abs()))
-            nbad = int(((y.float() - yp.float()).abs() > tol).sum())
-        beyond.append(("msda", tuple(v.shape), nbad))
-        return y
-
-    def checked_corr(e0, e1, v):
-        y = ck.correlation_propagate_train(e0, e1, v)
-        with torch.no_grad():
-            yp = correlation_propagate(e0, e1, v)
-            nbad = int(((y - yp).abs() > 1e-5 + 1e-4 * yp.abs()).sum())
-        beyond.append(("correlation_train", tuple(v.shape), nbad))
-        if y.requires_grad:
-            inputs = [t.detach() for t in (e0, e1, v)]
-            y.register_hook(lambda g: check_corr_grads(inputs, g))
-        return y
-
-    def check_corr_grads(inputs, g):
-        """The backward kernels' gradients of one call against autograd of
-        the plain version, on the call's inputs and upstream gradient,
-        within 1e-3 of each input's largest gradient (the kernels phase's
-        bound of the Function against autograd); the launches of this
-        recomputation are not counted."""
-        launched = dict(ck.train_launches)
-        with torch.enable_grad():
-            leaves = [t.clone().requires_grad_() for t in inputs]
-            gk = torch.autograd.grad(
-                ck.correlation_propagate_train(*leaves), leaves, g)
-            leaves = [t.clone().requires_grad_() for t in inputs]
-            gp = torch.autograd.grad(correlation_propagate(*leaves), leaves,
-                                     g)
-        ck.train_launches.update(launched)
-        nbad = sum(int(((a - b).abs() > 1e-3 * b.abs().max()).sum())
-                   for a, b in zip(gk, gp))
-        beyond.append(("correlation_train_grad", tuple(inputs[2].shape),
-                       nbad))
+    checked_dw, checked_msda, checked_corr = _kernel_checkers(beyond,
+                                                              dw_differ)
 
     def patched(dw_fn, msda_fn, corr_fn, simota_fn, iou_fn, l1_fn):
         return [mock.patch.object(blocks, "dwconv7x7", dw_fn),
@@ -7227,11 +7258,20 @@ def _parallel_vos(report):
     assert kp["score"] <= 0.05 and kp["mean"] <= 0.01 and kp["over"] <= 0.01
 
 
-def _dp_first_step(exp, batch):
+def _free_port() -> int:
+    """A free TCP port on the loopback address, for a world of 1."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_first_step(exp, batch, mesh=None):
     """A fresh seeded unicorn_track_tiny's uni step as trained
-    (ExpTrack.get_train_step, AdamW, EMA) on `batch`, on the card -> the
-    loss dict, the gradients it applied and the weights after the
-    update, on the host."""
+    (ExpTrack.get_train_step, AdamW, EMA; given `mesh`, its gradient sum)
+    on `batch`, on the card -> the loss dict, the gradients it applied and
+    the weights after the update, on the host."""
     import torch
 
     from unicorn_torch.core.train_state import TrainState
@@ -7250,7 +7290,7 @@ def _dp_first_step(exp, batch):
         return apply()
 
     state.apply_gradients = capture
-    _, loss = exp.get_train_step(TRAIN_B)(state, *batch)
+    _, loss = exp.get_train_step(TRAIN_B, mesh=mesh)(state, *batch)
     state.apply_gradients = apply
     params = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
     return dict(loss={k: v.item() for k, v in loss.items()}, grads=grads,
@@ -7322,7 +7362,6 @@ def _parallel_dp(report):
     launches a rank and step."""
     import copy
     import multiprocessing as mp
-    import socket
     import tempfile
     import warnings
 
@@ -7346,12 +7385,9 @@ def _parallel_dp(report):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             single = [_dp_first_step(exp, batch)[0] for _ in range(2)]
-            with socket.socket() as s:
-                s.bind(("127.0.0.1", 0))
-                port = s.getsockname()[1]
-            initialize_multihost(coordinator_address=f"127.0.0.1:{port}",
-                                 num_processes=1, process_id=0,
-                                 device=DEVICE, timeout_s=120)
+            initialize_multihost(
+                coordinator_address=f"127.0.0.1:{_free_port()}",
+                num_processes=1, process_id=0, device=DEVICE, timeout_s=120)
             try:
                 backend = dist.get_backend()
                 world1 = _dp_first_step(exp, batch)[0]
@@ -7470,10 +7506,13 @@ def _sync():
         torch.cuda.synchronize()
 
 
-def _mc_exp(bf16=True):
+def _mc_exp(bf16=True, backbone=None):
+    """unicorn_track_tiny with MC_EXP_FIELDS; with `backbone`, that trunk,
+    as phase backbones builds it (`_backbone_exp`)."""
     from unicorn_torch.exp.unicorn_track_tiny import Exp
 
-    exp = Exp()
+    exp = (Exp() if backbone is None else
+           _backbone_exp("unicorn_track_tiny", backbone_name=backbone))
     for k, v in MC_EXP_FIELDS.items():
         setattr(exp, k, v)
     if not bf16:
@@ -7638,8 +7677,6 @@ def _multicard_world1(report):
     bf16 as served (printed), with which row hook moves the bf16 boxes
     (`_mc_hook_study`, printed); 27 dw7x7 launches a frame. Keeps the
     one-card detections for (b)."""
-    import socket
-
     import torch
     import torch.distributed as dist
 
@@ -7651,10 +7688,7 @@ def _multicard_world1(report):
     x = _mc_image(exp)
     m32 = _mc_model(exp32)
     m16 = _mc_model(exp)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    initialize_multihost(coordinator_address=f"127.0.0.1:{port}",
+    initialize_multihost(coordinator_address=f"127.0.0.1:{_free_port()}",
                          num_processes=1, process_id=0, device=DEVICE,
                          timeout_s=120)
     try:
@@ -7690,8 +7724,8 @@ def _multicard_world1(report):
           f"{H}x{W} against the one-card detector: fp32 (TF32 off) "
           f"{_mc_str(r32)}, within JAX's bounds {r32['ok']}; bf16 as served "
           f"(printed): {_mc_str(r16)}; launches {counts}; bf16 ms a frame "
-          f"(host clock, {MC_FRAMES} frames, order one-card, sp = 1, "
-          f"one-card, sp = 1): one-card "
+          f"on {report.get('card', '')} (host clock, {MC_FRAMES} frames, "
+          f"order one-card, sp = 1, one-card, sp = 1): one-card "
           f"{' / '.join(f'{v:.1f}' for v in ms['one-card'])}, sp = 1 "
           f"{' / '.join(f'{v:.1f}' for v in ms['sp = 1'])}")
     print("  (a) bf16 at sp = 1, which row hook moves the boxes: the packed "
@@ -7709,53 +7743,64 @@ def _multicard_world1(report):
     assert counts == PAR_FRAME, counts
 
 
-def _mc_rank(rank, world, store, out, settings):
-    """One of MC_RANKS gloo ranks on the card (spawned): the int32
-    all-reduce every exchange runs on; spatial_detect_fn over an "sp" mesh
-    on the rank's rows of (a)'s frame, in fp32 with TF32 off and in bf16
-    (MC_FRAMES timed frames, their launches, each dw7x7 call's inputs of a
-    frame recorded); then the recorded calls through the kernel and the
-    plain version; MultiStreamMOT over a "stream" mesh against the one-card
-    MultiStreamMOT on the rank's streams; lockstep SOT over a "seq" mesh
-    against the rank's sequence alone at batch 1. Writes what it found to
-    `out`."""
-    from unittest import mock
-
-    globals().update(settings)
+def _spawn_ranks(target):
+    """MC_RANKS processes of target(rank, MC_RANKS, store, out, settings)
+    sharing the card over gloo (NCCL refuses two ranks on one card),
+    spawned, with the module's MC_SETTINGS; each must exit 0 within 600 s.
+    Returns (what each wrote to its `out`, seconds from spawn to exit)."""
+    import multiprocessing as mp
+    import tempfile
 
     import torch
-    import torch.distributed as dist
 
-    from unicorn_torch.drivers.seq_parallel import make_sot_seq_parallel_fn
-    from unicorn_torch.drivers.sot import SOTDriver
-    from unicorn_torch.drivers.stream import MultiStreamMOT
+    if DEVICE.startswith("cuda"):
+        torch.cuda.empty_cache()     # the ranks' own processes take the card
+    settings = {k: globals()[k] for k in MC_SETTINGS}
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mc_") as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(MC_RANKS)]
+        procs = [ctx.Process(target=target, args=(
+            r, MC_RANKS, os.path.join(tmp, "store"), outs[r], settings))
+            for r in range(MC_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        wall = time.perf_counter() - t0
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        assert all(p.exitcode == 0 for p in procs), \
+            [p.exitcode for p in procs]
+        return [torch.load(o) for o in outs], wall
+
+
+def _mc_spatial(exp32, exp, mesh, x):
+    """spatial_detect_fn over the "sp" mesh on this rank's rows x of (a)'s
+    frame, in fp32 with TF32 off and in bf16 (MC_FRAMES timed frames, their
+    launches, each dw7x7 call's inputs of a frame recorded); one more frame
+    with every exchange synchronised and timed alone; then the recorded
+    calls through the kernel and the plain version. Returns what it found
+    and the bf16 model."""
+    from unittest import mock
+
+    import torch
+
     from unicorn_torch.models import blocks
     from unicorn_torch.ops import dwconv7x7 as dw
-    from unicorn_torch.parallel import initialize_multihost, make_mesh, rows
-    from unicorn_torch.parallel.spatial import (spatial_detect_fn,
-                                                spatial_rows)
+    from unicorn_torch.parallel import rows
+    from unicorn_torch.parallel.spatial import spatial_detect_fn
 
-    initialize_multihost(num_processes=world, process_id=rank,
-                         device=DEVICE, init_method="file://" + store,
-                         backend="gloo", timeout_s=300)
-    res = {}
-    t = torch.full((3,), rank + 1, dtype=torch.int32, device=DEVICE)
-    dist.all_reduce(t)
-    res["int32_sum"] = t.tolist()
-
-    exp32, exp = _mc_exp(bf16=False), _mc_exp()
     nc = exp.num_classes
-    sp = make_mesh((world,), ("sp",), device=DEVICE)
-    x = _mc_image(exp)
-    start, stop = res["rows"] = spatial_rows(sp, x.shape[2])
-    x = x[:, :, start:stop].contiguous()          # the rank's rows alone
+    res = {}
     m32 = _mc_model(exp32)
     with tf32_off():
         res["fp32"] = [o.cpu() for o in spatial_detect_fn(
-            m32, sp, num_classes=nc, **MC_DETECT)(x)]
+            m32, mesh, num_classes=nc, **MC_DETECT)(x)]
     del m32
     m16 = _mc_model(exp)
-    fn = spatial_detect_fn(m16, sp, num_classes=nc, **MC_DETECT)
+    fn = spatial_detect_fn(m16, mesh, num_classes=nc, **MC_DETECT)
     calls, real = {}, blocks.dwconv7x7
 
     def record(xx, k, b):
@@ -7804,6 +7849,41 @@ def _mc_rank(rank, world, store, out, settings):
             else:
                 good = err <= 1e-4 * max(1.0, float(yp.abs().max()))
             res["dw"].append((shape, str(xx.dtype), err, good))
+    return res, m16
+
+
+def _mc_rank(rank, world, store, out, settings):
+    """One of MC_RANKS gloo ranks on the card (spawned): the int32
+    all-reduce every exchange runs on; `_mc_spatial` over an "sp" mesh;
+    MultiStreamMOT over a "stream" mesh against the one-card MultiStreamMOT
+    on the rank's streams; lockstep SOT over a "seq" mesh against the
+    rank's sequence alone at batch 1. Writes what it found to `out`."""
+    globals().update(settings)
+
+    import torch
+    import torch.distributed as dist
+
+    from unicorn_torch.drivers.seq_parallel import make_sot_seq_parallel_fn
+    from unicorn_torch.drivers.sot import SOTDriver
+    from unicorn_torch.drivers.stream import MultiStreamMOT
+    from unicorn_torch.parallel import initialize_multihost, make_mesh
+    from unicorn_torch.parallel.spatial import spatial_rows
+
+    initialize_multihost(num_processes=world, process_id=rank,
+                         device=DEVICE, init_method="file://" + store,
+                         backend="gloo", timeout_s=300)
+    res = {}
+    t = torch.full((3,), rank + 1, dtype=torch.int32, device=DEVICE)
+    dist.all_reduce(t)
+    res["int32_sum"] = t.tolist()
+
+    exp32, exp = _mc_exp(bf16=False), _mc_exp()
+    sp = make_mesh((world,), ("sp",), device=DEVICE)
+    x = _mc_image(exp)
+    start, stop = res["rows"] = spatial_rows(sp, x.shape[2])
+    found, m16 = _mc_spatial(exp32, exp, sp,
+                             x[:, :, start:stop].contiguous())
+    res.update(found)
 
     st = make_mesh((world,), ("stream",), device=DEVICE)
     multi = MultiStreamMOT(m16, MC_STREAMS, mesh=st, **_stream_kw(exp))
@@ -7871,35 +7951,13 @@ def _multicard_ranks(report):
     each equal bit for bit to its sequence alone at batch 1, with phase
     sot's launches a step. ms a frame a rank are those of one shared card:
     no multi-card latency."""
-    import multiprocessing as mp
-    import tempfile
-
     import torch
 
     from unicorn_torch.parallel.rows import split_units
 
-    if DEVICE.startswith("cuda"):
-        torch.cuda.empty_cache()     # the ranks' own processes take the card
-    settings = {k: globals()[k] for k in MC_SETTINGS}
-    ctx = mp.get_context("spawn")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_mc_") as tmp:
-        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(MC_RANKS)]
-        procs = [ctx.Process(target=_mc_rank, args=(
-            r, MC_RANKS, os.path.join(tmp, "store"), outs[r], settings))
-            for r in range(MC_RANKS)]
-        t0 = time.perf_counter()
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(timeout=600)
-        wall = time.perf_counter() - t0
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-        assert all(p.exitcode == 0 for p in procs), \
-            [p.exitcode for p in procs]
-        ranks = [torch.load(o) for o in outs]
+    ranks, wall = _spawn_ranks(_mc_rank)
     one = report["mc_one"]
+    card = report.get("card", "")
     H = _mc_exp().test_size[0]
     units = split_units(H, MC_RANKS)
     r32, r16 = _mc_match(ranks[0]["fp32"], one["fp32"]), _mc_match(
@@ -7917,8 +7975,9 @@ def _multicard_ranks(report):
                            for s, dt, _, _ in res["dw"])
         sot_alone = all(torch.equal(p[r], o[0]) for p, o in zip(
             res["sot"]["packed"], res["sot"]["own"]))
-        print(f"  (b) rank {r}: {res['ms']:.1f} ms a frame over {MC_FRAMES} "
-              f"bf16 frames and {res['stream_ms']:.1f} ms a MultiStreamMOT "
+        print(f"  (b) rank {r} on {card}: {res['ms']:.1f} ms a frame over "
+              f"{MC_FRAMES} bf16 frames and {res['stream_ms']:.1f} ms a "
+              f"MultiStreamMOT "
               f"tick ({MC_RANKS} ranks sharing one card: not a multi-card "
               f"latency); launches {res['counts']}; dw7x7 kernel vs plain "
               f"at its {len(res['dw'])} call shapes ({shapes}): all "
@@ -7930,11 +7989,12 @@ def _multicard_ranks(report):
               f"launches {res['sot_counts']}")
     for r, res in enumerate(ranks):
         ex = res["exchanges"]
-        print(f"  (b) rank {r}, one frame with each exchange synchronised "
-              f"and timed alone: {ex['n']} all-reduces, "
+        print(f"  (b) rank {r} on {card}, one frame with each exchange "
+              f"synchronised and timed alone: {ex['n']} all-reduces, "
               f"{ex['bytes'] / 2 ** 20:.1f} MiB summed, {ex['ms']:.1f} ms "
               f"of the frame's {ex['frame_ms']:.1f} inside them")
-    print(f"  (b) the {MC_RANKS} ranks {wall:.1f} s from spawn to exit")
+    print(f"  (b) the {MC_RANKS} ranks {wall:.1f} s from spawn to exit on "
+          f"{card}")
     report["multicard_ms"] = [res["ms"] for res in ranks]
     _record_launches(report, "multicard_rank0", ranks[0]["counts"])
     assert r32["ok"] and agree, r32
@@ -7954,14 +8014,354 @@ def _multicard_ranks(report):
             assert torch.equal(p, p0) and torch.equal(p[r], o[0])
 
 
+def _mc_swin_rank(rank, world, store, out, settings):
+    """(c) One of MC_RANKS gloo ranks on the card (spawned): `_mc_spatial`
+    of the Swin-T detector over an "sp" mesh on the rank's rows."""
+    globals().update(settings)
+
+    import torch
+    import torch.distributed as dist
+
+    from unicorn_torch.parallel import initialize_multihost, make_mesh
+    from unicorn_torch.parallel.spatial import spatial_rows
+
+    initialize_multihost(num_processes=world, process_id=rank,
+                         device=DEVICE, init_method="file://" + store,
+                         backend="gloo", timeout_s=300)
+    exp32, exp = (_mc_exp(bf16=False, backbone="swin_tiny"),
+                  _mc_exp(backbone="swin_tiny"))
+    sp = make_mesh((world,), ("sp",), device=DEVICE)
+    x = _mc_image(exp)
+    res = {"rows": spatial_rows(sp, x.shape[2])}
+    start, stop = res["rows"]
+    res.update(_mc_spatial(exp32, exp, sp,
+                           x[:, :, start:stop].contiguous())[0])
+    torch.save(res, out)
+    dist.destroy_process_group()
+
+
+def _multicard_swin(report):
+    """(c) unicorn_track_tiny with the Swin-T trunk (phase backbones' model)
+    split by rows: spatial_detect_fn at sp = 1 on a world of 1 over NCCL
+    and at sp = MC_RANKS on gloo ranks sharing the card (spawned; 7 / 6 /
+    6 / 6 units), each in fp32 with TF32 off at (a)'s bounds against the
+    one-card Swin-T detector, the ranks returning the same detections, and
+    in bf16 as served (printed); 9 dw7x7 launches a frame and rank (the
+    head's; the trunk has none), the kernel against its plain version at
+    each rank's call shapes; ms a frame (sp = 1 beside the one-card
+    detector; a rank's are those of one shared card, no multi-card
+    latency)."""
+    import torch
+    import torch.distributed as dist
+
+    from unicorn_torch.parallel import initialize_multihost, make_mesh
+    from unicorn_torch.parallel.rows import split_units
+    from unicorn_torch.parallel.spatial import spatial_detect_fn
+
+    card = report.get("card", "")
+    exp32, exp = (_mc_exp(bf16=False, backbone="swin_tiny"),
+                  _mc_exp(backbone="swin_tiny"))
+    nc = exp.num_classes
+    x = _mc_image(exp)
+    m32, m16 = _mc_model(exp32), _mc_model(exp)
+    initialize_multihost(coordinator_address=f"127.0.0.1:{_free_port()}",
+                         num_processes=1, process_id=0, device=DEVICE,
+                         timeout_s=120)
+    try:
+        backend = dist.get_backend()
+        mesh = make_mesh((1,), ("sp",), device=DEVICE)
+        with tf32_off():
+            one32 = _mc_one_card(m32, x, nc)
+            sp32 = spatial_detect_fn(m32, mesh, num_classes=nc,
+                                     **MC_DETECT)(x)
+        one16 = _mc_one_card(m16, x, nc)
+        fn16 = spatial_detect_fn(m16, mesh, num_classes=nc, **MC_DETECT)
+        fn16(x)                                     # warm-up, not counted
+        _sync()
+        _reset_kernel_counts()
+        sp16 = fn16(x)
+        _sync()
+        counts = _kernel_counts()
+        ms = {}
+        for name, f in (("one-card", lambda: _mc_one_card(m16, x, nc)),
+                        ("sp = 1", lambda: fn16(x))) * 2:
+            t0 = time.perf_counter()
+            for _ in range(MC_FRAMES):
+                f()
+            _sync()
+            ms.setdefault(name, []).append(
+                (time.perf_counter() - t0) / MC_FRAMES * 1e3)
+    finally:
+        dist.destroy_process_group()
+    del m32, m16
+    r32, r16 = _mc_match(sp32, one32), _mc_match(sp16, one16)
+    H, W = exp.test_size
+    print(f"  (c) Swin-T, world of 1 over {backend}, spatial_detect_fn at "
+          f"sp = 1 on {H}x{W} against the one-card Swin-T detector: fp32 "
+          f"(TF32 off) {_mc_str(r32)}, within JAX's bounds {r32['ok']}; "
+          f"bf16 as served (printed): {_mc_str(r16)}; launches {counts}; "
+          f"bf16 ms a frame on {card} (host clock, {MC_FRAMES} frames, "
+          f"order one-card, sp = 1, one-card, sp = 1): one-card "
+          f"{' / '.join(f'{v:.1f}' for v in ms['one-card'])}, sp = 1 "
+          f"{' / '.join(f'{v:.1f}' for v in ms['sp = 1'])}")
+    _record_launches(report, "multicard_swin_world1", counts)
+    assert backend == ("nccl" if DEVICE.startswith("cuda") else "gloo")
+    assert r32["ok"], r32
+    assert counts == HEAD_ONLY_FRAME, counts
+
+    ranks, wall = _spawn_ranks(_mc_swin_rank)
+    units = split_units(H, MC_RANKS)
+    q32, q16 = _mc_match(ranks[0]["fp32"], one32), _mc_match(
+        ranks[0]["bf16"], one16)
+    agree = all(torch.equal(a, b) for res in ranks[1:] for key in
+                ("fp32", "bf16") for a, b in zip(res[key], ranks[0][key]))
+    print(f"  (c) Swin-T, {MC_RANKS} gloo ranks on {DEVICE}, rows "
+          f"{[res['rows'] for res in ranks]} ({units} units of 32); "
+          f"spatial_detect_fn against the one-card Swin-T detector: fp32 "
+          f"(TF32 off) {_mc_str(q32)}, within JAX's bounds {q32['ok']}; "
+          f"bf16 (printed) {_mc_str(q16)}; ranks agree {agree}")
+    for r, res in enumerate(ranks):
+        shapes = ", ".join(f"{s[1]}x{s[2]}x{s[3]} {dt[6:]}"
+                           for s, dt, _, _ in res["dw"])
+        ex = res["exchanges"]
+        print(f"  (c) Swin-T rank {r} on {card}: {res['ms']:.1f} ms a frame "
+              f"over {MC_FRAMES} bf16 frames ({MC_RANKS} ranks sharing one "
+              f"card: not a multi-card latency); launches {res['counts']}; "
+              f"dw7x7 kernel vs plain at its {len(res['dw'])} call shapes "
+              f"({shapes}): all within tolerance "
+              f"{all(d[3] for d in res['dw'])}, max |err| "
+              f"{max(d[2] for d in res['dw']):.3e}; one frame with each "
+              f"exchange synchronised and timed alone: {ex['n']} "
+              f"all-reduces, {ex['bytes'] / 2 ** 20:.1f} MiB summed, "
+              f"{ex['ms']:.1f} ms of the frame's {ex['frame_ms']:.1f} inside "
+              f"them")
+    print(f"  (c) the {MC_RANKS} ranks {wall:.1f} s from spawn to exit on "
+          f"{card}")
+    report["multicard_swin_ms"] = dict(world1=ms,
+                                       ranks=[res["ms"] for res in ranks])
+    _record_launches(report, "multicard_swin_rank0", ranks[0]["counts"])
+    assert q32["ok"] and agree, q32
+    assert [tuple(res["rows"]) for res in ranks] == [
+        (32 * sum(units[:r]), 32 * sum(units[:r + 1]))
+        for r in range(MC_RANKS)]
+    for res in ranks:
+        assert res["counts"] == {k: v * MC_FRAMES for k, v in
+                                 HEAD_ONLY_FRAME.items()}, res["counts"]
+        assert res["dw"] and all(d[3] for d in res["dw"]), res["dw"]
+
+
+def _pod_batch(exp):
+    """4 pairs, one a rank: phase train_model's SOT pairs (a box) and MOT
+    pairs (8 boxes) in turn, so that each node of the (2, 2) mesh holds
+    one of each."""
+    import torch
+
+    sot = _train_batch(exp, 1, seed=20, n_obj=1)
+    mot = _train_batch(exp, 2, seed=21, n_obj=8)
+    order = torch.tensor([0, 2, 1, 3], device=sot[0].device)
+    return tuple(torch.cat([a, b])[order] for a, b in zip(sot, mot))
+
+
+def _digest(tensors: dict) -> str:
+    """A hash of the bytes of every tensor, in name order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for name in sorted(tensors):
+        h.update(name.encode())
+        h.update(tensors[name].contiguous().view(-1).view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def _mc_pod_rank(rank, world, store, out, settings):
+    """(d) One of MC_RANKS gloo ranks on the card (spawned), torchrun's node
+    variables set as two nodes of two ranks (ranks 0, 1 and 2, 3): the
+    (2, 2) pod mesh, then the uni step of a fresh seeded
+    unicorn_track_tiny on the rank's pair in fp32 with TF32 off, given the
+    mesh (each dw7x7, MSDA and training-correlation call through its
+    kernel, held against its plain version; the launches counted) and on
+    the flat group; each step's loss dict, the pod step's gradient leaves
+    against the flat step's, and digests of the weights after each."""
+    from unittest import mock
+
+    globals().update(settings)
+
+    import torch
+    import torch.distributed as dist
+
+    from unicorn_torch.losses import uni as uni_mod
+    from unicorn_torch.models import blocks, interaction
+    from unicorn_torch.parallel import (initialize_multihost, make_pod_mesh,
+                                        shard_batch)
+
+    # the ranks share the card whatever LOCAL_RANK says
+    dev = "cuda:0" if DEVICE.startswith("cuda") else DEVICE
+    initialize_multihost(num_processes=world, process_id=rank, device=dev,
+                         init_method="file://" + store, backend="gloo",
+                         timeout_s=300)
+    os.environ.update(GROUP_RANK=str(rank // 2), LOCAL_RANK=str(rank % 2),
+                      LOCAL_WORLD_SIZE="2")
+    mesh = make_pod_mesh(device=dev)
+    res = dict(shape=mesh.shape,
+               coords={a: mesh.coord(a) for a in mesh.axis_names},
+               groups={a: dist.get_process_group_ranks(mesh.group_of(a))
+                       for a in mesh.axis_names})
+    exp32 = _mc_exp(bf16=False)
+    batch = shard_batch(_pod_batch(exp32))
+    beyond, dw_differ = [], [0, 0]
+    checked = _kernel_checkers(beyond, dw_differ)
+    with tf32_off():
+        _reset_all_counts()
+        with contextlib.ExitStack() as stack:
+            for mod, name, fn in ((blocks, "dwconv7x7", checked[0]),
+                                  (interaction, "ms_deform_attn", checked[1]),
+                                  (uni_mod, "correlation_propagate_train",
+                                   checked[2])):
+                stack.enter_context(mock.patch.object(mod, name, fn))
+            _sync()
+            t0 = time.perf_counter()
+            pod = _dp_first_step(exp32, batch, mesh)[0]
+            _sync()
+            res["ms"] = (time.perf_counter() - t0) * 1e3
+        res["counts"] = _all_counts()
+        flat = _dp_first_step(exp32, batch)[0]
+    shares, worst, _ = _grad_shares(flat["grads"], pod["grads"])
+    res.update(loss=pod["loss"], flat_loss=flat["loss"], worst=worst,
+               share=shares[worst], n_leaves=len(shares), beyond=beyond,
+               dw_differ=dw_differ, digest=_digest(pod["params"]),
+               flat_digest=_digest(flat["params"]))
+    torch.save(res, out)
+    dist.destroy_process_group()
+
+
+def _multicard_pod(report):
+    """(d) The (dcn, data) pod mesh: the uni step of unicorn_track_tiny at
+    full width, B = 1 pair a rank. make_pod_mesh on a world of 1 over NCCL
+    (a (1, 1) mesh), as trained, with cuDNN's and PyTorch's deterministic
+    algorithms, against the one-process step run twice (bit-equal where
+    that repeats itself bit for bit, else within its two-run spread), as
+    phase parallel's world of 1. Then MC_RANKS gloo ranks sharing the card
+    (spawned) as a (2, 2) ("dcn", "data") mesh in fp32 with TF32 off: the
+    mesh's coordinates and groups; the gradients within 1e-5 of each
+    leaf's largest magnitude of the same ranks' flat data-parallel step;
+    every rank ending with the same weights and loss dict; the kernels of
+    the step (dw7x7, MSDA factored, the correlation's fwd_lse, bwd_i,
+    bwd_j) held against their plain versions at each call, TRAIN_LAUNCHES
+    a rank and step."""
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+
+    from unicorn_torch.parallel import initialize_multihost, make_pod_mesh
+
+    card = report.get("card", "")
+    exp = _mc_exp()
+    one = tuple(t[1:2] for t in _pod_batch(exp))          # a MOT pair
+    flags = (torch.backends.cudnn.deterministic,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            single = [_dp_first_step(exp, one)[0] for _ in range(2)]
+            initialize_multihost(
+                coordinator_address=f"127.0.0.1:{_free_port()}",
+                num_processes=1, process_id=0, device=DEVICE, timeout_s=120)
+            try:
+                backend = dist.get_backend()
+                mesh = make_pod_mesh(device=DEVICE)
+                world1 = _dp_first_step(exp, one, mesh)[0]
+            finally:
+                dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = flags[0]
+        torch.use_deterministic_algorithms(flags[1], warn_only=flags[2])
+
+    def bitwise(a, b):
+        return a["loss"] == b["loss"] and all(
+            torch.equal(a[k][n], b[k][n]) for k in ("grads", "params")
+            for n in a[k])
+
+    repeats = bitwise(single[0], single[1])
+    if repeats:
+        ok1 = bitwise(world1, single[0])
+    else:
+        spread = max(_grad_shares(single[0]["grads"],
+                                  single[1]["grads"])[0].values())
+        ok1 = max(_grad_shares(single[0]["grads"],
+                               world1["grads"])[0].values()) <= spread
+    print(f"  (d) make_pod_mesh on a world of 1 over {backend}: mesh "
+          f"{mesh.shape}; its uni step (B = 1, deterministic algorithms) "
+          f"against the one-process step: the one-process step repeats bit "
+          f"for bit {repeats}; the pod step "
+          f"{'bit-equal' if repeats else 'within the two-run spread'} {ok1} "
+          f"(loss {world1['loss']['total_loss']:.6f} vs "
+          f"{single[0]['loss']['total_loss']:.6f})")
+    assert backend == ("nccl" if DEVICE.startswith("cuda") else "gloo")
+    assert mesh.shape == {"dcn": 1, "data": 1} and ok1
+    del single, world1
+
+    ranks, wall = _spawn_ranks(_mc_pod_rank)
+    rows_ = [[0, 1], [2, 3]]
+    groups_ok = all(
+        res["shape"] == {"dcn": 2, "data": 2}
+        and res["coords"] == {"dcn": r // 2, "data": r % 2}
+        and res["groups"] == {"data": rows_[r // 2],
+                              "dcn": [rows_[0][r % 2], rows_[1][r % 2]]}
+        for r, res in enumerate(ranks))
+    same = all(res["loss"] == ranks[0]["loss"]
+               and res["digest"] == ranks[0]["digest"]
+               and res["flat_digest"] == ranks[0]["flat_digest"]
+               for res in ranks)
+    d_loss = max(abs(v - ranks[0]["flat_loss"][k]) / max(abs(v), 1e-12)
+                 for k, v in ranks[0]["loss"].items())
+    print(f"  (d) {MC_RANKS} gloo ranks on {DEVICE} as a (2, 2) (dcn, data) "
+          f"pod mesh, B = 1 pair a rank, fp32 with TF32 off: coordinates "
+          f"and groups as two nodes of two ranks {groups_ok}; ranks end "
+          f"with one state {same}; total_loss "
+          f"{ranks[0]['loss']['total_loss']:.6f} (flat step "
+          f"{ranks[0]['flat_loss']['total_loss']:.6f}, largest relative "
+          f"difference of a loss term {d_loss:.2e}); the ranks {wall:.1f} s "
+          f"from spawn to exit on {card}")
+    for r, res in enumerate(ranks):
+        calls = {}
+        for kind, _, _ in res["beyond"]:
+            calls[kind] = calls.get(kind, 0) + 1
+        nbad = sum(n for _, _, n in res["beyond"])
+        print(f"  (d) rank {r} on {card}: pod step {res['ms']:.1f} ms with "
+              f"every kernel call checked (the model built inside); "
+              f"gradients against the flat step: worst of {res['n_leaves']} "
+              f"leaves {res['share']:.3e} of its max at {res['worst']} "
+              f"(bound 1e-5); launches {res['counts']}; calls checked "
+              f"against the plain versions {calls}, {nbad} outputs beyond "
+              f"tolerance (dw7x7: {res['dw_differ'][0]} of "
+              f"{res['dw_differ'][1]} outputs differ at all)")
+    _record_launches(report, "multicard_pod_rank0", ranks[0]["counts"])
+    assert groups_ok and same
+    for res in ranks:
+        assert res["share"] <= 1e-5, (res["worst"], res["share"])
+        assert res["counts"] == TRAIN_LAUNCHES, res["counts"]
+        assert res["beyond"] and not any(n for _, _, n in res["beyond"]), \
+            [b for b in res["beyond"] if b[2]]
+
+
 def phase_multicard(report):
     """The multi-card forms on one card: (a) `_multicard_world1`, (b)
-    `_multicard_ranks`."""
+    `_multicard_ranks`, (c) `_multicard_swin`, (d) `_multicard_pod`."""
     print(f"multicard ({report.get('card', '')})")
     t0 = time.perf_counter()
     _multicard_world1(report)
     _multicard_ranks(report)
-    print(f"  multicard: {time.perf_counter() - t0:.1f} s in all")
+    _multicard_swin(report)
+    _multicard_pod(report)
+    print(f"  multicard: {time.perf_counter() - t0:.1f} s in all on "
+          f"{report.get('card', '')}")
 
 
 # ------------------------------------------------------ opt-in: profile

@@ -6,8 +6,10 @@ In-process: the row plan (whole 32-row units, the first ranks taking one
 more; its raises), the halo assembly with the exchange replaced by the
 stacked edge strips of every rank, against slicing the padded full tensor
 (halos deeper than a rank's block, fill 0 and -inf), the halo rows of a
-window, make_mesh in one process, a Swin block under row_sharded, and the
-detector at sp = 1 (one process, no group) against the one-card detector.
+window, make_mesh in one process (one axis and two), a Swin block under
+row_sharded on every rank of a plan (the exchange replaced by every rank's
+stacked edge strips) against the whole-map block, and the detector at sp =
+1 (one process, no group) against the one-card detector.
 
 Four gloo processes that meet in a FileStore, spawned once for the module,
 each run spatial_detect_fn on its rows of the frames of four cases:
@@ -20,7 +22,11 @@ each run spatial_detect_fn on its rows of the frames of four cases:
     at stride 32;
   * "resnet": a ResNet-50 trunk of one block a stage at H = 128 (the 7x7/2
     stem conv and the 3x3/2 max pool), held against the port's one-card
-    detector (the JAX Unicorn builds only the full ResNet-50).
+    detector (the JAX Unicorn builds only the full ResNet-50);
+  * "swin": the Swin-T trunk under a width-0.5 PAFPN and head, H = 128:
+    at stride 4 shifted windows of 7 over 8 rows a rank, at stride 8 over
+    4 rows a rank with the wrap-around band holding pad rows, at stride 16
+    and 32 windows clamped to the map's width (shift 0) across two ranks.
 The weights are the port's seeded init with the obj / cls prediction biases
 raised by 6, so that most candidates clear conf_thre; JAX gets them through
 unicorn_torch.convert.to_flax, checked against jax.eval_shape of the JAX
@@ -69,8 +75,11 @@ CNX = dict(num_classes=1, backbone_name="convnext_tiny", width=0.5,
 R50 = dict(num_classes=1, backbone_name="resnet50", width=0.5,
            in_channels=(512, 1024, 2048), interact_mode="conv",
            n_layer_att=0, use_attention=False)
+SWIN = dict(num_classes=1, backbone_name="swin_tiny", width=0.5,
+            in_channels=(192, 384, 768), interact_mode="conv", n_layer_att=1)
 CASES = {"csp": (CSP, 128, 64, 0), "csp160": (CSP, 160, 64, 0),
-         "convnext": (CNX, 128, 64, 1), "resnet": (R50, 128, 64, 2)}
+         "convnext": (CNX, 128, 64, 1), "resnet": (R50, 128, 64, 2),
+         "swin": (SWIN, 128, 64, 3)}
 DETECT = dict(num_classes=1, conf_thre=0.01, nms_thre=0.8, n_cand=32,
               max_out=16)
 
@@ -207,22 +216,76 @@ def test_make_mesh_one_process():
     m = make_mesh(device="cpu")
     assert (m.axis_names, m.shape, m.rank, m.group) == (("data",),
                                                        {"data": 1}, 0, None)
+    assert (m.coord("data"), m.group_of("data")) == (0, None)
     assert make_mesh((1,), ("sp",), device="cpu").size("sp") == 1
     with pytest.raises(ValueError, match="processes"):
         make_mesh((2,), ("sp",), device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_mesh((1, 1), ("dcn", "data"), device="cpu")
+    with pytest.raises(ValueError, match="processes"):
+        make_mesh((1, 2), ("dcn", "data"), device="cpu")
+    m = make_mesh((1, 1), ("dcn", "data"), device="cpu")
+    assert (m.axis_names, m.shape, m.rank, m.group) == (
+        ("dcn", "data"), {"dcn": 1, "data": 1}, 0, None)
+    assert [(m.coord(a), m.group_of(a)) for a in m.axis_names] == \
+        [(0, None), (0, None)]
+    with pytest.raises(ValueError, match="no axis"):
+        m.group_of("sp")
 
 
-def test_swin_under_row_sharding_raises():
+def _rows_of_every_rank(fn, shards, units):
+    """fn(shard) on every rank of a plan of `units`, in one process: a first
+    pass records what each rank hands the exchange (its outputs dropped),
+    a second gives each rank every rank's stacked strips."""
+    sent = {}
+
+    def exchange(local, ranks):
+        sent[ranks.rank] = local
+        if len(sent) < ranks.world:
+            return local.new_zeros((ranks.world,) + tuple(local.shape))
+        return torch.stack([sent[r] for r in range(ranks.world)])
+
+    out = []
+    real = rows.exchange
+    rows.exchange = exchange
+    try:
+        for pass_ in range(2):
+            for r, shard in enumerate(shards):
+                with rows.row_sharded(rows.RowPlan(units, r)):
+                    y = fn(shard)
+                if pass_:
+                    out.append(y)
+    finally:
+        rows.exchange = real
+    return out
+
+
+@pytest.mark.parametrize("units, q, W, shift, geometry", [
+    ((1, 1, 1, 1), 1, 8, 2, (4, 0, 0)),     # the window clamped to H
+    ((1, 1, 1, 1), 4, 8, 3, (7, 3, 5)),     # a wrap band of pad rows
+    ((1, 1, 1, 1), 2, 16, 3, (7, 3, 6)),    # a band over all four ranks
+    ((7, 6, 6, 6), 1, 40, 3, (7, 3, 3)),    # stride 32 of 800 rows
+    ((2, 1, 1, 1), 8, 16, 3, (7, 3, 2)),    # frame rows in the wrap band
+    ((1,), 20, 24, 3, (7, 3, 1))])          # one rank: every band its own
+def test_swin_block_under_row_sharding(units, q, W, shift, geometry):
+    """A SwinBlock on each rank's rows (units of q rows) inside
+    row_sharded, every rank's rows together, equals the whole-map block,
+    bit for bit, in fp32; `geometry` is the frame's (window, shift, bottom
+    pad)."""
     from unicorn_torch.models.swin import SwinBlock
 
-    blk = SwinBlock(8, 2, window_size=4, shift_size=2)
-    x = torch.randn(1, 8, 8, 8)
-    blk(x)
-    with rows.row_sharded(rows.RowPlan((1,), 0)):
-        with pytest.raises(NotImplementedError, match="5g"):
-            blk(x)
+    gen = torch.Generator().manual_seed(q * W + shift)
+    blk = SwinBlock(16, 2, 7, shift).eval()
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.3)
+    H = sum(units) * q
+    ws, ss, pad_b, _ = blk._geometry(H, W)
+    assert (ws, ss, pad_b) == geometry
+    x = torch.randn((2, H, W, 16), generator=gen)
+    bounds = rows.RowPlan(units, 0).bounds(units[0] * q)
+    with torch.no_grad():
+        want = blk(x)
+        got = _rows_of_every_rank(blk, [x[:, s:e] for s, e in bounds], units)
+    assert torch.equal(torch.cat(got, 1), want)
 
 
 def _one_card(m, x):
@@ -246,14 +309,16 @@ def _assert_matches(dets, valid, dets_1, valid_1):
 
 def test_spatial_detect_sp1_matches_one_card():
     """One process, no group: a mesh of one rank runs the exchange code
-    (every halo row is the frame's padding) and equals the one-card
-    detector."""
-    m = common.model("csp")
-    x = torch.from_numpy(common.frames("csp")).permute(0, 3, 1, 2)
+    (every halo row is the frame's padding; the Swin blocks take every
+    band of the frame) and equals the one-card detector, for the
+    CSPDarknet and the Swin-T cases."""
     mesh = make_mesh((1,), ("sp",), device="cpu")
-    dets, valid = spatial_detect_fn(m, mesh, **common.DETECT)(x)
-    with torch.inference_mode():
-        _assert_matches(dets, valid, *_one_card(m, x))
+    for name in ("csp", "swin"):
+        m = common.model(name)
+        x = torch.from_numpy(common.frames(name)).permute(0, 3, 1, 2)
+        dets, valid = spatial_detect_fn(m, mesh, **common.DETECT)(x)
+        with torch.inference_mode():
+            _assert_matches(dets, valid, *_one_card(m, x))
 
 
 # ------------------------------------------------------- four processes
@@ -310,21 +375,23 @@ def _references():
     return refs
 
 
-@pytest.mark.parametrize("name", ["csp", "csp160", "convnext"])
+@pytest.mark.parametrize("name", ["csp", "csp160", "convnext", "swin"])
 def test_spatial_matches_jax(ranks, name):
     outs, refs = ranks
     _assert_matches(outs[0][name]["dets"], outs[0][name]["valid"],
                     *refs[name]["jax"])
 
 
-@pytest.mark.parametrize("name", ["csp", "csp160", "convnext", "resnet"])
+@pytest.mark.parametrize("name", ["csp", "csp160", "convnext", "resnet",
+                                  "swin"])
 def test_spatial_matches_one_card(ranks, name):
     outs, refs = ranks
     _assert_matches(outs[0][name]["dets"], outs[0][name]["valid"],
                     *refs[name]["one_card"])
 
 
-@pytest.mark.parametrize("name", ["csp", "csp160", "convnext", "resnet"])
+@pytest.mark.parametrize("name", ["csp", "csp160", "convnext", "resnet",
+                                  "swin"])
 def test_ranks_hold_their_rows_and_agree(ranks, name):
     outs, _ = ranks
     H = common.CASES[name][1]

@@ -33,7 +33,7 @@ from ..losses.uni import (build_mhs_labels, build_sot_priors,
 from ..losses.vos import vos_loss
 from ..models.heads import decode_boxes, flatten_raw_outputs, level_grids
 from ..ops.correlation import resize_bilinear_torch
-from ..parallel import mesh
+from ..parallel import mesh as mesh_mod
 from ..parallel.mesh import global_sum
 
 
@@ -225,7 +225,7 @@ def uni_mask_loss_fn(model, images, targets, task_ids, masks, img_size,
     return total, out
 
 
-def _make_step(loss):
+def _make_step(loss, mesh=None):
     """step(state, *batch): loss(state, *batch) -> backward ->
     state.apply_gradients(); returns (state, detached loss dict).
 
@@ -233,19 +233,22 @@ def _make_step(loss):
     rank's slice of the global batch, the losses normalise by the global
     batch's counts, the gradients are summed over the ranks before the
     update, and the loss dict returned is the global batch's (parallel/
-    mesh.py)."""
+    mesh.py). Given a `mesh` (a ProcessMesh over the whole group, the
+    batch sharded over all its axes, as on parallel/multihost.py's pod
+    mesh), the gradients are summed over its axes one after the other,
+    the innermost first."""
 
     def step(state, *batch):
         state.model.zero_grad(set_to_none=True)
-        with mesh.data_parallel_step() as dp:
+        with mesh_mod.data_parallel_step() as dp:
             total, loss_dict = loss(state, *batch)
             total.backward()
         if dp:
-            mesh.all_reduce_grads(p for p in state.model.parameters()
-                                  if p.requires_grad)
+            mesh_mod.all_reduce_grads((p for p in state.model.parameters()
+                                       if p.requires_grad), mesh)
         state.apply_gradients()
         loss_dict = {k: v.detach() for k, v in loss_dict.items()}
-        return state, mesh.sum_over_ranks(loss_dict) if dp else loss_dict
+        return state, mesh_mod.sum_over_ranks(loss_dict) if dp else loss_dict
 
     return step
 
@@ -258,14 +261,15 @@ def make_det_train_step(img_size, use_l1=False):
 
 def make_uni_train_step(img_size, mot_weight=1.0, sot_weight=1.0,
                         bidirect=True, use_l1=False, num_classes=8, mhs=False,
-                        mhs_weight=0.5, backbone_map=False):
+                        mhs_weight=0.5, backbone_map=False, mesh=None):
     """step(state, images (B, 2, 3, H, W), targets (B, 2, M, 6), task_ids
     (B,)). The model is the state's (the JAX factory takes the stateless
-    module; here the module holds the parameters)."""
+    module; here the module holds the parameters). `mesh`: as
+    `_make_step`'s."""
     return _make_step(lambda state, images, targets, task_ids: uni_loss_fn(
         state.model, images, targets, task_ids, img_size, mot_weight,
         sot_weight, bidirect, use_l1, num_classes, mhs, mhs_weight,
-        backbone_map))
+        backbone_map), mesh)
 
 
 def make_det_mask_train_step(img_size, use_l1=False, max_inst=24,

@@ -161,16 +161,17 @@ class ExpTrack(BaseExp):
             grad_accum=self.grad_acc_step if self.use_grad_acc else 1,
             no_decay_mask_fn=default_wd_mask)
 
-    def get_train_step(self, batch_size):
+    def get_train_step(self, batch_size, mesh=None):
         """step(state, images (B, 2, 3, H, W), targets (B, 2, M, 6),
         task_ids (B,)) -> (state, loss_dict) at this experiment's input
-        size and loss weights."""
+        size and loss weights; `mesh` as make_uni_train_step's (a pod
+        mesh's hierarchical gradient sum)."""
         del batch_size  # shapes are the batch's own
         return make_uni_train_step(
             self.input_size,
             mot_weight=float(self.mot_weight) if self.scale_all_mot else 1.0,
             bidirect=self.bidirect, use_l1=self.always_l1,
-            num_classes=self.num_classes, mhs=self.mhs)
+            num_classes=self.num_classes, mhs=self.mhs, mesh=mesh)
 
     # ---- weights, data, evaluation ----
 

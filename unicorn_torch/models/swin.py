@@ -24,6 +24,12 @@ As in the JAX model, and unlike the public release:
     and mask add in the compute dtype and the softmax runs in fp32;
   * the MLP's GELU is always exact (erf);
   * any truthy `remat` recomputes whole blocks in the backward.
+
+Inside `parallel.rows.row_sharded` a block holds only its rank's rows of
+the frame and computes on them what the whole-map block computes there
+(`SwinBlock._forward_rows`); the patch embedding (4x4 / 4, no halo), the
+patch merging (every rank holds an even number of rows down to stride 16)
+and the LayerNorms need no exchange.
 """
 from __future__ import annotations
 
@@ -162,24 +168,33 @@ class SwinBlock(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
         self._masks = {}
 
-    def _mask(self, Hp, Wp, ws, ss, device):
-        key = (Hp, Wp, ws, ss, device)
+    def _mask(self, Hp, Wp, ws, ss, device, bands=None):
+        """The shift mask of the padded Hp x Wp map; with `bands`, only the
+        windows of those bands of ws rows, in that order."""
+        key = (Hp, Wp, ws, ss, device, bands)
         if key not in self._masks:
-            self._masks[key] = shift_mask(Hp, Wp, ws, ss).to(device)
+            mask = shift_mask(Hp, Wp, ws, ss)
+            if bands is not None:
+                n = ws * ws
+                mask = mask.reshape(Hp // ws, -1, n, n)[list(bands)].reshape(
+                    -1, n, n)
+            self._masks[key] = mask.to(device)
         return self._masks[key]
 
-    def forward(self, x):
-        if rows.active():
-            raise NotImplementedError(
-                "a Swin block on a frame split by rows is not ported: its "
-                "windows and shifts span the whole map (ROADMAP.md Queue 1 "
-                "item 5g)")
-        B, H, W, C = x.shape
+    def _geometry(self, H, W):
+        """(window, shift, bottom pad, right pad) of an H x W map."""
         ws = min(self.window_size, H, W)
         ss = 0 if ws == min(H, W) else min(self.shift_size, ws - 1)
+        return ws, ss, (-H) % ws, (-W) % ws
+
+    def forward(self, x):
+        plan = rows.active()
+        if plan:
+            return self._forward_rows(x, plan)
+        B, H, W, C = x.shape
+        ws, ss, pad_b, pad_r = self._geometry(H, W)
         shortcut = x
         x = self.norm1(x)
-        pad_b, pad_r = (-H) % ws, (-W) % ws
         x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
         Hp, Wp = H + pad_b, W + pad_r
         mask = None
@@ -191,6 +206,45 @@ class SwinBlock(nn.Module):
         if ss > 0:
             x = torch.roll(x, (ss, ss), (1, 2))
         x = shortcut + x[:, :H, :W]
+        return x + self.mlp(self.norm2(x))
+
+    def _forward_rows(self, x, plan):
+        """x (B, rows, W, C), this rank's block of the frame's rows under
+        `plan`. The window, shift and pads follow the frame's height H. In
+        the padded Hp-row frame, rolled up by the shift, the windows lie in
+        bands of ws rows: band k holds frame rows k * ws + ss ... k * ws +
+        ss + ws - 1, modulo Hp (the last band of a shifted block wraps: the
+        frame's last rows and pad rows with its first ss rows). The rank
+        takes every row of each band that meets its rows, as the other
+        ranks' norm1 outputs give them (zeros below H), runs the windows of
+        those bands with the whole frame's mask, and keeps its own rows. A
+        band shared by two ranks is computed on both."""
+        B, h, W, C = x.shape
+        bounds = plan.bounds(h)
+        start, stop = bounds[plan.rank]
+        H = bounds[-1][1]
+        ws, ss, pad_b, pad_r = self._geometry(H, W)
+        Hp, Wp = H + pad_b, W + pad_r
+        bands = tuple(sorted({(g - ss) % Hp // ws
+                              for g in range(start, stop)}))
+        index = [(k * ws + ss + j) % Hp for k in bands for j in range(ws)]
+        at = {g: i for i, g in enumerate(index)}
+        own = torch.tensor([at[g] for g in range(start, stop)],
+                           device=x.device)
+        shortcut = x
+        xn = self.norm1(x).permute(0, 3, 1, 2)            # NCHW view
+        strips = rows.exchange(rows.edge_strips(xn, max(ws - 1, 1)), plan)
+        x = rows.take_rows(xn, strips, plan, index).transpose(0, 1)
+        x = F.pad(x, (0, 0, 0, pad_r))
+        mask = None
+        if ss > 0:
+            x = torch.roll(x, -ss, 2)
+            mask = self._mask(Hp, Wp, ws, ss, x.device, bands)
+        x = window_reverse(self.attn(window_partition(x, ws), ws, mask),
+                           ws, len(index), Wp)
+        if ss > 0:
+            x = torch.roll(x, ss, 2)
+        x = shortcut + x[:, own, :W]
         return x + self.mlp(self.norm2(x))
 
 

@@ -21,8 +21,13 @@ The sums run only inside `data_parallel_step`, which the train steps enter
 when a process group is up; elsewhere every helper is the identity.
 
 `make_mesh` is the counterpart of JAX's (unicorn_tpu/parallel/mesh.py:18):
-a named 1-D axis over the processes of the group, one process a card,
-which the serving forms over several cards take (`ProcessMesh`).
+named axes over the processes of the group, one process a card
+(`ProcessMesh`), which the serving forms over several cards take, and,
+with two axes, a process group for each axis. `all_reduce_grads` given a
+mesh sums the gradients over its axes one after the other, the innermost
+first: on the pod mesh (parallel/multihost.py `make_pod_mesh`) over one
+node's ranks ("data"), then across the nodes ("dcn"), JAX's hierarchical
+psum.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import math
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -134,15 +140,20 @@ def global_ratio(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return r / world() + (a - r * b) / ab[1]
 
 
-def all_reduce_grads(params):
+def all_reduce_grads(params, mesh: "ProcessMesh | None" = None):
     """Sum the gradients of `params` over the ranks, in one all-reduce of
     their concatenation (a parameter without a gradient adds zeros, as
-    TrainState.apply_gradients counts it)."""
+    TrainState.apply_gradients counts it); with a mesh, one all-reduce of
+    that buffer over each axis's group, the last axis first."""
     params = list(params)
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in params]
     flat = torch.cat([g.reshape(-1).float() for g in grads])
-    dist.all_reduce(flat)
+    if mesh is None:
+        dist.all_reduce(flat)
+    else:
+        for axis in reversed(mesh.axis_names):
+            dist.all_reduce(flat, group=mesh.group_of(axis))
     offset = 0
     for p in params:
         n = p.numel()
@@ -161,41 +172,77 @@ def sum_over_ranks(values: dict) -> dict:
 
 @dataclass(frozen=True)
 class ProcessMesh:
-    """A 1-D mesh of the group's processes: `shape[axis]` processes along
-    the one axis, this process at `rank` along it, on `device`. `group` is
-    the process group the collectives run over (None: one process and no
-    group)."""
+    """A mesh of the group's processes: `shape[axis]` processes along each
+    axis of `axis_names`, this process (global rank `rank`) at
+    `coords[axis]` along each, on `device`. `group` is the whole mesh's
+    process group and `groups[axis]` that of the processes that share
+    every other coordinate with this one (all None: one process and no
+    group). Without `coords` / `groups` the mesh is 1-D over the group in
+    rank order."""
 
     axis_names: tuple
     shape: dict
     group: object
     rank: int
     device: torch.device
+    coords: Optional[dict] = None
+    groups: Optional[dict] = None
 
     def size(self, axis: str) -> int:
         if axis not in self.shape:
             raise ValueError(f"mesh has no axis {axis!r}: {self.axis_names}")
         return self.shape[axis]
 
+    def coord(self, axis: str) -> int:
+        """This process's index along `axis`."""
+        self.size(axis)
+        return self.rank if self.coords is None else self.coords[axis]
+
+    def group_of(self, axis: str):
+        """The process group along `axis` through this process."""
+        self.size(axis)
+        return self.group if self.groups is None else self.groups[axis]
+
+
+def mesh_over(order: Sequence[int], axis_sizes: Sequence[int],
+              axis_names: Sequence[str], device="cuda") -> ProcessMesh:
+    """The mesh whose processes, in row-major order over `axis_sizes`, are
+    the global ranks `order`. Every process calls it with the same
+    arguments: it forms the group of each line of the mesh along each axis
+    (`dist.new_group`, every group on every rank, in one order); a 1-D mesh
+    in rank order takes the whole group's."""
+    from .multihost import local_device
+
+    axis_names, sizes = tuple(axis_names), tuple(int(n) for n in axis_sizes)
+    if len(axis_names) != len(sizes):
+        raise ValueError(f"mesh: {len(sizes)} sizes for axes {axis_names}")
+    if math.prod(sizes) != world() or sorted(order) != list(range(world())):
+        raise ValueError(f"make_mesh: mesh {sizes} of ranks {list(order)} != "
+                         f"{world()} processes")
+    grid = np.asarray(order).reshape(sizes)
+    where = np.argwhere(grid == rank())[0]
+    coords = {a: int(c) for a, c in zip(axis_names, where)}
+    whole = dist.group.WORLD if _group_up() else None
+    groups = {}
+    for i, axis in enumerate(axis_names):
+        if whole is None or (len(sizes) == 1
+                             and list(order) == list(range(world()))):
+            groups[axis] = whole
+            continue
+        for line in np.moveaxis(grid, i, -1).reshape(-1, sizes[i]):
+            g = dist.new_group([int(r) for r in line])
+            if rank() in line:
+                groups[axis] = g
+    return ProcessMesh(axis_names, dict(zip(axis_names, sizes)), whole,
+                       rank(), local_device(device), coords, groups)
+
 
 def make_mesh(axis_sizes: Optional[Sequence[int]] = None,
               axis_names: Sequence[str] = ("data",), *,
               device="cuda") -> ProcessMesh:
-    """A mesh over all processes of the group (default: a 1-D "data" axis
-    of world() processes); this process's device is `local_device(device)`
-    (the card of its LOCAL_RANK). The sizes must multiply to world(), as
-    JAX asserts of its devices. Only one axis: every mesh of the JAX
-    package's serving and eval forms is 1-D."""
-    from .multihost import local_device
-
-    axis_names = tuple(axis_names)
+    """A mesh over all processes of the group in rank order (default: a
+    1-D "data" axis of world() processes); this process's device is
+    `local_device(device)` (the card of its LOCAL_RANK). The sizes must
+    multiply to world(), as JAX asserts of its devices."""
     sizes = (world(),) if axis_sizes is None else tuple(axis_sizes)
-    if len(axis_names) != 1 or len(sizes) != 1:
-        raise NotImplementedError(
-            f"make_mesh: a mesh of axes {axis_names} / sizes {sizes}; only "
-            "one axis over the flat process group is ported")
-    if math.prod(sizes) != world():
-        raise ValueError(f"make_mesh: mesh {sizes} != {world()} processes")
-    return ProcessMesh(axis_names, {axis_names[0]: sizes[0]},
-                       dist.group.WORLD if _group_up() else None, rank(),
-                       local_device(device))
+    return mesh_over(range(world()), sizes, axis_names, device)

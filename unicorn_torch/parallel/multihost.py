@@ -8,16 +8,23 @@ into one device list. Here every card is a process of its own, as
 joins them into a torch.distributed process group: NCCL between cards,
 gloo between CPU processes. A single process stays ungrouped. A group
 that fails to form raises; nothing falls back to one process.
+
+`make_pod_mesh` is JAX's two-level (dcn, data) mesh with nodes in the
+place of TPU slices: a row of the mesh holds one node's ranks, so that the
+inner axis's reductions stay on the node's NVLink and only the outer
+axis's cross between nodes.
 """
 from __future__ import annotations
 
 import datetime
 import os
+import socket
 
 import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+from .mesh import ProcessMesh, _group_up, mesh_over, rank, world
 from .mesh import local_batch_slice  # noqa: F401  (JAX's module has it)
 
 
@@ -83,3 +90,46 @@ def initialize_multihost(coordinator_address: str | None = None,
         store=dist.PrefixStore(f"unicorn_torch/{k}/", store),
         world_size=world, rank=rank, timeout=timeout)
     return dev
+
+
+def _nodes() -> list:
+    """Every rank's node, in rank order: torchrun's GROUP_RANK (its node's
+    index) where the environment has it with LOCAL_WORLD_SIZE, else the
+    host's name, numbered in the order of each host's lowest rank."""
+    if "GROUP_RANK" in os.environ and "LOCAL_WORLD_SIZE" in os.environ:
+        mine = (int(os.environ["GROUP_RANK"]),
+                int(os.environ["LOCAL_WORLD_SIZE"]))
+    else:
+        mine = (socket.gethostname(), None)
+    every = [mine]
+    if _group_up():
+        every = [None] * world()
+        dist.all_gather_object(every, mine)
+    sizes = {n for _, n in every if n is not None}
+    names = list(dict.fromkeys(node for node, _ in every))
+    if all(isinstance(node, int) for node, _ in every):
+        names.sort()
+    counts = [sum(node == name for node, _ in every) for name in names]
+    if len(set(counts)) != 1 or sizes - {counts[0]}:
+        raise ValueError(f"make_pod_mesh: nodes of unequal sizes {counts} "
+                         f"(LOCAL_WORLD_SIZE {sorted(sizes)})")
+    return [names.index(node) for node, _ in every]
+
+
+def make_pod_mesh(axis_names=("dcn", "data"), *, device="cuda"
+                  ) -> ProcessMesh:
+    """A (nodes, ranks a node) mesh over the group, the counterpart of JAX's
+    make_pod_mesh (unicorn_tpu/parallel/multihost.py:51): the outer axis
+    runs over the nodes (JAX: the slices, over DCN), the inner over one
+    node's ranks (JAX: one slice's chips, over ICI). Each mesh row is one
+    node's ranks in rank order, the nodes in the order of their torchrun
+    GROUP_RANK (else of their lowest rank), as JAX sorts the devices by
+    slice; a single node gives (1, world()). Every rank calls it (it
+    forms the per-axis groups); nodes of unequal sizes raise. The batch of
+    a data-parallel step shards over both axes: `shard_batch` by global
+    rank, and the step given the mesh (core/train_step.py) sums the
+    gradients over "data" first and then over "dcn"."""
+    nodes = _nodes()
+    n = max(nodes) + 1
+    order = sorted(range(world()), key=lambda r: (nodes[r], r))
+    return mesh_over(order, (n, world() // n), axis_names, device)

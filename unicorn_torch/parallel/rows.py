@@ -14,7 +14,13 @@ the ops exchange what they need themselves:
     padding in H; at the frame's edges the rows are its padding;
   * GroupNorm takes its statistics over the whole frame (`group_norm`);
   * the dw7x7 kernel runs on the rank's rows plus 3 halo rows each side,
-    and the 3 rows at each end are cropped.
+    and the 3 rows at each end are cropped;
+  * a Swin block takes, after its first LayerNorm, every row of each
+    window band that meets its rows (`take_rows`): up to window - 1 rows
+    on each side, from as many ranks as they span, and, for the shifted
+    windows' band that wraps round the frame, the frame's last rows and
+    its first ones; the window, the shift and the bottom pad follow the
+    whole frame's height (models/swin.py).
 
 Every exchange is one all-reduce (SUM) of a zero-filled buffer with one
 slot per rank, run on an int32 view of the bytes: adding zeros keeps every
@@ -135,6 +141,21 @@ def edge_strips(x: torch.Tensor, h: int) -> torch.Tensor:
     return strips
 
 
+def _strip_row(g: int, bounds: list, h: int) -> int:
+    """The index of frame row g, which another rank owns, among the rows of
+    every rank's edge strips (world, 2, h, ...) flattened: a row within h
+    rows of its owner's end is among the owner's last h rows, else one
+    within h rows of its start among its first h. A deeper row raises."""
+    r = next(i for i, (s, e) in enumerate(bounds) if s <= g < e)
+    s, e = bounds[r]
+    if e - g <= h:
+        return (2 * r + 1) * h + g - (e - h)
+    if g - s < h:
+        return 2 * r * h + g - s
+    raise ValueError(f"row plan: row {g} lies deeper than {h} rows inside "
+                     f"rank {r}'s block [{s}, {e})")
+
+
 def assemble(x, strips, plan: RowPlan, above: int, below: int, fill):
     """x (N, C, rows, W) with `above` rows before and `below` after it, taken
     from every rank's edge strips (world, 2, h, N, W, C); rows outside the
@@ -146,16 +167,9 @@ def assemble(x, strips, plan: RowPlan, above: int, below: int, fill):
     H = bounds[-1][1]
     h = strips.shape[2]
     fill_row = plan.world * 2 * h
-    idx = []
-    for g in list(range(start - above, start)) + list(range(stop,
-                                                            stop + below)):
-        if not 0 <= g < H:
-            idx.append(fill_row)
-            continue
-        r = next(i for i, (s, e) in enumerate(bounds) if s <= g < e)
-        s, e = bounds[r]
-        idx.append((2 * r + 1) * h + g - (e - h) if g < start
-                   else 2 * r * h + g - s)
+    idx = [_strip_row(g, bounds, h) if 0 <= g < H else fill_row
+           for g in list(range(start - above, start))
+           + list(range(stop, stop + below))]
     rows = torch.cat([strips.reshape(-1, *strips.shape[3:]),
                       strips.new_full((1,) + tuple(strips.shape[3:]), fill)])
     rows = rows[torch.tensor(idx, dtype=torch.long, device=rows.device)]
@@ -163,6 +177,26 @@ def assemble(x, strips, plan: RowPlan, above: int, below: int, fill):
     out = torch.cat([rows[:above].permute(1, 0, 2, 3), xn,
                      rows[above:].permute(1, 0, 2, 3)], 1)
     return out.permute(0, 3, 1, 2)
+
+
+def take_rows(x, strips, plan: RowPlan, index, fill=0.0) -> torch.Tensor:
+    """The frame's rows `index`, in that order, rows first: (len(index), N,
+    W, C), from x (N, C, rows, W), this rank's block, and every rank's edge
+    strips (world, 2, h, N, W, C). A row of this rank's is x's, another
+    rank's comes from its owner's strips (within h rows of the owner's
+    edge), and a row outside the frame [0, H) is `fill`."""
+    bounds = plan.bounds(x.shape[2])
+    start, stop = bounds[plan.rank]
+    H = bounds[-1][1]
+    h = strips.shape[2]
+    own = plan.world * 2 * h
+    fill_row = own + stop - start
+    idx = [fill_row if not 0 <= g < H else own + g - start
+           if start <= g < stop else _strip_row(g, bounds, h) for g in index]
+    table = torch.cat([strips.reshape(-1, *strips.shape[3:]),
+                       x.permute(2, 0, 3, 1),
+                       strips.new_full((1,) + tuple(strips.shape[3:]), fill)])
+    return table[torch.tensor(idx, dtype=torch.long, device=table.device)]
 
 
 def halo(x: torch.Tensor, above: int, below: int, fill=0.0,

@@ -9,8 +9,11 @@ the detection forward on it with the model's ops exchanging what they read
 across the block's edges (parallel/rows.py), and gathers each level's raw
 head outputs into full-height maps; every rank then decodes and runs the
 NMS on the whole frame, so every rank returns the same detections, in the
-anchor order of one card. The ConvNeXt, CSPDarknet and ResNet-50 trunks are
-supported; a Swin trunk raises (its shifted windows span the map).
+anchor order of one card. Every trunk of the port splits: ConvNeXt,
+CSPDarknet, ResNet-50 and Swin (whose window blocks take every row of the
+window bands that meet a rank's rows, the shifted windows' wrap-around
+band included). On a mesh of several axes the split runs along `axis`,
+over the processes that share the other coordinates.
 """
 from __future__ import annotations
 
@@ -26,8 +29,8 @@ from .mesh import ProcessMesh
 
 
 def _plan(mesh: ProcessMesh, H: int, axis: str) -> rows.RowPlan:
-    return rows.RowPlan(rows.split_units(H, mesh.size(axis)), mesh.rank,
-                        mesh.group)
+    return rows.RowPlan(rows.split_units(H, mesh.size(axis)),
+                        mesh.coord(axis), mesh.group_of(axis))
 
 
 def _frame_rows(plan: rows.RowPlan) -> tuple:
@@ -60,8 +63,8 @@ def spatial_detect_fn(model, mesh: ProcessMesh, axis: str = "sp",
     def detect(frames):
         h = torch.tensor([frames.shape[2]], dtype=torch.int32,
                          device=frames.device)
-        if mesh.group is not None:
-            dist.all_reduce(h, group=mesh.group)
+        if mesh.group_of(axis) is not None:
+            dist.all_reduce(h, group=mesh.group_of(axis))
         H = int(h.item())
         if H % (strides[-1] * n_sp) and H not in warned:
             warned.add(H)
