@@ -5,8 +5,8 @@
 
 Phases (each must pass, else the exit code is 1):
   build      the card's name and power limit; every CUDA source of csrc/
-             built with nvcc (dwconv7x7, convnext_block, msda, correlation,
-             correlation_train) and the host libraries (the image codec
+             built with nvcc (dwconv7x7, dw7x7_wgrad, convnext_block, msda,
+             correlation, correlation_train) and the host libraries (the image codec
              imcodec.cpp, the evaluators' RLE codec rle.cpp and COCOeval
              matcher cocoeval.cpp, the ingest's space-to-depth packer
              pack.cpp) with the system C++ compiler, in parallel
@@ -25,15 +25,24 @@ Phases (each must pass, else the exit code is 1):
              32 rows and the halo), MSDA and the serving
              correlation at _rt's, each with its path in `per_shape`)
              of kernel, plain version and the PyTorch library call that
-             computes the same function, and the bound; the gradients of
-             the dw7x7, fused-block and MSDA autograd Functions against
-             autograd of their plain versions
+             computes the same function, and the bound; the dw7x7 filter
+             gradient (dw7x7_wgrad) at every shape of the uni step in bf16
+             and fp32 and at the serving shapes, two calls bit-equal,
+             timed beside cuDNN's dgrad + wgrad of the same (x, dy); the
+             gradients of the dw7x7, fused-block and MSDA autograd
+             Functions against autograd of their plain versions
   model      the ConvNeXt-Tiny Unicorn at 800x1280 in bf16 (seeded random
              weights): forward_whole through the dw7x7 kernel vs the same
              model through the plain version, on the card
   main       the MOT path: MOTDriver.update over synthetic 1080x1920 uint8
              frames, letterboxed on the card; frames/s, per-stage ms, dets
-             and tracks per frame, launch counts (27 dw7x7 per frame)
+             and tracks per frame, launch counts (27 dw7x7 per frame); with
+             set_fast_norms one frame's decoded anchors against the exact
+             norms (the drift printed against JAX's bounds, 2e-2 and 1.0
+             px, and held within twice the fp32 model's distance from the
+             bf16 one), 16 frames/s with the switch, forward_whole's
+             device ms each way, whether PyTorch's norms take a bf16 map
+             with an fp32 affine, the exact and fast norm forms' ms
   block_model  the same model with each of its 27 ConvNeXt blocks run as
              one convnext_block call (the fused block kernels) against the
              model's own blocks; 27 launches of the op; ms per frame for the
@@ -95,7 +104,11 @@ Phases (each must pass, else the exit code is 1):
              steps alternating an SOT and a MOT batch, 6 steps on one SOT
              batch (the loss must fall), 2 steps with their stages timed
              apart; ms/step, peak memory, launch counts per step (36 dw7x7,
-             1 msda, 2 each of the three correlation training kernels)
+             1 msda, 2 each of the three correlation training kernels);
+             with set_dw_custom_vjp one forward + backward against the
+             default backward leaf by leaf (TF32 off), the filter-gradient
+             calls' shapes, then 8 timed steps each way in turns (72 dw7x7
+             and 72 dw7x7_wgrad launches (36 calls) a step with the switch)
   inst_train the inst stage's training step (ExpDetMask.get_optimizer:
              SGD, mask-only, EMA; get_train_step) on the
              unicorn_inst_convnext_tiny_800x1280 YOLOXDet at B = 2 images
@@ -398,8 +411,8 @@ def phase_card_and_build(report):
           f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     host = ("imcodec", "rle", "cocoeval", "pack")
-    logs = build.build(["dwconv7x7", "convnext_block", "msda", "correlation",
-                        "correlation_train", *host])
+    logs = build.build(["dwconv7x7", "dw7x7_wgrad", "convnext_block", "msda",
+                        "correlation", "correlation_train", *host])
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for n, log in logs.items():
         for line in log.strip().splitlines():
@@ -421,7 +434,8 @@ def phase_kernels(report):
     when one disagrees."""
     bad = []
     with tf32_off():
-        for check in (kernels_dw7x7, kernels_convnext_block, kernels_msda,
+        for check in (kernels_dw7x7, kernels_dw7x7_wgrad,
+                      kernels_convnext_block, kernels_msda,
                       kernels_correlation, kernels_correlation_train,
                       kernels_backward):
             if not check(report):
@@ -628,6 +642,141 @@ def kernels_dw7x7(report) -> bool:
         bound_by=("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
                   else "operations"),
         library_ms=tot["library_ms"], per_shape=per_shape)
+    return ok
+
+
+# (B, H, W, C) of the dw7x7 calls of one uni training step at TRAIN_B = 2
+# pairs of 800x1280 with mhs, and how many calls run at each: the trunk's 18
+# blocks on the 2B frames as one batch, the head's 9 attention blocks (hidden
+# 256) at batch B in each of its two calls
+UNI_STEP_DW_SHAPES = (
+    ((4, 200, 320, 96), 3), ((4, 100, 160, 192), 3), ((4, 50, 80, 384), 9),
+    ((4, 25, 40, 768), 3), ((2, 100, 160, 256), 6), ((2, 50, 80, 256), 6),
+    ((2, 25, 40, 256), 6))
+
+
+def wgrad_tolerance(x, dy, plan):
+    """Per output of dw7x7_wgrad: twice the first-order bound of the
+    kernel's longest chain of fp32 additions (a lane's products down its
+    band and halo rows, its block's 8 warps, the workspace slots: 8 a warp
+    of the fixed-order sum, then its 8 warps) times the sum of the terms'
+    magnitudes, which the plain version gives on |x| and |dy|."""
+    from unicorn_torch.ops import dwconv7x7 as dw
+
+    mk, mb = dw.dw7x7_wgrad_plain(x.abs(), dy.abs())
+    chain = (plan["rows"] + 6) * 4 + 8 + -(-plan["slots"] // 8) + 8
+    u = 2 * chain * 2.0 ** -24
+    return u * mk, u * mb
+
+
+def kernels_dw7x7_wgrad(report) -> bool:
+    """The filter-gradient kernel against its plain version at every
+    (B, H, W, C) of the uni step, in bf16 (the step's) and fp32, and at the
+    serving shapes (B = 1, bf16); two calls bit-equal at each; timed beside
+    the plain version, beside the library call that computes the same dW
+    and db (aten.convolution_backward of the grouped conv with only the
+    weight and bias gradients asked for, cuDNN's wgrad: `library_ms`) and
+    beside cuDNN's dgrad + wgrad (autograd of F.conv2d(groups=C), the
+    default backward's library work: `dgrad_wgrad_ms`) on the same
+    (x, dy). Tolerance: `wgrad_tolerance`."""
+    import torch
+    import torch.nn.functional as F
+
+    from unicorn_torch.ops import dwconv7x7 as dw
+
+    bw, fp32_peak, _ = report["peaks"]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    ok = True
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, dgrad_wgrad_ms=0.0,
+               bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+    max_err, per_shape = 0.0, []
+    cases = [(s, n, dt, "uni step") for dt in (torch.bfloat16, torch.float32)
+             for s, n in UNI_STEP_DW_SHAPES]
+    cases += [((1, *s), n, torch.bfloat16, "serving")
+              for s, n in dw.PATH_SHAPES]
+    cases += [(s, 1, dt, "ragged") for dt in (torch.bfloat16, torch.float32)
+              for s in ((2, 13, 17, 12), (1, 5, 3, 16), (1, 1, 1, 8),
+                        (3, 9, 70, 40))]
+    print("dw7x7_wgrad  B x H x W x C        dtype  n  worst err/tol  "
+          "equal  kernel_ms plain_ms wgrad_ms dgrad+wgrad_ms bound_ms "
+          "bound_by  split")
+    for (B, H, W, C), n, dtype, path in cases:
+        x = torch.randn(B, H, W, C, device=dev, generator=g).to(dtype)
+        dy = torch.randn(B, H, W, C, device=dev, generator=g).to(dtype)
+        k1, b1 = dw.dw7x7_wgrad_cuda(x, dy)
+        k2, b2 = dw.dw7x7_wgrad_cuda(x, dy)
+        kp, bp = dw.dw7x7_wgrad_plain(x, dy)
+        pl = dw.wgrad_plan(B, H, W, C)
+        tk, tb = wgrad_tolerance(x, dy, pl)
+        torch.cuda.synchronize()
+        ratio = max(((k1 - kp).abs() / tk.clamp_min(1e-30)).max().item(),
+                    ((b1 - bp).abs() / tb.clamp_min(1e-30)).max().item())
+        equal = torch.equal(k1, k2) and torch.equal(b1, b2)
+        good = (ratio <= 1.0 and equal and bool(torch.isfinite(k1).all())
+                and tuple(k1.shape) == (7, 7, C))
+        ok &= good
+        err = max((k1 - kp).abs().max().item(), (b1 - bp).abs().max().item())
+        line = (f"             {B}x{H:3d}x{W:3d}x{C:<4d} {path:9s} "
+                f"{str(dtype)[6:]:8s} {n} {ratio:.2e}  {equal}")
+        if path == "ragged":
+            print(line + ("" if good else "  FAIL"))
+            continue
+        max_err = max(max_err, err)
+        N = x.numel()
+        t_bytes = (2 * N * x.element_size() + 50 * C * 4) / bw * 1e3
+        t_ops = (2 * 49 + 1) * N / fp32_peak * 1e3
+        bound = max(t_bytes, t_ops)
+        t_k = graph_time_ms(lambda: dw.dw7x7_wgrad_cuda(x, dy))
+        t_p = graph_time_ms(lambda: dw.dw7x7_wgrad_plain(x, dy), iters=3,
+                            reps=2)
+        xc = x.permute(0, 3, 1, 2).detach().requires_grad_()
+        wc = (0.1 * torch.randn(C, 1, 7, 7, device=dev, generator=g)).to(
+            dtype).requires_grad_()
+        bc = torch.zeros(C, device=dev, dtype=dtype, requires_grad=True)
+        dyc = dy.permute(0, 3, 1, 2)
+
+        def library():
+            return torch.ops.aten.convolution_backward(
+                dyc, xc, wc, [C], [1, 1], [3, 3], [1, 1], False, [0, 0], C,
+                [False, True, True])
+
+        def dgrad_wgrad():
+            y = F.conv2d(xc, wc, bc, padding=3, groups=C)
+            return torch.autograd.grad(y, (xc, wc, bc), dyc)
+
+        t_l = event_time_ms(library, iters=5)
+        t_dw = event_time_ms(dgrad_wgrad, iters=5)
+        print(f"{line}   {t_k:.4f}    {t_p:.4f}   {t_l:.4f}   {t_dw:.4f}"
+              f"        {bound:.4f}"
+              f"   {'bytes' if t_bytes >= t_ops else 'operations':10s} "
+              f"{pl['tiles']} tiles x {pl['slabs']} slabs x {pl['bands']} "
+              f"bands of {pl['rows']} rows, {pl['slots']} slots"
+              f"{'' if good else '  FAIL'}")
+        per_shape.append(dict(shape=[B, H, W, C], dtype=str(dtype)[6:],
+                              path=path, launches=n, ms=t_k, plain_ms=t_p,
+                              library_ms=t_l, dgrad_wgrad_ms=t_dw,
+                              bound_ms=bound, err_over_tol=ratio))
+        if path == "uni step" and dtype == torch.bfloat16:
+            for key, t in (("ms", t_k), ("plain_ms", t_p),
+                           ("library_ms", t_l), ("dgrad_wgrad_ms", t_dw),
+                           ("bound_ms", bound),
+                           ("bytes_ms", t_bytes), ("ops_ms", t_ops)):
+                tot[key] += n * t
+    print(f"dw7x7_wgrad per uni step (bf16, 36 calls): kernel "
+          f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, cuDNN wgrad "
+          f"{tot['library_ms']:.4f} ms, cuDNN dgrad + wgrad "
+          f"{tot['dgrad_wgrad_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
+    report.setdefault("kernels", {})["dw7x7_wgrad"] = dict(
+        name="dw7x7_wgrad", route="cuda",
+        source="unicorn_torch/csrc/dw7x7_wgrad.cu",
+        replaces="unicorn_tpu/ops/pallas_convnext.py:341",
+        launches=None, max_abs_err=max_err, ms=tot["ms"],
+        plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+        bound_by=("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+                  else "operations"),
+        library_ms=tot["library_ms"], dgrad_wgrad_ms=tot["dgrad_wgrad_ms"],
+        per_shape=per_shape)
     return ok
 
 
@@ -1546,6 +1695,380 @@ def phase_main(report):
         launches=launches, launches_by_path={"mot": launches})
     report["fps"] = fps
     assert launches == 27 * N_FRAMES, launches
+    _main_fast_norms(report, exp, model, fps)
+
+
+def _norm_forms(report):
+    """What the card's norms do with a bf16 map: whether F.group_norm /
+    F.layer_norm take it with an fp32 affine, the dtype of F.group_norm's
+    statistics on it (aten.native_group_norm), how many outputs of
+    F.group_norm on the bf16 map (affine rounded) differ from the exact
+    form's; then GroupNorm32 and the ConvNeXt LayerNorm32 (perturbed
+    affine) with the switch off and on: device ms from CUDA-graph replays
+    (no host gaps: the fast GroupNorm's statistics take about three times
+    the exact form's eager calls, which frames/s shows), bytes allocated
+    beyond the output per element, outputs that differ."""
+    import torch
+    import torch.nn.functional as F
+
+    from unicorn_torch.models import blocks
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    bf = torch.bfloat16
+    CL = torch.channels_last
+    for kind, (H, W, C) in (("group_norm", (100, 160, 256)),
+                            ("layer_norm", (200, 320, 96))):
+        x = (3 * torch.randn(1, C, H, W, device=dev, generator=g) + 1).to(
+            bf).contiguous(memory_format=CL)
+        if kind == "group_norm":
+            mod = blocks.GroupNorm32(C, dtype=bf).to(dev)
+            arg = x
+        else:
+            mod = blocks.LayerNorm32(C, dtype=bf, fast_norms=True).to(dev)
+            arg = x.permute(0, 2, 3, 1)         # (1, H, W, C) contiguous
+        with torch.no_grad():
+            mod.weight.copy_(1 + 0.2 * torch.randn(C, device=dev,
+                                                   generator=g))
+            mod.bias.copy_(0.2 * torch.randn(C, device=dev, generator=g))
+            w, b = mod.weight.detach(), mod.bias.detach()
+            ref = mod(arg)
+            try:
+                if kind == "group_norm":
+                    F.group_norm(x, 16, w, b, 1e-3)
+                else:
+                    F.layer_norm(arg, (C,), w, b, 1e-6)
+                mixed = "accepted"
+            except RuntimeError as e:
+                mixed = f"refused ({str(e).splitlines()[0]})"
+            note = ""
+            if kind == "group_norm":
+                _, mean, _ = torch.ops.aten.native_group_norm(
+                    x.contiguous(), None, None, 1, C, H * W, 16, 1e-3)
+                y_bf = F.group_norm(x, 16, w.to(bf), b.to(bf), 1e-3)
+                note = (f"; its statistics on a bf16 map are {mean.dtype}, "
+                        f"{(y_bf != ref).float().mean().item():.4f} of its "
+                        f"outputs differ from the exact form's")
+        out = {}
+        for fast in (False, True):
+            blocks.set_fast_norms(fast)
+            try:
+                with torch.no_grad():
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    y = mod(arg)
+                    torch.cuda.synchronize()
+                    extra = (torch.cuda.max_memory_allocated() - base
+                             - y.numel() * y.element_size()) / y.numel()
+                    t = graph_time_ms(lambda: mod(arg))
+            finally:
+                blocks.set_fast_norms(False)
+            out["fast" if fast else "exact"] = (y, t, extra)
+        differ = (out["fast"][0] != out["exact"][0]).float().mean().item()
+        print(f"  {kind} 1x{H}x{W}x{C} bf16, fp32 affine: {mixed}{note}. "
+              + "; ".join(f"{type(mod).__name__} {k} {t:.4f} ms, {e:.2f} "
+                          f"bytes/element beyond the output"
+                          for k, (_, t, e) in out.items())
+              + f"; fast outputs differing from exact {differ:.4f}")
+        report.setdefault("norm_forms", {})[kind] = dict(
+            mixed=mixed, differ=differ,
+            **{f"{k}_ms": t for k, (_, t, _) in out.items()})
+
+
+def _decode_drift(a, b):
+    """(score drift, box drift px, box drift over the 200 anchors of
+    highest objectness in a (all of them if fewer), median box drift) of
+    two decoded (1, A, 5+K) outputs."""
+    d = (a - b).abs()
+    top = a[0, :, 4].topk(min(200, a.shape[1])).indices
+    return (d[..., 4:].max().item(), d[..., :4].max().item(),
+            d[0, top, :4].max().item(), d[..., :4].median().item())
+
+
+def _bf16_steps(a, b):
+    """Elementwise |a - b| less 1e-5, in bf16 steps at the larger of |a|,
+    |b| (8 bits of mantissa); the largest, and the share of a != b."""
+    import torch
+
+    a, b = a.float(), b.float()
+    m = torch.maximum(a.abs(), b.abs()).clamp_min(1e-30)
+    step = torch.exp2(torch.floor(torch.log2(m)) - 7)
+    d = ((a - b).abs() - 1e-5).clamp_min(0) / step
+    return d.max().item(), (a != b).float().mean().item()
+
+
+def _fast_sites(model):
+    """(name, module) of every norm of the model that honours
+    set_fast_norms."""
+    from unicorn_torch.models import blocks
+
+    return [(n, m) for n, m in model.named_modules()
+            if isinstance(m, blocks.GroupNorm32)
+            or (isinstance(m, blocks.LayerNorm32) and m.fast_norms)]
+
+
+def _one_step_drift(model, forward, decoded, name):
+    """The decoded frame's drift (`_decode_drift`) from `decoded` when one
+    element of norm `name`'s output, in the middle of its map, is moved
+    up by one bf16 step in the exact forward: the least change a norm
+    form that is not the exact program can make."""
+    import torch
+
+    def bump(mod, args, out):
+        o = out.clone()
+        i = tuple(d // 2 for d in o.shape)
+        v = o[i].float()
+        step = torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(
+            2.0 ** -100))) - 7)
+        o[i] = (v + step).to(o.dtype)
+        return o
+
+    h = dict(model.named_modules())[name].register_forward_hook(bump)
+    try:
+        with torch.no_grad():
+            return _decode_drift(decoded, forward())
+    finally:
+        h.remove()
+
+
+def _one_step_floor(model, forward, decoded):
+    """`_one_step_drift` at the first, the middle and the last norm site
+    that honours the switch: {site: drift}."""
+    names = [n for n, _ in _fast_sites(model)]
+    return {n: _one_step_drift(model, forward, decoded, n)
+            for n in dict.fromkeys((names[0], names[len(names) // 2],
+                                    names[-1]))}
+
+
+def _norm_sites(model, forward):
+    """Every norm of the model that honours set_fast_norms (GroupNorm32,
+    LayerNorm32 with fast_norms), on the input the exact forward gives it:
+    its output with the switch on against its exact output, in bf16 steps
+    (`_bf16_steps`). (sites, bf16 sites, worst steps, its site, the share
+    of outputs that differ over the bf16 sites)."""
+    import torch
+
+    from unicorn_torch.models import blocks
+
+    sites = _fast_sites(model)
+    res, busy = {}, []
+
+    def hook(name):
+        def fn(mod, args, out):
+            if busy:
+                return
+            busy.append(1)
+            blocks.set_fast_norms(True)
+            try:
+                fast = mod(*args)
+            finally:
+                blocks.set_fast_norms(False)
+                busy.pop()
+            steps, share = _bf16_steps(fast, out)
+            res.setdefault(name, []).append(
+                (steps, share, out.numel(), out.dtype == torch.bfloat16))
+        return fn
+
+    handles = [m.register_forward_hook(hook(n)) for n, m in sites]
+    try:
+        with torch.no_grad():
+            forward()
+    finally:
+        for h in handles:
+            h.remove()
+    flat = [(n, *r) for n, rs in res.items() for r in rs]
+    bf = [f for f in flat if f[4]]
+    worst = max(flat, key=lambda f: f[1])
+    share = (sum(f[2] * f[3] for f in bf) / max(1, sum(f[3] for f in bf)))
+    return len(sites), len({f[0] for f in bf}), worst[1], worst[0], share
+
+
+def _fast_norms_jax_case(report):
+    """JAX's own case of the switch (tests/test_models.py
+    test_fast_norms_serving_drift_bounded: ConvNeXt-Tiny at full width
+    under the conv interaction with no attention blocks, one seeded 64x96
+    image; tests/test_torch_port_fast_norms.py runs it on the CPU) on the
+    card: the fp32 model bit-identical with the switch; bf16 fast against
+    bf16 exact, decoded, within JAX's bounds (scores 2e-2, boxes 1.0 px),
+    at flax's init affine and at a perturbed one (every norm's scale
+    1 + 0.2 N(0, 1), bias 0.2 N(0, 1), seed 1, as the CPU test). Held:
+    the fp32 bits and the scores' bound. The boxes are printed against
+    JAX's 1.0 px beside `_one_step_floor`, the drift of one bf16 step in
+    one element of a norm's output: on the card that step alone moves
+    the boxes past 1.0 px, so JAX's box bound holds only for a form that
+    is the exact program, as JAX's fast form is; `_norm_sites` is the
+    gate a wrong norm fails."""
+    import numpy as np
+    import torch
+
+    from unicorn_torch.models import blocks
+    from unicorn_torch.models.heads import decode_for_inference
+    from unicorn_torch.models.unicorn import Unicorn
+
+    cfg = dict(num_classes=1, backbone_name="convnext_tiny",
+               in_channels=(192, 384, 768), interact_mode="conv",
+               n_layer_att=0, use_attention=False)
+    m32 = Unicorn(**cfg, generator=torch.Generator().manual_seed(0))
+    state = m32.state_dict()
+    m16 = Unicorn(**cfg, dtype=torch.bfloat16,
+                  generator=torch.Generator().manual_seed(0))
+    models = (m32.to(DEVICE).eval(), m16.to(DEVICE).eval())
+    imgs = torch.from_numpy((np.random.RandomState(0).rand(1, 64, 96, 3)
+                             * 255).astype(np.float32)).permute(
+        0, 3, 1, 2).contiguous(memory_format=torch.channels_last).to(DEVICE)
+
+    def run(m, fast=False):
+        blocks.set_fast_norms(fast)
+        try:
+            with torch.no_grad():
+                raw, _ = m.forward_whole(imgs)
+                return decode_for_inference(raw, (8, 16, 32),
+                                            mode="mot").float()
+        finally:
+            blocks.set_fast_norms(False)
+
+    res, ok = {}, True
+    for affine in ("init", "perturbed"):
+        for m in models:
+            m.load_state_dict(state)
+            g = torch.Generator().manual_seed(1)
+            with torch.no_grad():
+                for n in m.modules():
+                    if affine == "perturbed" and isinstance(
+                            n, (blocks.GroupNorm32, blocks.LayerNorm32)):
+                        n.weight.copy_(1 + 0.2 * torch.randn(
+                            n.weight.shape, generator=g))
+                        n.bias.copy_(0.2 * torch.randn(n.bias.shape,
+                                                       generator=g))
+        f32_equal = torch.equal(run(models[0]), run(models[0], True))
+        exact, fast = run(models[1]), run(models[1], True)
+        d = _decode_drift(exact, fast)
+        floor = _one_step_floor(models[1], lambda: run(models[1]), exact)
+        good = f32_equal and d[0] <= 2e-2
+        ok &= good
+        res[affine] = dict(fp32_equal=f32_equal, drift=d, one_step=floor)
+        print(f"  JAX's case (ConvNeXt-Tiny, conv interaction, 64x96), "
+              f"{affine} affine: fp32 bit-identical {f32_equal}; bf16 fast "
+              f"against exact: scores {d[0]:.3e} (bound 2e-2), boxes "
+              f"{d[1]:.3e} px (JAX's 1.0 px "
+              f"{'met' if d[1] <= 1.0 else 'not met'}); one bf16 step in "
+              f"one element of a norm's output: "
+              + ", ".join(f"{n} scores {o[0]:.3e} boxes {o[1]:.3e} px"
+                          for n, o in floor.items())
+              + f"{'' if good else '  FAIL'}")
+    report["fast_norms_jax_case"] = res
+    del models
+    torch.cuda.empty_cache()
+    assert ok, res
+
+
+def _main_fast_norms(report, exp, model, fps_exact):
+    """set_fast_norms on the served model, on one letterboxed MOT frame.
+    (a) Every norm that honours the switch, on the input the exact forward
+    gives it: its fast output within one bf16 step of its exact output at
+    every element (both are roundings of the same value up to fp32
+    error; a wrong norm misses by many steps). (b) forward_whole and the
+    decode each way: the drift of every anchor's scores and boxes against
+    JAX's bounds (2e-2, 1.0 px; tests/test_models.py
+    test_fast_norms_serving_drift_bounded), in px and in bf16 steps of the
+    decoded value, beside the same drift of the fp32 model (the same
+    weights) from the exact bf16 one, bf16's own. The detections kept
+    each way; then N_FRAMES MOTDriver.update with the switch
+    (`_mot_path`), frames/s beside the exact run's, and forward_whole's
+    device time each way (CUDA-graph replays); the norm forms
+    (`_norm_forms`)."""
+    import numpy as np
+    import torch
+
+    from unicorn_torch.drivers.mot import MOTDriver
+    from unicorn_torch.exp.unicorn_track_tiny import Exp
+    from unicorn_torch.models import blocks
+    from unicorn_torch.models.heads import decode_for_inference
+
+    def driver_of(m):
+        return MOTDriver(m, input_size=exp.test_size,
+                         num_classes=exp.num_classes, conf_thre=0.0,
+                         nms_thre=exp.nmsthre, device=DEVICE)
+
+    driver = driver_of(model)
+    fh, fw = FRAME_HW
+    frame = (np.random.RandomState(9).rand(fh, fw, 3) * 255).astype(np.uint8)
+    img, _ = driver.preprocess(frame)
+    n_sites, n_bf, worst, worst_at, share = _norm_sites(
+        model, lambda: driver.forward(img))
+    print(f"main fast norms: {n_sites} norm sites honour the switch, "
+          f"{n_bf} of them bf16; fast against exact on the exact forward's "
+          f"inputs: worst {worst:.3f} bf16 steps (bound 1) at {worst_at}, "
+          f"{share:.3e} of the bf16 sites' outputs differ")
+    dec, kept = {}, {}
+    for fast in (False, True):
+        blocks.set_fast_norms(fast)
+        try:
+            with torch.no_grad():
+                raw = driver.forward(img)
+                dec[fast] = decode_for_inference(raw, (8, 16, 32),
+                                                 mode="mot").float()
+                kept[fast] = int(driver.postprocess(raw)[1].sum())
+        finally:
+            blocks.set_fast_norms(False)
+    e32 = Exp()
+    e32.bf16 = False
+    m32 = e32.get_model(torch.Generator().manual_seed(0))
+    m32.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        raw = driver_of(m32.to(DEVICE).eval()).forward(img)
+        dec32 = decode_for_inference(raw, (8, 16, 32), mode="mot").float()
+    del m32, raw
+    drift = _decode_drift(dec[False], dec[True])
+    own = _decode_drift(dec[False], dec32)
+    jax_met = drift[0] <= 2e-2 and drift[1] <= 1.0
+    differ = (dec[True] != dec[False]).float().mean().item()
+    floor = _one_step_floor(model, lambda: decode_for_inference(
+        driver.forward(img), (8, 16, 32), mode="mot").float(), dec[False])
+    print(f"main fast norms: one {fh}x{fw} frame, {dec[True].shape[1]} "
+          f"anchors, fast against exact bf16: scores drift {drift[0]:.3e}, "
+          f"boxes {drift[1]:.3e} px (JAX's bounds 2e-2 and 1.0 px: "
+          f"{'met' if jax_met else 'not met'}), {differ:.3e} of the decoded "
+          f"values differ; "
+          f"{drift[2]:.3e} px over the 200 of highest objectness, median "
+          f"{drift[3]:.3e}; the fp32 model against the exact bf16 one: "
+          f"scores {own[0]:.3e}, boxes {own[1]:.3e} px, top 200 "
+          f"{own[2]:.3e}, median {own[3]:.3e}; detections kept "
+          f"{kept[True]} fast / {kept[False]} exact")
+    for name, d in floor.items():
+        print(f"  one bf16 step in one element of {name}'s output (exact "
+              f"forward): scores drift {d[0]:.3e}, boxes {d[1]:.3e} px, "
+              f"top 200 {d[2]:.3e}, median {d[3]:.3e}")
+    blocks.set_fast_norms(True)
+    try:
+        fps, counts, _, _ = _mot_path("main path, fast norms", exp, model,
+                                      N_FRAMES)
+    finally:
+        blocks.set_fast_norms(False)
+    print(f"  frames/s exact {fps_exact:.2f}, fast norms {fps:.2f}")
+    # the forward's device time each way, without the host's gaps (what a
+    # caller replaying the forward as a CUDA graph would see)
+    fwd_ms = {}
+    for fast in (False, True):
+        blocks.set_fast_norms(fast)
+        try:
+            with torch.no_grad():
+                fwd_ms[fast] = graph_time_ms(lambda: driver.forward(img),
+                                             iters=3, reps=3)
+        finally:
+            blocks.set_fast_norms(False)
+    print(f"  forward_whole device ms (CUDA-graph replay): exact "
+          f"{fwd_ms[False]:.3f}, fast norms {fwd_ms[True]:.3f}")
+    _norm_forms(report)
+    _fast_norms_jax_case(report)
+    report["fast_norms"] = dict(
+        fps=fps, fps_exact=fps_exact, forward_device_ms=fwd_ms, drift=drift,
+        fp32_drift=own, jax_bounds_met=jax_met, site_steps=worst,
+        site_share=share, decoded_differ=differ, one_step_drift=floor)
+    assert counts["dwconv7x7"] == 27 * N_FRAMES, counts
+    assert bool(torch.isfinite(dec[True]).all())
+    assert worst <= 1.0 and n_bf > 0, (worst, worst_at, n_bf)
 
 
 # ------------------------------------------------- fused block in the model
@@ -1890,7 +2413,7 @@ def _reset_kernel_counts():
     from unicorn_torch.ops import deform_attn as da
     from unicorn_torch.ops import dwconv7x7 as dw
 
-    dw.launches = da.launches = ck.launches = 0
+    dw.launches = dw.wgrad_launches = da.launches = ck.launches = 0
     da.launches_by_mode.update(factored=0, direct=0)
 
 
@@ -2948,6 +3471,11 @@ TRAIN_LAUNCHES = dict(dwconv7x7=36, msda_factored=1, msda_direct=0,
                       correlation_bwd_i=2, correlation_bwd_j=2)
 
 
+# a uni step's launches with set_dw_custom_vjp: each dw7x7 call's backward
+# launches the dw7x7 kernel again (dx) and the filter-gradient kernel once
+DW_VJP_LAUNCHES = dict(TRAIN_LAUNCHES, dwconv7x7=72, dw7x7_wgrad=72)
+
+
 def _train_model(report):
     """The unicorn_track_tiny Unicorn as trained (bf16 trunk and head, fp32
     interaction and embeddings) on the card, seeded random weights."""
@@ -3419,6 +3947,102 @@ def phase_train(report):
     assert not stuck, f"parameters that did not move: {stuck[:8]}"
     assert not ema_stuck, f"EMA tensors that did not move: {ema_stuck[:8]}"
     assert np.isfinite(rep).all() and rep[-1] < rep[0], rep
+    _train_dw_vjp(report, exp, state, step, batches)
+
+
+def _train_dw_vjp(report, exp, state, step, batches):
+    """The uni step with set_dw_custom_vjp on: every dw7x7 call's backward
+    is dx on the dw7x7 kernel (flipped taps) and dW, db on dw7x7_wgrad.
+    (a) One forward + backward on a mixed batch each way, TF32 off, leaf by
+    leaf: the loss equal within 1e-6 of its value (the forward is the same),
+    the worst leaf within 0.1 and the median within 0.02 of its largest
+    magnitude (phase train_model's bounds: the bf16 trunk turns one-ulp
+    differences of dx into about 1e-2 of a leaf); the shapes of the
+    filter-gradient calls those of UNI_STEP_DW_SHAPES. (b) TRAIN_WARMUP +
+    TRAIN_STEPS steps of the step each way, alternating the SOT and MOT
+    batches, ms/step, PyTorch's TF32 settings; the launches a step: 72
+    dw7x7 (36 forwards, 36 dx), 72 dw7x7_wgrad (36 calls), the rest as
+    TRAIN_LAUNCHES."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from unicorn_torch.core.train_step import uni_loss_fn
+    from unicorn_torch.ops import dwconv7x7 as dw
+
+    model = state.model
+    images, targets, task_ids = _train_batch(exp, 2, seed=13, n_obj=8)
+    task_ids[0] = 1
+    kw = _uni_loss_kwargs(exp)
+    shapes = collections.Counter()
+    wgrad = dw.dw7x7_wgrad_cuda
+
+    def spy(x, dy):
+        shapes[(tuple(x.shape), x.dtype)] += 1
+        return wgrad(x, dy)
+
+    def run():
+        return _loss_and_grads(model, lambda: uni_loss_fn(
+            model, images, targets, task_ids, **kw))
+
+    with tf32_off():
+        loss_d, _, grads_d = run()
+        dw.set_dw_custom_vjp(True)
+        dw.dw7x7_wgrad_cuda = spy
+        try:
+            loss_f, _, grads_f = run()
+        finally:
+            dw.set_dw_custom_vjp(False)
+            dw.dw7x7_wgrad_cuda = wgrad
+    shares, worst, median = _grad_shares(grads_d, grads_f)
+    d_loss = abs(loss_f - loss_d) / abs(loss_d)
+    dt = torch.bfloat16 if exp.bf16 else torch.float32
+    want = collections.Counter({(s, dt): n for s, n in UNI_STEP_DW_SHAPES})
+    print(f"train dw_custom_vjp: restructured against default backward, "
+          f"TF32 off: total_loss {loss_f:.6f} vs {loss_d:.6f} (rel "
+          f"{d_loss:.2e}, bound 1e-6); {len(shares)} gradient leaves, worst "
+          f"{shares[worst]:.3e} of its max at {worst} (bound 0.1), median "
+          f"{median:.3e} (bound 0.02); filter-gradient calls "
+          f"{sum(shapes.values())} at {len(shapes)} shapes, as "
+          f"UNI_STEP_DW_SHAPES: {shapes == want}")
+
+    timed = {}
+    for on in (False, True, True, False):     # in turns
+        dw.set_dw_custom_vjp(on)
+        try:
+            for t in range(TRAIN_WARMUP):
+                step(state, *batches[t % 2])
+            torch.cuda.synchronize()
+            _reset_all_counts()
+            t0 = time.perf_counter()
+            losses = [step(state, *batches[t % 2])[1]["total_loss"]
+                      for t in range(TRAIN_STEPS)]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+            counts = dict(_all_counts(), dw7x7_wgrad=dw.wgrad_launches)
+        finally:
+            dw.set_dw_custom_vjp(False)
+        timed.setdefault(on, []).append(ms)
+        assert all(bool(torch.isfinite(v)) for v in losses)
+        per = {k: n // TRAIN_STEPS for k, n in counts.items()}
+        want_per = DW_VJP_LAUNCHES if on else dict(TRAIN_LAUNCHES,
+                                                   dw7x7_wgrad=0)
+        if on:
+            if "dw_vjp_counts" not in report:
+                report["dw_vjp_counts"] = counts
+                _record_launches(report, "train_dw_vjp", counts)
+        print(f"  {TRAIN_STEPS} steps {'restructured' if on else 'default'}"
+              f" backward: {ms:.1f} ms/step; launches a step {per}")
+        assert per == want_per and all(
+            n % TRAIN_STEPS == 0 for n in counts.values()), counts
+    print(f"  ms/step default {' / '.join(f'{t:.1f}' for t in timed[False])}"
+          f", restructured {' / '.join(f'{t:.1f}' for t in timed[True])}")
+    report["train_dw_vjp_ms"] = {"default": timed[False],
+                                 "restructured": timed[True]}
+    assert shapes == want, shapes
+    assert np.isfinite(loss_f) and d_loss <= 1e-6
+    assert shares[worst] <= 0.1 and median <= 0.02
 
 
 # ------------------------------------------------- mask-stage training

@@ -9,6 +9,19 @@ torch model, so its state_dict keys line up (see unicorn_torch/convert.py).
 Norms use PyTorch's mean-centred variance; flax computes E[x^2] - E[x]^2.
 The two agree to fp32 rounding on these activations, which the parity
 tests cover at atol 1e-4.
+
+`set_fast_norms(True)` is the JAX package's serving switch of the same name
+(unicorn_tpu/models/blocks.py:37): at the sites JAX honours it (every
+GroupNorm32, the row split's too, the ConvNeXt block's LayerNorm and the
+ConvNeXt trunk's stem, downsample and output LayerNorms; not the
+interaction's or Swin's), a norm of a bf16 model takes its bf16 input
+without an fp32 copy and writes bf16 rounded once from fp32 arithmetic, as
+flax's `_normalize` does: fp32 sums of x and x^2 (flax's E[x^2] - E[x]^2),
+the affine kept fp32. PyTorch's CUDA norms take no fp32 affine beside a
+bf16 input, and its bf16 group_norm rounds its statistics to bf16, so
+`group_norm_fast` and `layer_norm_fast` take the sums themselves and apply
+the normalisation and the affine in addcmul's fp32 arithmetic, written
+into a bf16 output. It changes nothing in an fp32 model.
 """
 from __future__ import annotations
 
@@ -24,6 +37,22 @@ from ..parallel import rows
 
 CL = torch.channels_last
 _TRUNC = 0.87962566103423978  # std of a standard normal truncated to [-2, 2]
+
+_FAST_NORMS = False
+
+
+def set_fast_norms(on: bool) -> None:
+    """Serving switch (module docstring): the norms that honour it take a
+    bf16 input without an fp32 copy. Off by default; read at every call."""
+    global _FAST_NORMS
+    _FAST_NORMS = bool(on)
+
+
+def fast_norm(x: torch.Tensor, dtype) -> bool:
+    """True when a norm of compute dtype `dtype` that honours the switch
+    takes its fast form on x: the switch is on, dtype is not fp32, and x
+    is already in dtype (an fp32 input has no copy to save)."""
+    return _FAST_NORMS and dtype != torch.float32 and x.dtype == dtype
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -109,9 +138,58 @@ class Conv2d(nn.Conv2d):
                         padding, groups=self.groups)
 
 
+def _sums(x: torch.Tensor, dims) -> torch.Tensor:
+    """(2, ...) fp32 sums of x and x^2 over dims, read from x in its own
+    dtype (no fp32 copy of x)."""
+    return torch.stack([x.sum(dims, dtype=torch.float32),
+                        torch.linalg.vector_norm(x, 2, dims,
+                                                 dtype=torch.float32)
+                        .square()])
+
+
+def group_norm_fast(x: torch.Tensor, groups: int, weight: torch.Tensor,
+                    bias: torch.Tensor, eps: float,
+                    plan: rows.RowPlan | None = None) -> torch.Tensor:
+    """GroupNorm of an NCHW (channels_last) map, written in x's dtype from
+    fp32 statistics with an fp32 affine: each channel's sums of x and x^2
+    in fp32 (summed over the plan's ranks under the row split, whose
+    frame has every rank's rows), the groups' mean and variance as flax
+    takes them (E[x^2] - E[x]^2, at least 0), then y = x * a + b with the
+    per-channel fp32 a = rstd * weight and b = bias - mean * a (the form of
+    PyTorch's own group_norm) in one addcmul."""
+    N, C, H, W = x.shape
+    per = C // groups
+    s = _sums(x, (2, 3))
+    if plan:
+        rows.all_reduce(s, plan)
+        H = plan.bounds(H)[-1][1]
+    m = s.view(2, N, groups, per).sum(-1, keepdim=True) / (per * H * W)
+    var = torch.addcmul(m[1], m[0], m[0], value=-1).clamp_min_(0.0)
+    a = var.add_(eps).rsqrt_() * weight.view(groups, per)
+    b = torch.addcmul(bias.view(groups, per), m[0], a, value=-1)
+    return torch.addcmul(b.view(N, C, 1, 1), x, a.view(N, C, 1, 1),
+                         out=torch.empty_like(x))
+
+
+def layer_norm_fast(x: torch.Tensor, weight: torch.Tensor,
+                    bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm over x's last axis, written in x's dtype from fp32
+    statistics with an fp32 affine: the sums of x and x^2 in fp32, flax's
+    E[x^2] - E[x]^2 (at least 0), then t = (x - mean) * rstd in fp32 and
+    y = t * weight + bias, each one addcmul. PyTorch has no op that applies
+    a per-row scale and a per-channel one at once, so t is the one fp32
+    map of x's size; the exact form makes two (x's copy and its output)."""
+    m = _sums(x, -1)[..., None] / x.shape[-1]
+    var = torch.addcmul(m[1], m[0], m[0], value=-1).clamp_min_(0.0)
+    rstd = var.add_(eps).rsqrt_()
+    t = torch.addcmul(-m[0] * rstd, x, rstd)
+    return torch.addcmul(bias, t, weight, out=torch.empty_like(x))
+
+
 class GroupNorm32(nn.Module):
     """GroupNorm (16 groups, or C if fewer) normalising in fp32, eps 1e-3
-    (the reference's BN->GN conversion keeps bn.eps)."""
+    (the reference's BN->GN conversion keeps bn.eps); under set_fast_norms
+    `group_norm_fast` on the bf16 input."""
 
     def __init__(self, channels: int, num_groups: int = 16,
                  dtype=torch.float32):
@@ -123,7 +201,11 @@ class GroupNorm32(nn.Module):
 
     def forward(self, x):
         plan = rows.active()
-        if plan:   # statistics over the whole frame, across the ranks
+        fast = fast_norm(x, self.dtype)
+        if fast:   # under the row split, over the whole frame too
+            y = group_norm_fast(x, self.groups, self.weight, self.bias, 1e-3,
+                                plan)
+        elif plan:   # statistics over the whole frame, across the ranks
             y = rows.group_norm(x, self.groups, self.weight, self.bias, 1e-3,
                                 plan)
         else:
@@ -135,16 +217,18 @@ class GroupNorm32(nn.Module):
 class LayerNorm32(nn.Module):
     """LayerNorm over channels in fp32, output in `dtype`. channels_first:
     the input is NCHW (normalised over C through its NHWC view); otherwise
-    the last axis is C."""
+    the last axis is C. fast_norms: the site honours set_fast_norms (the
+    ConvNeXt sites; the interaction's and Swin's stay fp32, as in JAX)."""
 
     def __init__(self, channels: int, eps: float = 1e-6, dtype=torch.float32,
-                 channels_first: bool = False):
+                 channels_first: bool = False, fast_norms: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.eps = eps
         self.dtype = dtype
         self.channels_first = channels_first
+        self.fast_norms = fast_norms
 
     def forward(self, x):
         if self.channels_first:
@@ -152,6 +236,8 @@ class LayerNorm32(nn.Module):
         return self._ln(x)
 
     def _ln(self, x):
+        if self.fast_norms and fast_norm(x, self.dtype):
+            return layer_norm_fast(x, self.weight, self.bias, self.eps)
         y = F.layer_norm(x.float(), (x.shape[-1],), self.weight, self.bias,
                          self.eps)
         return y.to(self.dtype)
@@ -326,7 +412,7 @@ class ConvNeXtBlock(nn.Module):
         self.approximate = "none" if exact_gelu else "tanh"
         self.lsiv = layer_scale_init_value
         self.dwconv = DepthwiseConv7x7(dim, dtype=dtype)
-        self.norm = LayerNorm32(dim, 1e-6, dtype=dtype)
+        self.norm = LayerNorm32(dim, 1e-6, dtype=dtype, fast_norms=True)
         self.pwconv1 = nn.Linear(dim, 4 * dim)
         self.pwconv2 = nn.Linear(4 * dim, dim)
         self.gamma = (nn.Parameter(torch.full((dim,), float(self.lsiv)))

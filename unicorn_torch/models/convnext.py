@@ -66,10 +66,12 @@ class ConvNeXt(nn.Module):
         self.remat = remat
         self.downsample_layers = nn.ModuleList([nn.Sequential(
             PatchEmbed4x4(dims[0], in_chans, dtype=dtype),
-            LayerNorm32(dims[0], dtype=dtype, channels_first=True))])
+            LayerNorm32(dims[0], dtype=dtype, channels_first=True,
+                        fast_norms=True))])
         for i in range(1, 4):
             self.downsample_layers.append(nn.Sequential(
-                LayerNorm32(dims[i - 1], dtype=dtype, channels_first=True),
+                LayerNorm32(dims[i - 1], dtype=dtype, channels_first=True,
+                            fast_norms=True),
                 Conv2d(dims[i - 1], dims[i], 2, 2, dtype=dtype, same=True)))
         self.stages = nn.ModuleList([
             nn.Sequential(*[
@@ -79,7 +81,7 @@ class ConvNeXt(nn.Module):
             for i in range(4)])
         for i in range(1, 4):
             self.add_module(f"norm{i}", LayerNorm32(
-                dims[i], dtype=dtype, channels_first=True))
+                dims[i], dtype=dtype, channels_first=True, fast_norms=True))
         for stage in self.stages:
             for block in stage:
                 block.remat = remat

@@ -16,12 +16,21 @@ shape, dtype and (contiguous) strides, so that an exported model keeps one
 `unicorn_torch.dwconv7x7` node per call and launches the kernel when the
 loaded program runs on the card.
 
-Gradients: the op's registered backward is autograd of `dwconv7x7_plain`
-on the saved (x, kdw, bias), as the JAX package's custom VJP (`_dw_bwd`,
-pallas_convnext.py:305) recomputes through `dwconv7x7_ref`: that package has
-no backward kernel for this op, so the port has none either. The backward
-running the plain version is the op's definition, not a fall-back from a
-kernel.
+Gradients: by default the op's registered backward is autograd of
+`dwconv7x7_plain` on the saved (x, kdw, bias), as the JAX package's custom
+VJP (`_dw_bwd`, pallas_convnext.py:305) recomputes through `dwconv7x7_ref`:
+that package has no backward kernel for this op. The backward running the
+plain version is the op's definition, not a fall-back from a kernel.
+
+`set_dw_custom_vjp(True)` (the JAX package's training switch of the same
+name, pallas_convnext.py:334) gives the op the restructured backward of
+`dw_grads_restructured` (:341) instead, for every call whose forward runs
+while it is on (the flag is read in the forward and kept with the saved
+tensors): dx is this module's forward kernel on dy with the taps flipped
+in both spatial axes and a zero bias (the plain version on the CPU), and
+the filter and bias gradients are one call of the hand-written kernel
+csrc/dw7x7_wgrad.cu (`dw7x7_wgrad`; its plain version on the CPU), fp32.
+The forward, the op and its fake implementation are the same either way.
 """
 from __future__ import annotations
 
@@ -47,8 +56,21 @@ PATH_SHAPES = (
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}  # channels per 16-byte vector
 
-# kernel launches since the count was last set to 0 (read by chip_smoke.py)
+# kernel launches since the count was last set to 0 (read by chip_smoke.py);
+# wgrad_launches counts the filter-gradient kernel's launches, two a call
+# (the partial sums and their fixed-order sum)
 launches = 0
+wgrad_launches = 0
+
+_DW_CUSTOM_VJP = False
+
+
+def set_dw_custom_vjp(on: bool) -> None:
+    """Training switch: the restructured backward (module docstring) for
+    every dw7x7 call whose forward runs while it is on. Off by default;
+    the forward is the same either way."""
+    global _DW_CUSTOM_VJP
+    _DW_CUSTOM_VJP = bool(on)
 
 
 def _taps_bias(kdw: torch.Tensor, bias: torch.Tensor, C: int, dtype):
@@ -171,6 +193,110 @@ def launch(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor,
     launches += 1
 
 
+def dw7x7_wgrad_plain(x: torch.Tensor, dy: torch.Tensor):
+    """The filter and bias gradients of the dw7x7 SAME conv, as
+    `dw_grads_restructured` takes them: x, dy (B,H,W,C) -> (dW (7,7,C),
+    db (C,)), both fp32: 49 shifted multiply-reduce taps over the zero-padded
+    fp32 input, and the sum of dy."""
+    B, H, W, C = x.shape
+    xp = F.pad(x.float(), (0, 0, 3, 3, 3, 3))
+    dyf = dy.float()
+    dk = torch.stack([torch.stack([
+        (xp[:, u:u + H, v:v + W] * dyf).sum((0, 1, 2)) for v in range(7)])
+        for u in range(7)])
+    return dk, dyf.sum((0, 1, 2))
+
+
+@functools.cache
+def _wgrad_lib() -> ctypes.CDLL:
+    """The built filter-gradient library with its C signatures declared."""
+    from ..csrc import build
+
+    lib = build.load("dw7x7_wgrad")
+    lib.dw7x7_wgrad_nhwc.argtypes = ([ctypes.c_void_p] * 4
+                                     + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.dw7x7_wgrad_nhwc.restype = ctypes.c_int
+    lib.dw7x7_wgrad_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.dw7x7_wgrad_plan.restype = ctypes.c_int
+    lib.dw7x7_wgrad_error_string.argtypes = [ctypes.c_int]
+    lib.dw7x7_wgrad_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def wgrad_plan(B: int, H: int, W: int, C: int) -> dict:
+    """The filter-gradient kernel's split of a (B,H,W,C) map on the current
+    card: column tiles, channel slabs, bands an image, rows a band and
+    workspace slots (partial sums of 50 x C floats each)."""
+    out = (ctypes.c_int * 5)()
+    if _wgrad_lib().dw7x7_wgrad_plan(B, H, W, C, out):
+        raise ValueError(f"dw7x7_wgrad plan: bad shape {(B, H, W, C)}")
+    return dict(zip(("tiles", "slabs", "bands", "rows", "slots"), list(out)))
+
+
+def dw7x7_wgrad_cuda(x: torch.Tensor, dy: torch.Tensor):
+    """The filter-gradient kernel on PyTorch's current stream: x, dy
+    contiguous (B,H,W,C) CUDA tensors of one dtype (float32 or bfloat16),
+    any C -> (dW (7,7,C), db (C,)) fp32. Two calls give the same bits."""
+    global wgrad_launches
+    if not (x.is_cuda and dy.is_cuda):
+        raise ValueError("dw7x7_wgrad_cuda: x and dy must be CUDA tensors")
+    if x.dtype not in _DTYPE_CODE or dy.dtype != x.dtype:
+        raise TypeError(f"dw7x7_wgrad_cuda: dtypes {x.dtype} / {dy.dtype} "
+                        "not supported (one of float32, bfloat16)")
+    if (x.dim() != 4 or x.shape != dy.shape or not x.is_contiguous()
+            or not dy.is_contiguous()):
+        raise ValueError("dw7x7_wgrad_cuda: x and dy must be contiguous "
+                         "(B,H,W,C) tensors of one shape, got "
+                         f"{tuple(x.shape)} {x.stride()} / "
+                         f"{tuple(dy.shape)} {dy.stride()}")
+    B, H, W, C = x.shape
+    slots = wgrad_plan(B, H, W, C)["slots"]
+    ws = torch.empty(slots * 50 * C, dtype=torch.float32, device=x.device)
+    out = torch.empty(50, C, dtype=torch.float32, device=x.device)
+    lib = _wgrad_lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.dw7x7_wgrad_nhwc(x.data_ptr(), dy.data_ptr(), ws.data_ptr(),
+                               out.data_ptr(), B, H, W, C,
+                               _DTYPE_CODE[x.dtype], stream)
+    if err:
+        raise RuntimeError(f"dw7x7_wgrad launch failed: {err} "
+                           f"({lib.dw7x7_wgrad_error_string(err).decode()})"
+                           f" at {(B, H, W, C)} {x.dtype}")
+    wgrad_launches += 2
+    return out[:49].view(7, 7, C), out[49]
+
+
+def dw7x7_wgrad(x: torch.Tensor, dy: torch.Tensor):
+    """(dW (7,7,C), db (C,)) fp32 of the dw7x7 SAME conv: the kernel on
+    CUDA tensors, the plain version on CPU tensors."""
+    if x.device.type == "cuda":
+        return dw7x7_wgrad_cuda(x, dy)
+    if x.device.type == "cpu":
+        return dw7x7_wgrad_plain(x, dy)
+    raise ValueError(f"dw7x7_wgrad: no kernel for device {x.device}")
+
+
+def restructured_backward(inputs, needs, grad_out):
+    """(dx, dkdw, dbias) of dwconv7x7(x, kdw, bias) for the inputs whose
+    `needs` flag is set (None for the others), as `dw_grads_restructured`
+    forms them: dx the forward kernel on grad_out with flipped taps and a
+    zero bias, in grad_out's dtype; dkdw (kdw's shape) and dbias fp32 from
+    one `dw7x7_wgrad` call. grad_out is used as it comes when it is
+    contiguous in (B,H,W,C) order, and copied once otherwise."""
+    x, kdw, bias = inputs
+    g = grad_out.contiguous()
+    dx = dk = db = None
+    if needs[0]:
+        taps = (kdw[:, :, 0, :] if kdw.dim() == 4 else kdw).flip(0, 1)
+        conv = dwconv7x7_cuda if g.is_cuda else dwconv7x7_plain
+        dx = conv(g, taps, torch.zeros_like(bias))
+    if needs[1] or needs[2]:
+        dw, dbias = dw7x7_wgrad(x.contiguous(), g)
+        dk = dw.reshape(kdw.shape) if needs[1] else None
+        db = dbias if needs[2] else None
+    return dx, dk, db
+
+
 def plain_backward(plain, inputs, needs, grad_out):
     """Gradients of plain(*inputs) against grad_out for the inputs whose
     `needs` flag is set (None for the others): the backward of an autograd
@@ -207,11 +333,16 @@ def _(x, kdw, bias):
 
 def _setup_context(ctx, inputs, output):
     ctx.save_for_backward(*inputs)
+    ctx.restructured = _DW_CUSTOM_VJP
 
 
 def _backward(ctx, grad_out):
-    """Autograd of dwconv7x7_plain on the saved (x, kdw, bias), reaching x
+    """The restructured backward if the flag was on at the forward, else
+    autograd of dwconv7x7_plain on the saved (x, kdw, bias), reaching x
     and the fp32 taps and bias."""
+    if ctx.restructured:
+        return restructured_backward(ctx.saved_tensors,
+                                     ctx.needs_input_grad, grad_out)
     return plain_backward(dwconv7x7_plain, ctx.saved_tensors,
                           ctx.needs_input_grad, grad_out)
 
@@ -224,7 +355,8 @@ def dwconv7x7(x: torch.Tensor, kdw: torch.Tensor,
     """Depthwise 7x7 SAME conv + bias. x (B,H,W,C); kdw (7,7,C) or
     (7,7,1,C); bias (C,). The op `unicorn_torch::dwconv7x7`: the kernel on
     a CUDA tensor, the plain version on a CPU tensor; differentiable, the
-    backward autograd of the plain version; traceable by torch.export."""
+    backward autograd of the plain version (the restructured one under
+    `set_dw_custom_vjp`); traceable by torch.export."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"dwconv7x7: no kernel for device {x.device}")
     return _dwconv7x7_op(x, kdw, bias)

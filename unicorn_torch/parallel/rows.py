@@ -223,11 +223,12 @@ def group_norm(x, groups: int, weight, bias, eps: float,
                plan: RowPlan | None = None) -> torch.Tensor:
     """F.group_norm over the whole frame of x (N, C, rows, W) in fp32: the
     per-(sample, group) sums and counts summed over the ranks, then the
-    sums of squared deviations from the frame's mean (biased variance)."""
+    sums of squared deviations from the frame's mean (biased variance).
+    x is read in its own dtype; `x - mean` is fp32."""
     plan = plan or active()
     N, C, h, W = x.shape
-    xg = x.float().reshape(N, groups, C // groups, h, W)
-    s1 = xg.sum((2, 3, 4))
+    xg = x.reshape(N, groups, C // groups, h, W)
+    s1 = xg.sum((2, 3, 4), dtype=torch.float32)
     stats = torch.stack([s1, torch.full_like(s1, (C // groups) * h * W)])
     all_reduce(stats, plan)
     mean = (stats[0] / stats[1])[..., None, None, None]
