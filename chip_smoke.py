@@ -7032,7 +7032,7 @@ def _harness_utils(report, out):
     drv.track(frames[1])
     log_dir = os.path.join(out, "trace")
     with profiling.trace(log_dir):
-        with profiling.annotate("harness_sot_frame"):
+        with profiling.span("harness_sot_frame"):
             drv.track(frames[2])
             torch.cuda.synchronize()
     files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))

@@ -26,15 +26,14 @@ pack_frames_np) against the JAX package's and their plain forms, on the CPU.
   than 1e-5.
 - The native packer equals the numpy form and JAX's pack_frames_np bit for
   bit, at 800x1280x3 among others; a packer that cannot be built raises
-  (no fallback to numpy). StepTimer, trace (a Chrome trace with the
-  annotated region) and device_memory_stats ({} without a card) on the
-  CPU.
+  (no fallback to numpy). trace (a Chrome trace holding a span's range,
+  and the span's record, the records emptied on entry) and
+  device_memory_stats ({} without a card) on the CPU.
 """
 import glob
 import json
 import os
 import random
-import time
 
 import jax
 import jax.numpy as jnp
@@ -147,24 +146,23 @@ def test_get_model_info_against_xla_cost_analysis():
 
 
 def test_step_timer_and_trace(tmp_path):
-    t = tprof.StepTimer()
-    time.sleep(0.01)
-    t.mark_data()
-    x = torch.ones(3)
-    time.sleep(0.02)
-    t.mark_step({"a": [x, (x,)], "b": None})
-    t.mark_step()
-    s = t.summary()
-    assert t.n == 2 and s["data_ms"] >= 4.0 and s["step_ms"] >= 9.0
     log_dir = tmp_path / "trace"
+    with tprof.trace(str(tmp_path / "first")):
+        with tprof.span("stale"):
+            pass
     with tprof.trace(str(log_dir)):
-        with tprof.annotate("harness_frame"):
+        with tprof.span("harness_frame"):
             (torch.randn(16, 16) @ torch.randn(16, 16)).sum()
+    assert [r.name for r in tprof.spans()] == ["harness_frame"]
+    r = tprof.spans()[0]
+    assert r.parent == -1 and r.root == 0 and r.end_ns > r.start_ns
     files = glob.glob(str(log_dir / "*.pt.trace.json"))
     assert len(files) == 1
     with open(files[0]) as f:
         events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "harness_frame" for e in events)
+    frame = [e for e in events if e.get("name") == "harness_frame"]
+    assert len(frame) == 1 and frame[0].get("cat") == "cpu_op"
+    tprof.clear_spans()
     if not torch.cuda.is_available():
         assert tprof.device_memory_stats() == {}
 

@@ -38,6 +38,7 @@ import torch
 import torch.nn as nn
 
 from ..device import resolve_device
+from ..utils.profiling import span, spanned
 from .schedule import ema_decay_schedule
 
 
@@ -136,6 +137,7 @@ class TrainState:
         return float(self.tx.lr_fn(self.opt_count * self.tx.grad_accum))
 
     @torch.no_grad()
+    @spanned("train.optimizer")
     def apply_gradients(self) -> "TrainState":
         """One micro-step from the trainable parameters' `.grad` (one
         without a gradient counts as a zero gradient, so that it still
@@ -172,9 +174,10 @@ class TrainState:
             p.grad = None
         self.step += 1
         if self._ema is not None:
-            d = ema_decay_schedule(self.ema_base_decay, self.step)
-            torch._foreach_mul_(self._ema, d)
-            torch._foreach_add_(self._ema, self._all, alpha=1.0 - d)
+            with span("train.ema"):
+                d = ema_decay_schedule(self.ema_base_decay, self.step)
+                torch._foreach_mul_(self._ema, d)
+                torch._foreach_add_(self._ema, self._all, alpha=1.0 - d)
         return self
 
     def state_dict(self) -> dict:

@@ -35,6 +35,7 @@ from ..models.heads import decode_boxes, flatten_raw_outputs, level_grids
 from ..ops.correlation import resize_bilinear_torch
 from ..parallel import mesh as mesh_mod
 from ..parallel.mesh import global_sum
+from ..utils.profiling import span, spanned
 
 
 def det_loss_fn(model, images, labels, img_size, use_l1=False,
@@ -236,16 +237,25 @@ def _make_step(loss, mesh=None):
     mesh.py). Given a `mesh` (a ProcessMesh over the whole group, the
     batch sharded over all its axes, as on parallel/multihost.py's pod
     mesh), the gradients are summed over its axes one after the other,
-    the innermost first."""
+    the innermost first.
 
+    Spans (utils/profiling.py): train.step, and under it train.forward,
+    train.backward, train.allreduce (data-parallel only) and
+    apply_gradients' train.optimizer."""
+
+    @spanned("train.step")
     def step(state, *batch):
         state.model.zero_grad(set_to_none=True)
         with mesh_mod.data_parallel_step() as dp:
-            total, loss_dict = loss(state, *batch)
-            total.backward()
+            with span("train.forward"):
+                total, loss_dict = loss(state, *batch)
+            with span("train.backward"):
+                total.backward()
         if dp:
-            mesh_mod.all_reduce_grads((p for p in state.model.parameters()
-                                       if p.requires_grad), mesh)
+            with span("train.allreduce"):
+                mesh_mod.all_reduce_grads(
+                    (p for p in state.model.parameters() if p.requires_grad),
+                    mesh)
         state.apply_gradients()
         loss_dict = {k: v.detach() for k, v in loss_dict.items()}
         return state, mesh_mod.sum_over_ranks(loss_dict) if dp else loss_dict

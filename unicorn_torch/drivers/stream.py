@@ -35,6 +35,7 @@ from ..models.heads import decode_for_inference
 from ..models.unicorn import Unicorn
 from ..ops.nms import postprocess_device
 from ..tracker.device_tracker import init_state, tracker_step
+from ..utils.profiling import spanned
 
 
 def pack_frames_plain(frames: np.ndarray) -> np.ndarray:
@@ -124,6 +125,7 @@ class StreamingMOTPipeline:
     def reset(self):
         self.ts = init_state(self.max_tracks, self.n_streams, self.device)
 
+    @spanned("mot.detect")
     def detect(self, frames):
         """frames (F, H, W, C) NHWC -> (dets5 (F, D, 5), valid (F, D))."""
         raw, _ = self.model.forward_whole(frames.permute(0, 3, 1, 2))
@@ -133,6 +135,7 @@ class StreamingMOTPipeline:
                            (dets[..., 4] * dets[..., 5])[..., None]], -1)
         return dets5.float(), valid
 
+    @spanned("mot.associate")
     def associate(self, dets5, valid):
         """One tracker step for every stream: dets5 (S, D, 5), valid (S, D)
         -> packed (S, T, 7) [x1, y1, x2, y2, score, id, valid]."""
@@ -261,6 +264,7 @@ class MultiStreamMOT:
         return self.pipe.ts
 
     @torch.inference_mode()
+    @spanned("mot.tick")
     def tick(self, frames_device):
         """frames (S_local, H, W, C) on the device, this process's streams
         (all S without a mesh) -> (S_local, T, 7) packed outputs on the

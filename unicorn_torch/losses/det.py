@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.mesh import global_sum, share
+from ..utils.profiling import spanned
 
 BIG_COST = 1e9
 CENTER_RADIUS = 2.5
@@ -89,6 +90,7 @@ def get_geometry_constraints(gt_boxes, gt_valid, x_shifts, y_shifts, strides,
 
 
 @torch.no_grad()
+@spanned("loss.simota")
 def simota_assign(gt_boxes, gt_classes, gt_valid, pred_boxes, obj_logits,
                   cls_logits, x_shifts, y_shifts, strides,
                   img_size) -> OTAResult:

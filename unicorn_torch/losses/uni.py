@@ -21,6 +21,7 @@ from ..models.heads import decode_boxes, flatten_raw_outputs, level_grids
 from ..ops.correlation import box_label_map, dice_loss, resize_bilinear_torch
 from ..ops.correlation_kernel import correlation_propagate_train
 from ..parallel.mesh import global_sum
+from ..utils.profiling import spanned
 from .det import yolox_losses
 from .vos import match_instance_pairs
 
@@ -89,6 +90,7 @@ def build_mhs_labels(targets):
     return out * has[:, None, None, None], has
 
 
+@spanned("loss.uni")
 def unicorn_uni_loss(head_raw, embed_0, embed_1, pred_prior_s8, gt_lbs1_s8,
                      targets, task_ids, img_size, strides=(8, 16, 32),
                      num_classes: int = 8, mot_weight: float = 1.0,
@@ -148,6 +150,7 @@ def unicorn_uni_loss(head_raw, embed_0, embed_1, pred_prior_s8, gt_lbs1_s8,
     return out
 
 
+@spanned("loss.sot_priors")
 def build_sot_priors(embed_0, embed_1, targets, img_size, task_ids=None):
     """Propagate the frame-0 target box label map to frame 1 through the
     fp32 embedding correlation. embed_0, embed_1 (B, C, H8, W8). Returns

@@ -20,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.dynamic_conv import NUM_GEN_PARAMS
+from ..utils.profiling import spanned
 from .blocks import BaseConv, ConvNeXtBlock, Conv2d, DWConv
 
 PRIOR_BIAS = -math.log((1 - 1e-2) / 1e-2)
@@ -220,6 +221,7 @@ def decode_boxes(reg_raw, hw_list, strides):
     return torch.stack([cx, cy, w, h], -1)
 
 
+@spanned("postprocess.decode")
 def decode_for_inference(outputs, strides, mode: str = "mot",
                          unshared_obj=True, unshared_reg=True):
     """Full inference decode -> (B, A, 5+C): [cxcywh, obj_sig, cls_sig]."""

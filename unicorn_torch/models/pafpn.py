@@ -9,6 +9,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
+from ..utils.profiling import span
 from .blocks import BaseConv, CSPLayer, DWConv, upsample_nearest_2x
 from .convnext import (CONVNEXT_OUT_CHANNELS, convnext_base, convnext_large,
                        convnext_tiny)
@@ -74,9 +75,17 @@ class YOLOPAFPN(nn.Module):
         self.C3_n4 = CSPLayer(2 * c1, c2, **csp)
 
     def forward(self, x, return_base_feat: bool = False, run_fpn: bool = True):
-        x2, x1, x0 = self.backbone(x)  # strides 8, 16, 32
+        with span("model.trunk"):
+            x2, x1, x0 = self.backbone(x)  # strides 8, 16, 32
         if not run_fpn:
             return (x2, x1, x0)
+        with span("model.neck"):
+            outputs = self._neck(x2, x1, x0)
+        if return_base_feat:
+            return outputs, (x2, x1, x0)
+        return outputs
+
+    def _neck(self, x2, x1, x0):
         if self.adjust:
             x2_adj, x1_adj, x0_adj = (self.adjust2(x2), self.adjust1(x1),
                                       self.adjust0(x0))
@@ -92,7 +101,4 @@ class YOLOPAFPN(nn.Module):
         pan_out1 = self.C3_n3(p_out1)
         p_out0 = torch.cat([self.bu_conv1(pan_out1), fpn_out0], 1)
         pan_out0 = self.C3_n4(p_out0)
-        outputs = (pan_out2, pan_out1, pan_out0)
-        if return_base_feat:
-            return outputs, (x2, x1, x0)
-        return outputs
+        return (pan_out2, pan_out1, pan_out0)

@@ -21,6 +21,7 @@ from typing import Any, Sequence
 import torch
 import torch.nn as nn
 
+from ..utils.profiling import spanned
 from .blocks import init_weights
 from .heads import UnicornHead
 from .interaction import (Bottleneck1x1, ConvInteraction,
@@ -103,6 +104,7 @@ class Unicorn(nn.Module):
             return fpn_outs, base_outs[1]
         return self.backbone(imgs, run_fpn=False)[1]
 
+    @spanned("model.interaction")
     def forward_interaction(self, feat0, feat1):
         """Interact two frames' raw stride-16 features (B, C_backbone, H16,
         W16) -> the refined (B, hidden_dim, H16, W16) pair."""
@@ -118,6 +120,7 @@ class Unicorn(nn.Module):
         W8)."""
         return self.upsample_layer(feat)
 
+    @spanned("model.head")
     def forward_head(self, fpn_outs, priors):
         """The unified head. priors: per-level (B, 1, H, W) label maps."""
         return self.head(fpn_outs, priors)
@@ -127,13 +130,14 @@ class Unicorn(nn.Module):
         None, None) of the CondInst mask branch (use_mask)."""
         return self.head.mask_branch(fpn_outs)
 
+    @spanned("model.forward")
     def forward_whole(self, imgs):
         """MOT detection forward: backbone + head with zero priors.
         Returns (raw_head_outputs, feat_s16)."""
         fpn_outs, feat_s16 = self.forward_backbone(imgs)
         priors = tuple(f.new_zeros((f.shape[0], 1) + tuple(f.shape[2:]))
                        for f in fpn_outs)
-        return self.head(fpn_outs, priors), feat_s16
+        return self.forward_head(fpn_outs, priors), feat_s16
 
     def forward(self, imgs):
         return self.forward_whole(imgs)

@@ -48,6 +48,7 @@ import torch.nn.functional as F
 
 from torch.autograd.function import once_differentiable
 
+from ..utils.profiling import span
 from .correlation import correlation_propagate
 
 K_MAX = 16      # label maps per kernel call (1 for SOT; objects for VOS)
@@ -190,7 +191,8 @@ def correlation_propagate_cuda(e0, e1, v, bf16_dots: bool = True):
         if out.numel():
             launch(a, b, vg, out, bf16_dots)
         return out
-    return propagate_grouped(one, e0, e1, v)
+    with span("op.correlation"):
+        return propagate_grouped(one, e0, e1, v)
 
 
 def correlation_propagate_auto(e0, e1, v):
@@ -403,8 +405,9 @@ class _CorrelationTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, e0, e1, v, ops, group):
-        e0p, e1p = _pad_channels(e0, 4), _pad_channels(e1, 4)
-        out, lse = fwd_lse_grouped(ops[0], e0p, e1p, v, group)
+        with span("op.correlation_train"):
+            e0p, e1p = _pad_channels(e0, 4), _pad_channels(e1, 4)
+            out, lse = fwd_lse_grouped(ops[0], e0p, e1p, v, group)
         ctx.save_for_backward(e0p, e1p, v, out, lse)
         ctx.ops, ctx.group, ctx.channels = ops, group, e0.shape[2]
         return out
@@ -413,8 +416,9 @@ class _CorrelationTrain(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dout):
         e0, e1, v, out, lse = ctx.saved_tensors
-        de0, de1, dv = bwd_grouped(*ctx.ops[1:], e0, e1, v, out, lse,
-                                   dout.float().contiguous(), ctx.group)
+        with span("op.correlation_train.bwd"):
+            de0, de1, dv = bwd_grouped(*ctx.ops[1:], e0, e1, v, out, lse,
+                                       dout.float().contiguous(), ctx.group)
         C = ctx.channels
         return de0[..., :C], de1[..., :C], dv, None, None
 

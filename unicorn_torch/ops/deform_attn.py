@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from ..utils.profiling import span
 from .dwconv7x7 import plain_backward
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -230,15 +231,18 @@ class _MSDeformAttn(torch.autograd.Function):
     def forward(ctx, value, locs, attw, mode):
         ctx.save_for_backward(value, locs, attw)
         ctx.mode = mode
-        return ms_deform_attn_cuda(value, locs, attw, mode)
+        with span("op.ms_deform_attn"):
+            return ms_deform_attn_cuda(value, locs, attw, mode)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
         mode = ctx.mode
-        return plain_backward(
-            lambda v, l, a: ms_deform_attn_plain(v, l, a, mode),
-            ctx.saved_tensors, ctx.needs_input_grad[:3], grad_out) + (None,)
+        with span("op.ms_deform_attn.bwd"):
+            return plain_backward(
+                lambda v, l, a: ms_deform_attn_plain(v, l, a, mode),
+                ctx.saved_tensors, ctx.needs_input_grad[:3],
+                grad_out) + (None,)
 
 
 def ms_deform_attn(value, locs, attw, method: str = "auto"):

@@ -11,6 +11,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import spanned
+
 
 def letterbox_device(frame_u8: torch.Tensor, dst_hw):
     """frame_u8 (H, W, 3) uint8 -> ((dst_h, dst_w, 3) float32 with
@@ -23,6 +25,7 @@ def letterbox_device(frame_u8: torch.Tensor, dst_hw):
             min(dst_hw[0] / sh, dst_hw[1] / sw))
 
 
+@spanned("preprocess.letterbox")
 def letterbox_batch_device(frames_u8: torch.Tensor, dst_hw) -> torch.Tensor:
     """(B, H, W, 3) uint8 -> (B, dst_h, dst_w, 3) float32: every frame
     letterboxed at the one scale their shared size gives (the batch form

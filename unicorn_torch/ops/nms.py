@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import spanned
+
 
 def _iou_matrix_xyxy(boxes):
     """(..., N, 4) xyxy -> (..., N, N) IoU."""
@@ -68,6 +70,7 @@ def nms_fixed(boxes, scores, iou_threshold: float, n_cand: int,
     return keep, order
 
 
+@spanned("postprocess.nms")
 def postprocess_device(prediction, num_classes: int, conf_thre: float = 0.7,
                        nms_thre: float = 0.45, class_agnostic: bool = False,
                        n_cand: int = 512, max_out: int = 128,

@@ -24,15 +24,19 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import span, spanned
+
 # slot states
 S_EMPTY, S_TRACKED, S_LOST = 0, 1, 2
 
 # auction rounds run between two reads of the loop's condition
 AUCTION_BLOCK = 8
 
-# host-side counts since they were last set to 0 (read by chip_smoke.py):
-# auction_assign calls, rounds run, and reads of the loop condition (each
-# a host synchronisation on the card)
+# host-side counts since they were last set to 0: auction_assign calls,
+# rounds run, and reads of the loop condition (each a host synchronisation
+# on the card, and a `tracker.sync` span). Read by the benchmark's serving
+# kind (benchmark/kinds/mot_streams.py) for `tracker.syncs_per_tick`, and by
+# chip_smoke.py
 auction_stats = {"calls": 0, "rounds": 0, "syncs": 0}
 
 
@@ -150,6 +154,7 @@ def _owner_to_match(owner: torch.Tensor, n_rows: int) -> torch.Tensor:
     return m[:, :n_rows]
 
 
+@spanned("tracker.auction")
 def auction_assign(cost, row_valid, col_valid, thresh, eps: float = 2e-4,
                    max_iter: int = 20000):
     """Optimal assignment with a cost limit by a parallel (Jacobi) auction,
@@ -190,27 +195,32 @@ def auction_assign(cost, row_valid, col_valid, thresh, eps: float = 2e-4,
     it = 0
     while it < max_iter:
         auction_stats["syncs"] += 1
-        if not bool(wants(price, owner).any()):
-            break
+        bidders = wants(price, owner).any()
+        with span("tracker.sync"):
+            if not bool(bidders):
+                break
         n_rounds = min(AUCTION_BLOCK, max_iter - it)
         for _ in range(n_rounds):
-            value = benefit - price[:, None, :]                  # (S, R, C)
-            match = _owner_to_match(owner, R)
-            j1 = value.argmax(2)                                 # best column
-            v1 = value.gather(2, j1[..., None])[..., 0]
-            # the second-best alternative includes "stay unassigned" (value
-            # 0), the cost limit's dummy column
-            v2 = value.scatter(2, j1[..., None], NEG).amax(2).clamp_min(0.0)
-            bidder = (match < 0) & row_valid & (v1 > 0)
-            bid = price.gather(1, j1) + (v1 - v2) + eps
-            bidmat = torch.where(
-                bidder[..., None] & (j1[..., None] == cols), bid[..., None],
-                neg)
-            col_best = bidmat.amax(1)                            # (S, C)
-            winner = bidmat.argmax(1).int()
-            has_bid = col_best > NEG / 2
-            price = torch.where(has_bid, col_best, price)
-            owner = torch.where(has_bid, winner, owner)   # the loser is evicted
+            with span("tracker.round"):
+                value = benefit - price[:, None, :]              # (S, R, C)
+                match = _owner_to_match(owner, R)
+                j1 = value.argmax(2)                             # best column
+                v1 = value.gather(2, j1[..., None])[..., 0]
+                # the second-best alternative includes "stay unassigned"
+                # (value 0), the cost limit's dummy column
+                v2 = value.scatter(2, j1[..., None], NEG).amax(2).clamp_min(
+                    0.0)
+                bidder = (match < 0) & row_valid & (v1 > 0)
+                bid = price.gather(1, j1) + (v1 - v2) + eps
+                bidmat = torch.where(
+                    bidder[..., None] & (j1[..., None] == cols),
+                    bid[..., None], neg)
+                col_best = bidmat.amax(1)                        # (S, C)
+                winner = bidmat.argmax(1).int()
+                has_bid = col_best > NEG / 2
+                price = torch.where(has_bid, col_best, price)
+                # the loser is evicted
+                owner = torch.where(has_bid, winner, owner)
         it += n_rounds
         auction_stats["rounds"] += n_rounds
     return _owner_to_match(owner, R)
@@ -293,6 +303,7 @@ def _place(dst, src, idx, mask):
 
 
 @torch.no_grad()
+@spanned("tracker.step")
 def tracker_step(ts: TrackState, dets, det_valid, track_thresh: float = 0.6,
                  match_thresh: float = 0.9, max_time_lost: int = 30,
                  det_thresh_offset: float = 0.1):
@@ -310,15 +321,16 @@ def tracker_step(ts: TrackState, dets, det_valid, track_thresh: float = 0.6,
     # Kalman predict for the tracked + lost pool (lost slots zero their
     # h-velocity first); unconfirmed slots keep their initiate-time mean and
     # covariance, as the reference predicts strack_pool only
-    lost = ts.state == S_LOST
-    mean_in = ts.mean.clone()
-    mean_in[..., 7] = torch.where(lost, torch.zeros_like(ts.score),
-                                  ts.mean[..., 7])
-    mean_p, cov_p = kalman_predict(mean_in, ts.cov)
-    live = ts.state != S_EMPTY
-    pool_pred = live & (ts.activated | lost)
-    mean_p = torch.where(pool_pred[..., None], mean_p, ts.mean)
-    cov_p = torch.where(pool_pred[..., None, None], cov_p, ts.cov)
+    with span("tracker.predict"):
+        lost = ts.state == S_LOST
+        mean_in = ts.mean.clone()
+        mean_in[..., 7] = torch.where(lost, torch.zeros_like(ts.score),
+                                      ts.mean[..., 7])
+        mean_p, cov_p = kalman_predict(mean_in, ts.cov)
+        live = ts.state != S_EMPTY
+        pool_pred = live & (ts.activated | lost)
+        mean_p = torch.where(pool_pred[..., None], mean_p, ts.mean)
+        cov_p = torch.where(pool_pred[..., None, None], cov_p, ts.cov)
 
     scores = dets[..., 4]
     high = det_valid & (scores > track_thresh)
@@ -327,92 +339,98 @@ def tracker_step(ts: TrackState, dets, det_valid, track_thresh: float = 0.6,
 
     # association 1: activated-or-lost slots vs high dets, fused score
     assign = _assign_fn()
-    pool1 = live & (ts.activated | lost)
-    iou1 = iou_xyxy(track_boxes, dets[..., :4], inclusive=True)
-    cost1 = 1.0 - iou1 * scores[:, None, :]
-    match1 = assign(cost1, pool1, high, match_thresh)
+    with span("tracker.match"):
+        pool1 = live & (ts.activated | lost)
+        iou1 = iou_xyxy(track_boxes, dets[..., :4], inclusive=True)
+        cost1 = 1.0 - iou1 * scores[:, None, :]
+        match1 = assign(cost1, pool1, high, match_thresh)
 
     # association 2: remaining tracked slots vs low dets, plain IoU
-    tracked = ts.state == S_TRACKED
-    pool2 = live & tracked & ts.activated & (match1 < 0)
-    match2 = assign(1.0 - iou1, pool2, low, 0.5)
+    with span("tracker.match"):
+        tracked = ts.state == S_TRACKED
+        pool2 = live & tracked & ts.activated & (match1 < 0)
+        match2 = assign(1.0 - iou1, pool2, low, 0.5)
 
     # association 3: unconfirmed (tracked, not activated) vs leftover high
-    det_used = _mark(torch.zeros_like(det_valid), match1)
-    pool3 = live & tracked & ~ts.activated
-    match3 = assign(cost1, pool3, high & ~det_used, 0.7)
+    with span("tracker.match"):
+        det_used = _mark(torch.zeros_like(det_valid), match1)
+        pool3 = live & tracked & ~ts.activated
+        match3 = assign(cost1, pool3, high & ~det_used, 0.7)
 
-    match = torch.where(match1 >= 0, match1,
-                        torch.where(match2 >= 0, match2, match3))
-    matched = match >= 0
-    det_idx = torch.where(matched, match, 0).long()
-    picked = dets.gather(1, det_idx[..., None].expand(S, T, 5))
-    meas = xyxy_to_xyah(picked[..., :4])
+    with span("tracker.update"):
+        match = torch.where(match1 >= 0, match1,
+                            torch.where(match2 >= 0, match2, match3))
+        matched = match >= 0
+        det_idx = torch.where(matched, match, 0).long()
+        picked = dets.gather(1, det_idx[..., None].expand(S, T, 5))
+        meas = xyxy_to_xyah(picked[..., :4])
 
-    mean_u, cov_u = kalman_update(mean_p, cov_p, meas)
-    new_mean = torch.where(matched[..., None], mean_u, mean_p)
-    new_cov = torch.where(matched[..., None, None], cov_u, cov_p)
-    new_score = torch.where(matched, picked[..., 4], ts.score)
-    new_activated = ts.activated | matched
-    fid = frame_id[:, None].expand(S, T)
-    new_last = torch.where(matched, fid, ts.last_frame)
-    state = torch.where(matched, S_TRACKED, ts.state)
+        mean_u, cov_u = kalman_update(mean_p, cov_p, meas)
+        new_mean = torch.where(matched[..., None], mean_u, mean_p)
+        new_cov = torch.where(matched[..., None, None], cov_u, cov_p)
+        new_score = torch.where(matched, picked[..., 4], ts.score)
+        new_activated = ts.activated | matched
+        fid = frame_id[:, None].expand(S, T)
+        new_last = torch.where(matched, fid, ts.last_frame)
+        state = torch.where(matched, S_TRACKED, ts.state)
 
-    # unmatched tracked -> lost; unmatched unconfirmed -> removed
-    state = torch.where(live & tracked & ts.activated & ~matched, S_LOST,
-                        state)
-    state = torch.where(live & tracked & ~ts.activated & ~matched, S_EMPTY,
-                        state)
-    # expire lost
-    expired = (state == S_LOST) & (fid - new_last > max_time_lost)
-    state = torch.where(expired, S_EMPTY, state)
+        # unmatched tracked -> lost; unmatched unconfirmed -> removed
+        state = torch.where(live & tracked & ts.activated & ~matched, S_LOST,
+                            state)
+        state = torch.where(live & tracked & ~ts.activated & ~matched, S_EMPTY,
+                            state)
+        # expire lost
+        expired = (state == S_LOST) & (fid - new_last > max_time_lost)
+        state = torch.where(expired, S_EMPTY, state)
 
-    # new tracks from unmatched strong dets; >= as the host tracker: a det
-    # at exactly the threshold must start a track on both paths
-    det_used = _mark(_mark(det_used, match2), match3)
-    new_det = det_valid & (scores >= det_thresh) & high & ~det_used
-    # det j -> the j-th free slot, by cumulative counts
-    free = state == S_EMPTY
-    free_rank = torch.cumsum(free.int(), 1) - 1
-    det_rank = (torch.cumsum(new_det.int(), 1) - 1).int()
-    slot_for_rank = torch.full((S, T + D), -1, dtype=torch.int32, device=dev)
-    slot_idx = torch.where(free, free_rank, T + D - 1)
-    slot_for_rank.scatter_(1, slot_idx, torch.arange(
-        T, dtype=torch.int32, device=dev).expand(S, T))
-    target_slot = slot_for_rank.gather(1, det_rank.clamp(0, T + D - 1).long())
-    place = new_det & (target_slot >= 0)
+        # new tracks from unmatched strong dets; >= as the host tracker: a det
+        # at exactly the threshold must start a track on both paths
+        det_used = _mark(_mark(det_used, match2), match3)
+        new_det = det_valid & (scores >= det_thresh) & high & ~det_used
+        # det j -> the j-th free slot, by cumulative counts
+        free = state == S_EMPTY
+        free_rank = torch.cumsum(free.int(), 1) - 1
+        det_rank = (torch.cumsum(new_det.int(), 1) - 1).int()
+        slot_for_rank = torch.full((S, T + D), -1, dtype=torch.int32,
+                                   device=dev)
+        slot_idx = torch.where(free, free_rank, T + D - 1)
+        slot_for_rank.scatter_(1, slot_idx, torch.arange(
+            T, dtype=torch.int32, device=dev).expand(S, T))
+        target_slot = slot_for_rank.gather(
+            1, det_rank.clamp(0, T + D - 1).long())
+        place = new_det & (target_slot >= 0)
 
-    init_mean, init_cov = kalman_initiate(xyxy_to_xyah(dets[..., :4]))
-    fid_d = frame_id[:, None].expand(S, D)
-    new_mean = _place(new_mean, init_mean, target_slot, place)
-    new_cov = _place(new_cov, init_cov, target_slot, place)
-    new_score = _place(new_score, scores, target_slot, place)
-    state = _place(state, torch.full_like(fid_d, S_TRACKED), target_slot,
-                   place)
-    new_activated = _place(new_activated, fid_d == 1, target_slot, place)
-    new_last = _place(new_last, fid_d, target_slot, place)
-    start = _place(ts.start_frame, fid_d, target_slot, place)
-    n_new = place.sum(1).int()
-    track_id = _place(ts.track_id, ts.next_id[:, None] + det_rank,
-                      target_slot, place)
+        init_mean, init_cov = kalman_initiate(xyxy_to_xyah(dets[..., :4]))
+        fid_d = frame_id[:, None].expand(S, D)
+        new_mean = _place(new_mean, init_mean, target_slot, place)
+        new_cov = _place(new_cov, init_cov, target_slot, place)
+        new_score = _place(new_score, scores, target_slot, place)
+        state = _place(state, torch.full_like(fid_d, S_TRACKED), target_slot,
+                       place)
+        new_activated = _place(new_activated, fid_d == 1, target_slot, place)
+        new_last = _place(new_last, fid_d, target_slot, place)
+        start = _place(ts.start_frame, fid_d, target_slot, place)
+        n_new = place.sum(1).int()
+        track_id = _place(ts.track_id, ts.next_id[:, None] + det_rank,
+                          target_slot, place)
 
-    # de-duplicate tracked vs lost (byte_tracker remove_duplicate): of an
-    # overlapping (tracked, lost) pair (IoU > 0.85) the younger is dropped
-    boxes_now = mean_to_tlbr(new_mean)
-    is_t = state == S_TRACKED
-    is_l = state == S_LOST
-    dup = ((iou_xyxy(boxes_now, boxes_now, inclusive=True) > 0.85)
-           & is_t[:, :, None] & is_l[:, None, :])
-    age = new_last - start
-    drop_t = (dup & (age[:, :, None] <= age[:, None, :])).any(2)
-    drop_l = (dup & (age[:, :, None] > age[:, None, :])).any(1)
-    state = torch.where(drop_t | drop_l, S_EMPTY, state)
+        # de-duplicate tracked vs lost (byte_tracker remove_duplicate): of an
+        # overlapping (tracked, lost) pair (IoU > 0.85) the younger is dropped
+        boxes_now = mean_to_tlbr(new_mean)
+        is_t = state == S_TRACKED
+        is_l = state == S_LOST
+        dup = ((iou_xyxy(boxes_now, boxes_now, inclusive=True) > 0.85)
+               & is_t[:, :, None] & is_l[:, None, :])
+        age = new_last - start
+        drop_t = (dup & (age[:, :, None] <= age[:, None, :])).any(2)
+        drop_l = (dup & (age[:, :, None] > age[:, None, :])).any(1)
+        state = torch.where(drop_t | drop_l, S_EMPTY, state)
 
-    new_ts = TrackState(
-        mean=new_mean, cov=new_cov, state=state, activated=new_activated,
-        track_id=track_id, score=new_score, last_frame=new_last,
-        start_frame=start, next_id=ts.next_id + n_new, frame_id=frame_id)
-    out_valid = (state == S_TRACKED) & new_activated
-    out = torch.cat([mean_to_tlbr(new_mean), new_score[..., None],
-                     track_id[..., None].to(new_mean.dtype)], -1)
-    return new_ts, out, out_valid
+        new_ts = TrackState(
+            mean=new_mean, cov=new_cov, state=state, activated=new_activated,
+            track_id=track_id, score=new_score, last_frame=new_last,
+            start_frame=start, next_id=ts.next_id + n_new, frame_id=frame_id)
+        out_valid = (state == S_TRACKED) & new_activated
+        out = torch.cat([mean_to_tlbr(new_mean), new_score[..., None],
+                         track_id[..., None].to(new_mean.dtype)], -1)
+        return new_ts, out, out_valid
