@@ -6,7 +6,8 @@
 Phases (each must pass, else the exit code is 1):
   build      the card's name and power limit; every CUDA source of csrc/
              built with nvcc (dwconv7x7, dw7x7_wgrad, convnext_block, msda,
-             correlation, correlation_train) and the host libraries (the image codec
+             correlation, correlation_train, tracker_step) and the host
+             libraries (the image codec
              imcodec.cpp, the evaluators' RLE codec rle.cpp and COCOeval
              matcher cocoeval.cpp, the ingest's space-to-depth packer
              pack.cpp) with the system C++ compiler, in parallel
@@ -48,12 +49,17 @@ Phases (each must pass, else the exit code is 1):
              model's own blocks; 27 launches of the op; ms per frame for the
              27 blocks each way
   stream     the streaming MOT path: tracker_step on the card against the
-             same function on the CPU over a synthetic detection clip, then
+             same function on the CPU over a synthetic detection clip; the
+             tracker step's kernel against the plain form on the card at the
+             serving cell's shapes (S 8, T 256, D 256) over 60 crowded
+             frames, with its launches, auction rounds and device us a
+             frame beside the plain form's host ms; then
              StreamingMOTPipeline (3 warm-up frames, 16 push_frame, the same
              frames as two run_chunk of 8, one run_chunk with n_streams=2);
              frames/s beside MOTDriver.update on the same frames, tracker ms,
-             auction rounds and host synchronisations per frame, 27 dw7x7
-             launches per frame
+             tracker launches, auction rounds and host synchronisations per
+             frame, the tracker's outputs at the pipeline's shapes (S 1,
+             T 128, D 64) against the plain form, 27 dw7x7 launches per frame
   sot_model  the served model (bf16 trunk, bf16 interaction): one SOT frame
              through the three kernels vs through their plain versions
   sot        the SOT path: SOTDriver.initialize, 16 track calls, one
@@ -412,7 +418,8 @@ def phase_card_and_build(report):
     t0 = time.perf_counter()
     host = ("imcodec", "rle", "cocoeval", "pack")
     logs = build.build(["dwconv7x7", "dw7x7_wgrad", "convnext_block", "msda",
-                        "correlation", "correlation_train", *host])
+                        "correlation", "correlation_train", "tracker_step",
+                        *host])
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for n, log in logs.items():
         for line in log.strip().splitlines():
@@ -2205,6 +2212,135 @@ def _detection_clip(n_frames=40, n_obj=20, seed=0):
         yield np.asarray(rows, np.float32).reshape(-1, 5)
 
 
+# the TrackState fields the tracker kernel holds bit-equal to the plain form
+TRACKER_INT_FIELDS = ("state", "activated", "track_id", "last_frame",
+                      "start_frame", "next_id", "frame_id")
+
+
+def crowded_clip(S=8, D=256, n_frames=60, n_obj=31, seed=0, extent=480.0):
+    """(n_frames, S, D, 5) detections and (n_frames, S, D) valid flags of
+    crowded streams: n_obj objects a stream moving inside `extent` px (so
+    that boxes overlap in clusters), each seen with probability 0.9 at a high
+    score; a third of them leave for frames 12-47 (their tracks are lost and
+    expire); every visible object also gives low-score jittered copies and
+    there is low-score clutter, up to D - 6 valid rows. Coordinates are whole
+    pixels and scores two decimals, and some detections are repeated
+    exactly, so that costs tie."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    dets = np.zeros((n_frames, S, D, 5), np.float32)
+    valid = np.zeros((n_frames, S, D), bool)
+    for s in range(S):
+        centre = rng.uniform(0.25 * extent, 0.75 * extent, (4, 2))
+        pos = centre[rng.randint(0, 4, n_obj)] + rng.uniform(-60, 60,
+                                                            (n_obj, 2))
+        vel = rng.uniform(-3, 3, (n_obj, 2))
+        size = rng.uniform(24, 110, (n_obj, 2))
+        away = rng.rand(n_obj) < 1 / 3
+        for f in range(n_frames):
+            rows = []
+            for i in range(n_obj):
+                if away[i] and 12 <= f < 48 or rng.rand() < 0.1:
+                    continue
+                tl = np.round(pos[i] + f * vel[i] + rng.randn(2) * 2.0)
+                box = np.r_[tl, tl + np.round(size[i])]
+                rows.append(np.r_[box, np.round(rng.uniform(0.62, 0.97), 2)])
+                if rng.rand() < 0.15:                  # an exact duplicate
+                    rows.append(rows[-1].copy())
+            for i in range(n_obj):                     # low-score copies
+                for _ in range(rng.randint(3, 6)):
+                    tl = np.round(pos[i] + f * vel[i] + rng.randn(2) * 6.0)
+                    box = np.r_[tl, tl + np.round(size[i]
+                                                  * rng.uniform(0.8, 1.2))]
+                    rows.append(np.r_[box,
+                                      np.round(rng.uniform(0.12, 0.58), 2)])
+            while len(rows) < D - 6:                   # clutter
+                tl = np.round(rng.uniform(0, extent, 2))
+                rows.append(np.r_[tl, tl + np.round(rng.uniform(15, 80, 2)),
+                                  np.round(rng.uniform(0.02, 0.58), 2)])
+            rows = np.asarray(rows[:D - 6], np.float32)
+            order = rng.permutation(len(rows))
+            dets[f, s, :len(rows)] = rows[order]
+            valid[f, s, :len(rows)] = True
+    return torch.from_numpy(dets), torch.from_numpy(valid)
+
+
+def stream_tracker_kernel(n_frames=60):
+    """The tracker step's kernel (csrc/tracker_step.cu) at the serving
+    cell's shapes, S 8, T 256, D 256, over `crowded_clip`: held against the
+    plain form on the card frame by frame (valid masks, ids and every
+    integer field of the state equal, scores equal, boxes within 1e-4 px),
+    then timed: its launches, auction rounds and device us a frame (CUDA
+    events around the frames' launches, enqueued behind a device sleep so
+    that the host's dispatch stays out), its host us a call, and the plain
+    form's host ms a frame (synchronised)."""
+    import torch
+
+    from unicorn_torch.tracker import device_tracker as dtk
+
+    S, T, D = 8, 256, 256
+    dets, valid = (x.to(DEVICE) for x in crowded_clip(S, D, n_frames))
+    ts_k = dtk.init_state(T, S, device=DEVICE)
+    ts_p = dtk.init_state(T, S, device=DEVICE)
+    d_box = 0.0
+    for f in range(n_frames):
+        ts_k, out_k, ov_k = dtk.tracker_step(ts_k, dets[f], valid[f])
+        ts_p, out_p, ov_p = dtk.tracker_step_plain(ts_p, dets[f], valid[f])
+        assert torch.equal(ov_k, ov_p), f"valid mask, frame {f}"
+        assert torch.equal(out_k[..., 4:], out_p[..., 4:]), f"ids, {f}"
+        for name in TRACKER_INT_FIELDS:
+            assert torch.equal(getattr(ts_k, name), getattr(ts_p, name)), (
+                f"{name}, frame {f}")
+        d_box = max(d_box, (out_k[..., :4] - out_p[..., :4]).abs().max()
+                    .item())
+    assert d_box <= 1e-4, d_box
+
+    def plain():
+        ts = dtk.init_state(T, S, device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in range(n_frames):
+            ts = dtk.tracker_step_plain(ts, dets[f], valid[f])[0]
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n_frames * 1e3
+
+    def kernel():
+        ts = dtk.init_state(T, S, device=DEVICE)
+        torch.cuda.synchronize()
+        l0 = dtk.auction_stats["fused_steps"]
+        r0 = dtk.fused_rounds(DEVICE).clone()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(200_000_000)        # ~0.1 s: the host runs ahead
+        e0.record()
+        t0 = time.perf_counter()
+        for f in range(n_frames):
+            ts = dtk.tracker_step(ts, dets[f], valid[f])[0]
+        host_us = (time.perf_counter() - t0) / n_frames * 1e6
+        e1.record()
+        torch.cuda.synchronize()
+        rounds = (dtk.fused_rounds(DEVICE) - r0).tolist()
+        return (e0.elapsed_time(e1) / n_frames * 1e3, host_us,
+                (dtk.auction_stats["fused_steps"] - l0) / n_frames,
+                [r / n_frames for r in rounds])
+
+    plain_ms = [plain()]
+    k1 = kernel()
+    k2 = kernel()
+    plain_ms.append(plain())
+    print(f"tracker_step kernel, S {S} T {T} D {D}, {n_frames} crowded "
+          f"frames: equal to the plain form on the card (valid, ids, scores,"
+          f" slot states; boxes within {d_box:.3g} px); {k1[2]:.1f} launches"
+          f" a frame; auction rounds a frame (summed over streams) "
+          f"{', '.join(f'{r:.1f}' for r in k1[3])}; device "
+          f"{k1[0]:.1f} / {k2[0]:.1f} us a frame, host {k1[1]:.1f} / "
+          f"{k2[1]:.1f} us a call; the plain form {plain_ms[0]:.2f} / "
+          f"{plain_ms[1]:.2f} ms a frame (host clock, synchronised)")
+    return {"device_us": [k1[0], k2[0]], "host_us": [k1[1], k2[1]],
+            "launches": k1[2], "rounds": k1[3], "plain_ms": plain_ms}
+
+
 def phase_stream(report):
     """The streaming MOT path, tracker on the card. (i) tracker_step over a
     synthetic detection clip on the card against the same function on the
@@ -2249,6 +2385,7 @@ def phase_stream(report):
           f"slot states; boxes within 1e-2 px); {emitted} rows emitted, "
           f"{int(ts_c.next_id[0]) - 1} ids given")
     assert emitted > 300
+    report["tracker_step"] = stream_tracker_kernel()
 
     # (ii) the pipeline
     exp, model = _model(report, raised_priors=True)
@@ -2295,9 +2432,11 @@ def phase_stream(report):
     dw.launches = 0
     for k in dtk.auction_stats:
         dtk.auction_stats[k] = 0
+    r0 = dtk.fused_rounds(DEVICE).clone()
     fps_stream, pushed = run_stream()
     launches = dw.launches
     stats = dict(dtk.auction_stats)
+    rounds = (dtk.fused_rounds(DEVICE) - r0).sum().item()
     frame_id = int(pipe.ts.frame_id[0])
     fps_stream2, pushed2 = run_stream()
     fps_mot.append(run_mot())
@@ -2306,10 +2445,10 @@ def phase_stream(report):
           f"{fps_stream2:.2f} frames/s; MOTDriver.update on the same frames "
           f"before and after: {fps_mot[0]:.2f} and {fps_mot[1]:.2f} frames/s; "
           f"dw7x7 launches {launches} (27 x {n} = {27 * n})")
-    print(f"  per frame: {stats['calls'] / n:.1f} auctions, "
-          f"{stats['rounds'] / n:.1f} auction rounds run (blocks of "
-          f"{dtk.AUCTION_BLOCK}), {stats['syncs'] / n:.2f} host "
-          f"synchronisations (the loop's condition, read before each block)")
+    print(f"  per frame: {stats['fused_steps'] / n:.1f} tracker kernel "
+          f"launches, {rounds / n:.1f} auction rounds on the card, "
+          f"{stats['syncs'] / n:.2f} host synchronisations in the tracker")
+    assert stats["fused_steps"] == n and stats["syncs"] == 0, stats
 
     # the same frames as two chunks, then tracker-only timing on their dets
     stack = torch.cat([ingest(f) for f in frames])
@@ -2326,16 +2465,28 @@ def phase_stream(report):
         pipe.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for d5, v in dets:
-            pipe.associate(d5, v)
+        fused = [pipe.associate(d5, v) for d5, v in dets]
         torch.cuda.synchronize()
         tracker_ms = (time.perf_counter() - t0) / n * 1e3
+        # the kernel against the plain form at the pipeline's own shapes
+        ts_p = dtk.init_state(pipe.ts.state.shape[-1], device=DEVICE)
+        for t, (d5, v) in enumerate(dets):
+            ts_p, out_p, ov_p = dtk.tracker_step_plain(ts_p, d5, v,
+                                                       **pipe._track_kw)
+            assert torch.equal(fused[t][..., 6] > 0.5, ov_p), f"valid, {t}"
+            assert torch.equal(fused[t][..., 4:6], out_p[..., 4:6]), (
+                f"scores and ids, frame {t}")
+            assert (fused[t][..., :4] - out_p[..., :4]).abs().max() <= 1e-4
+        for name in TRACKER_INT_FIELDS:
+            assert torch.equal(getattr(pipe.ts, name), getattr(ts_p, name))
     n_dets = float(np.mean([int(v.sum()) for _, v in dets]))
     print(f"  run_chunk 2 x {STREAM_CHUNK} vs the pushed frames: valid equal "
           f"{same_valid}, ids equal {same_ids}, max |d| {d_rows:.2e}; "
           f"{n_valid / n:.1f} tracks emitted per frame, {n_dets:.1f} "
           f"detections per frame; tracker_step {tracker_ms:.2f} ms per frame "
-          f"(host clock, detections ready)")
+          f"(host clock, detections ready), equal to the plain form on the "
+          f"card at S 1, T {pipe.ts.state.shape[-1]}, D {dets[0][1].shape[-1]}"
+          f" (valid, scores, ids, slot states; boxes within 1e-4 px)")
 
     # two streams through one detector batch
     pipe2 = StreamingMOTPipeline(model, device=DEVICE, n_streams=2, **kw)

@@ -120,6 +120,29 @@ def test_assignments_equal_jax_on_crowded_costs_with_ties(routine, thresh):
     assert n_matched >= 12
 
 
+@pytest.mark.parametrize("thresh", [0.9, 0.5])
+def test_auction_stops_per_round_and_per_stream(monkeypatch, thresh):
+    """The two properties the kernel's loop (csrc/tracker_step.cu) relies
+    on, on crowded costs with ties: reading the loop's condition after every
+    round (AUCTION_BLOCK 1) gives the matchings of blocks of 8, and each
+    stream stopped alone, after its own last bidding round, gives its
+    matching in the batched loop, though the streams need different numbers
+    of rounds."""
+    problems = [_crowded_cost(seed, R=40, C=32) for seed in range(7, 12)]
+    batch = [torch.from_numpy(np.stack(a)) for a in zip(*problems)]
+    blocks = dt.auction_assign(*batch, thresh)
+    monkeypatch.setattr(dt, "AUCTION_BLOCK", 1)
+    assert torch.equal(dt.auction_assign(*batch, thresh), blocks)
+    rounds = []
+    for s, problem in enumerate(problems):
+        r0 = dt.auction_stats["rounds"]
+        alone = dt.auction_assign(*(torch.from_numpy(a)[None]
+                                    for a in problem), thresh)
+        rounds.append(dt.auction_stats["rounds"] - r0)
+        assert torch.equal(alone[0], blocks[s]), s
+    assert len(set(rounds)) > 1, rounds
+
+
 @pytest.mark.parametrize("seed", [3, 4, 5, 6])
 def test_auction_matches_hungarian_with_cost_limit(seed):
     """Against scipy: the auction's total of (thresh - cost) is within

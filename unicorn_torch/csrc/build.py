@@ -24,6 +24,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # no -march=native: a library built on one host may be loaded on another
 CXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+# flags a library adds to NVCC_FLAGS: the tracker step's costs and boxes must
+# round as PyTorch's separate operations do, so nvcc contracts no
+# multiply-add there
+EXTRA_NVCC_FLAGS = {"tracker_step": ("--fmad=false",)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _logs: dict[str, str] = {}
@@ -59,6 +63,10 @@ def _source(name: str) -> tuple[str, bool]:
     return os.path.join(CSRC, f"{name}.cu"), False
 
 
+def _flags(name: str, host: bool) -> tuple:
+    return CXX_FLAGS if host else NVCC_FLAGS + EXTRA_NVCC_FLAGS.get(name, ())
+
+
 def _target(name: str, compiler: str) -> str:
     # the source and, for a .cu, every header of csrc/ (it may include any)
     src, host = _source(name)
@@ -68,7 +76,7 @@ def _target(name: str, compiler: str) -> str:
     for fname in files:
         with open(fname, "rb") as f:
             data += f.read()
-    flags = CXX_FLAGS if host else NVCC_FLAGS
+    flags = _flags(name, host)
     h = hashlib.sha256(data + " ".join(flags).encode() + compiler.encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
@@ -84,7 +92,7 @@ def _compile(name: str) -> str:
     # written under a name of this process and thread, then renamed: builds
     # racing in parallel workers each replace the file with a whole one
     tmp = f"{out}.tmp{os.getpid()}.{threading.get_ident()}"
-    cmd = [compiler, *(CXX_FLAGS if host else NVCC_FLAGS), "-o", tmp, src]
+    cmd = [compiler, *_flags(name, host), "-o", tmp, src]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     _logs[name] = proc.stdout + proc.stderr
     if proc.returncode != 0:

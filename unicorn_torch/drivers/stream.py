@@ -8,17 +8,19 @@ tensors and fetch nothing; the caller fetches track outputs when it wants
 them, a chunk at a time.
 
 The JAX version compiles a chunk into one program (`lax.scan`); here a chunk
-is a Python loop over eager calls. Inside a frame the only host
-synchronisations are the reads of the auction's loop condition (one before
-each block of rounds, tracker/device_tracker.py `auction_assign`).
+is a Python loop over eager calls. On the card a frame holds no host
+synchronisation: the tracker step is one kernel launch whose auctions loop
+on the device (tracker/device_tracker.py `tracker_step`). Under
+UNICORN_ASSIGN=greedy the step is the plain form, whose mutual-best rounds
+are fixed in number and read nothing back either.
 
 `pipelined=True` overlaps the detector of frame i with the tracker of
 frame i - 1, JAX's `chunk_step_pipelined`: on the card the detector runs on
 one CUDA stream and the tracker on a second, ordered by events. The
-detector of frame i is enqueued before the tracker of frame i - 1, whose
-auction blocks the host: that wait is when the card runs the detector
-ahead. The tracker steps run in the same order on the same detections, so
-the outputs equal the plain chunk's.
+detector of frame i is enqueued before the tracker of frame i - 1; neither
+waits for the host, which enqueues both streams' work, and the card runs
+them as the events allow. The tracker steps run in the same order on the
+same detections, so the outputs equal the plain chunk's.
 
 `MultiStreamMOT` serves S independent streams on one card, or split over
 the ranks of a process mesh: a tick is one frame of each stream through one

@@ -13,12 +13,23 @@ tracker's Hungarian solver, so device and host ids agree on crowded frames;
 the two-stage BYTE logic (high/low split, unconfirmed handling, lost buffer)
 is that of tracker/byte_tracker.py.
 
+Two forms of the step, one result. On CUDA tensors `tracker_step` is one
+launch of csrc/tracker_step.cu (`tracker_step_cuda`): a thread block a
+stream runs the whole step, the auctions looping on the card until no row
+can bid, as the JAX version's `while_loop` does, so a frame holds no host
+synchronisation. On CPU tensors it is `tracker_step_plain`, eager tensor
+code whose auction reads its loop condition on the host between blocks of
+rounds; the CPU tests hold it against the JAX package, and the card tests
+hold the kernel against it.
+
 Ties: every argmax here takes the first maximum (`torch.argmax`), as
 `jnp.argmax` does; one flipped tie would change ids for the rest of a
 stream. Scatters repeat an index only on a scratch slot that is dropped.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 from typing import NamedTuple
 
@@ -32,12 +43,18 @@ S_EMPTY, S_TRACKED, S_LOST = 0, 1, 2
 # auction rounds run between two reads of the loop's condition
 AUCTION_BLOCK = 8
 
-# host-side counts since they were last set to 0: auction_assign calls,
-# rounds run, and reads of the loop condition (each a host synchronisation
-# on the card, and a `tracker.sync` span). Read by the benchmark's serving
-# kind (benchmark/kinds/mot_streams.py) for `tracker.syncs_per_tick`, and by
-# chip_smoke.py
-auction_stats = {"calls": 0, "rounds": 0, "syncs": 0}
+# host-side counts since they were last set to 0: the plain auction's calls,
+# rounds run and reads of the loop condition (each a host synchronisation
+# on the card, and a `tracker.sync` span), and the steps the kernel ran
+# (`fused_steps`, one launch of csrc/tracker_step.cu each; the kernel path
+# leaves the other three at 0). Read by the benchmark's serving kind
+# (benchmark/kinds/mot_streams.py) for `tracker.syncs_per_tick` and
+# `tracker.fused_steps_per_tick`, and by chip_smoke.py
+auction_stats = {"calls": 0, "rounds": 0, "syncs": 0, "fused_steps": 0}
+
+# the kernel's limits (csrc/tracker_step.cu MAX_T, MAX_D)
+MAX_TRACKS = 1024
+MAX_DETS = 1024
 
 
 class TrackState(NamedTuple):
@@ -175,7 +192,9 @@ def auction_assign(cost, row_valid, col_valid, thresh, eps: float = 2e-4,
     convergence changes nothing (no bidder, so no price and no owner moves),
     for one stream as for all of them, so the matching is the JAX loop's;
     rounds are never capped below what the data needs (max_iter is the JAX
-    version's)."""
+    version's). This is the plain form's auction; the kernel
+    (csrc/tracker_step.cu) runs the same rounds on the card, each stream
+    stopping when its own rows stop bidding."""
     NEG = -1e9
     S, R, C = cost.shape
     dev = cost.device
@@ -302,6 +321,14 @@ def _place(dst, src, idx, mask):
     return pad[:, :T]
 
 
+def _fused(device: torch.device) -> bool:
+    """Whether `tracker_step` runs as the kernel: on a CUDA device, unless
+    UNICORN_ASSIGN=greedy selects the mutual-best assignment, which only the
+    plain form has."""
+    return (device.type == "cuda"
+            and os.environ.get("UNICORN_ASSIGN") != "greedy")
+
+
 @torch.no_grad()
 @spanned("tracker.step")
 def tracker_step(ts: TrackState, dets, det_valid, track_thresh: float = 0.6,
@@ -311,7 +338,126 @@ def tracker_step(ts: TrackState, dets, det_valid, track_thresh: float = 0.6,
 
     dets (S, D, 5) [x1, y1, x2, y2, score] padded; det_valid (S, D) bool.
     Returns (new_state, out (S, T, 6) [x1, y1, x2, y2, score, track_id] of
-    the slots that are tracked and activated, out_valid (S, T))."""
+    the slots that are tracked and activated, out_valid (S, T)).
+
+    On CUDA tensors one launch of the kernel (`tracker_step_cuda`), with no
+    host synchronisation; on CPU tensors, and on either device under
+    UNICORN_ASSIGN=greedy (an assignment the kernel does not implement), the
+    plain form `tracker_step_plain`."""
+    if _fused(dets.device):
+        return tracker_step_cuda(ts, dets, det_valid, track_thresh,
+                                 match_thresh, max_time_lost,
+                                 det_thresh_offset)
+    return tracker_step_plain(ts, dets, det_valid, track_thresh,
+                              match_thresh, max_time_lost, det_thresh_offset)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The built kernel library with its C signature declared."""
+    from ..csrc import build
+
+    lib = build.load("tracker_step")
+    lib.tracker_step_launch.argtypes = (
+        [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_float] * 3
+        + [ctypes.c_int, ctypes.c_void_p])
+    lib.tracker_step_launch.restype = ctypes.c_int
+    lib.tracker_step_error_string.argtypes = [ctypes.c_int]
+    lib.tracker_step_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+_rounds: dict = {}
+
+
+def fused_rounds(device="cuda") -> torch.Tensor:
+    """(3,) int64 on the device: the rounds the kernel's three auctions have
+    run there since the process started, summed over streams (a round in
+    which some row bid). The kernel adds to it; read it as a difference
+    (a read synchronises)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev not in _rounds:
+        _rounds[dev] = torch.zeros(3, dtype=torch.int64, device=dev)
+    return _rounds[dev]
+
+
+# each TrackState field's dtype and shape after (S, T) (None: (S,))
+_FIELDS = TrackState(*[(torch.float32, (8,)), (torch.float32, (8, 8))]
+                     + [(dt, ()) for dt in (
+                         torch.int32, torch.bool, torch.int32, torch.float32,
+                         torch.int32, torch.int32)]
+                     + [(torch.int32, None)] * 2)
+
+
+def _check(ts: TrackState, dets, det_valid):
+    """Raise on what the kernel does not take."""
+    if dets.dim() != 3 or dets.shape[2] != 5:
+        raise ValueError(f"tracker_step_cuda: dets must be (S, D, 5), got "
+                         f"{tuple(dets.shape)}")
+    S, D = dets.shape[:2]
+    T = ts.state.shape[-1]
+    if not (S >= 1 and 1 <= T <= MAX_TRACKS and 1 <= D <= MAX_DETS):
+        raise ValueError(f"tracker_step_cuda: S {S}, T {T}, D {D} outside "
+                         f"the kernel's limits (S >= 1, 1 <= T <= "
+                         f"{MAX_TRACKS}, 1 <= D <= {MAX_DETS})")
+    want = [(dets, torch.float32, (S, D, 5), "dets"),
+            (det_valid, torch.bool, (S, D), "det_valid")]
+    for name, x, (dtype, tail) in zip(TrackState._fields, ts, _FIELDS):
+        want.append((x, dtype, (S,) if tail is None else (S, T) + tail, name))
+    for x, dtype, shape, name in want:
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"tracker_step_cuda: {name} must be {dtype} "
+                             f"{shape}, got {x.dtype} {tuple(x.shape)}")
+        if x.device != dets.device:
+            raise ValueError(f"tracker_step_cuda: {name} is on {x.device}, "
+                             f"dets on {dets.device}")
+
+
+@torch.no_grad()
+def tracker_step_cuda(ts: TrackState, dets, det_valid,
+                      track_thresh: float = 0.6, match_thresh: float = 0.9,
+                      max_time_lost: int = 30,
+                      det_thresh_offset: float = 0.1):
+    """`tracker_step_plain` as one launch of csrc/tracker_step.cu on
+    PyTorch's current stream: the same arguments and results, on CUDA
+    tensors of the dtypes `init_state` makes and float32 detections, with
+    1 <= T <= MAX_TRACKS and 1 <= D <= MAX_DETS (it raises otherwise).
+    Outputs and the (S, T, D) IoU scratch are allocated here; nothing is
+    read back to the host."""
+    _check(ts, dets, det_valid)
+    S, D = dets.shape[:2]
+    T = ts.state.shape[1]
+    dev = dets.device
+    src = [x.contiguous() for x in ts]
+    new = TrackState(*[torch.empty_like(x) for x in src])
+    out = torch.empty(S, T, 6, dtype=torch.float32, device=dev)
+    out_valid = torch.empty(S, T, dtype=torch.bool, device=dev)
+    iou = torch.empty(S, T, D, dtype=torch.float32, device=dev)
+    tensors = (*src, dets.contiguous(), det_valid.contiguous(), *new, out,
+               out_valid, iou, fused_rounds(dev))
+    ptrs = (ctypes.c_void_p * len(tensors))(*[x.data_ptr() for x in tensors])
+    lib = _lib()
+    err = lib.tracker_step_launch(
+        ptrs, S, T, D, track_thresh, match_thresh,
+        track_thresh + det_thresh_offset, max_time_lost,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"tracker_step launch failed: {err} "
+                           f"({lib.tracker_step_error_string(err).decode()})"
+                           f" at S {S}, T {T}, D {D}")
+    auction_stats["fused_steps"] += 1
+    return new, out, out_valid
+
+
+@torch.no_grad()
+def tracker_step_plain(ts: TrackState, dets, det_valid,
+                       track_thresh: float = 0.6, match_thresh: float = 0.9,
+                       max_time_lost: int = 30,
+                       det_thresh_offset: float = 0.1):
+    """`tracker_step` as eager tensor code, on any device: the form the CPU
+    runs and the kernel is held against."""
     S, T = ts.state.shape
     D = dets.shape[1]
     dev = dets.device
